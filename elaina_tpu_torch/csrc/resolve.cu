@@ -1,0 +1,297 @@
+// Dirichlet-resolve kernels for Hopper (sm_90a), bound through ctypes.
+//
+// They replace the three Pallas kernels of elaina_tpu/ops/pallas_resolve.py
+// that run on the 2D main path of every depth step:
+//
+//   K1 compact_lanes  (pallas_resolve.py:594) -> compact_count/scan/write
+//   K2 sweep_resolve  (pallas_resolve.py:194, body _sweep_kernel :113)
+//                                            -> sweep_resolve_kernel
+//   K3 fetch_colors   (pallas_resolve.py:540, _fetch_colors_impl :481)
+//                                            -> fetch_colors_kernel
+//
+// The contracts are the TPU kernels'; the TPU shapes are not carried over:
+// a bool mask (N,) replaces the bitmask words, and there are no scalar
+// bit scans, block-any flags, one-hot picks or lane chunks.  Each launch
+// function enqueues on the caller's stream, allocates nothing, and returns
+// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+//
+// Built with -fmad=false: contracted multiply-adds would move the distance
+// in its last bits against the plain PyTorch version; without them the
+// segment math below rounds exactly as the plain version does.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// --------------------------------------------------------------------------
+// K1: lane compaction.  Bound by reading the mask (N bytes) and writing
+// the ids (4 bytes per set lane): three passes over ~1 MB at 1024^2 lanes.
+// Pass 1 counts set lanes per 1024-lane tile, pass 2 scans the tile counts
+// in one block (the total is the count, which keeps counting past cap),
+// pass 3 rescans each tile and writes the ids in ascending order; only
+// the first cap ids are written.
+// --------------------------------------------------------------------------
+
+constexpr int CT_THREADS = 256;
+constexpr int CT_PER_THREAD = 4;
+constexpr int CT_TILE = CT_THREADS * CT_PER_THREAD;
+constexpr int SCAN_THREADS = 1024;
+
+// Exclusive prefix sum of v over the block; *total gets the block sum.
+// smem holds 32 ints; the block size is a multiple of 32.
+__device__ int block_exclusive_scan(int v, int* smem, int* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    int y = __shfl_up_sync(FULL, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) smem[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < n_warps ? smem[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      int y = __shfl_up_sync(FULL, w, o);
+      if (lane >= o) w += y;
+    }
+    smem[lane] = w;
+  }
+  __syncthreads();
+  const int warp_prefix = warp > 0 ? smem[warp - 1] : 0;
+  *total = smem[n_warps - 1];
+  __syncthreads();  // smem is reused by the caller's next scan
+  return warp_prefix + x - v;
+}
+
+__global__ void compact_count(const uint8_t* __restrict__ mask, int64_t n,
+                              int32_t* __restrict__ tile_counts) {
+  __shared__ int smem[32];
+  const int64_t base =
+      (int64_t)blockIdx.x * CT_TILE + (int64_t)threadIdx.x * CT_PER_THREAD;
+  int c = 0;
+#pragma unroll
+  for (int j = 0; j < CT_PER_THREAD; ++j) {
+    const int64_t i = base + j;
+    c += (i < n && mask[i]) ? 1 : 0;
+  }
+  int total;
+  block_exclusive_scan(c, smem, &total);
+  if (threadIdx.x == 0) tile_counts[blockIdx.x] = total;
+}
+
+__global__ void compact_scan(const int32_t* __restrict__ tile_counts,
+                             int64_t n_tiles,
+                             int32_t* __restrict__ tile_offsets,
+                             int32_t* __restrict__ cnt) {
+  __shared__ int smem[32];
+  int carry = 0;
+  for (int64_t base = 0; base < n_tiles; base += blockDim.x) {
+    const int64_t i = base + threadIdx.x;
+    const int v = i < n_tiles ? tile_counts[i] : 0;
+    int total;
+    const int ex = block_exclusive_scan(v, smem, &total);
+    if (i < n_tiles) tile_offsets[i] = carry + ex;
+    carry += total;
+  }
+  if (threadIdx.x == 0) cnt[0] = carry;
+}
+
+__global__ void compact_write(const uint8_t* __restrict__ mask, int64_t n,
+                              const int32_t* __restrict__ tile_offsets,
+                              int32_t cap, int32_t* __restrict__ lanes) {
+  __shared__ int smem[32];
+  const int64_t base =
+      (int64_t)blockIdx.x * CT_TILE + (int64_t)threadIdx.x * CT_PER_THREAD;
+  bool m[CT_PER_THREAD];
+  int c = 0;
+#pragma unroll
+  for (int j = 0; j < CT_PER_THREAD; ++j) {
+    const int64_t i = base + j;
+    m[j] = i < n && mask[i];
+    c += m[j] ? 1 : 0;
+  }
+  int total;
+  int pos = tile_offsets[blockIdx.x] + block_exclusive_scan(c, smem, &total);
+#pragma unroll
+  for (int j = 0; j < CT_PER_THREAD; ++j) {
+    if (m[j]) {
+      if (pos < cap) lanes[pos] = (int32_t)(base + j);
+      ++pos;
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// K2: exact closest segment among a lane's candidate row, on masked lanes.
+// One warp per lane strides over the Kp slots of the row's coordinate
+// planes (R, 4, Kp) = ax | ay | bx | by, so each load instruction of the
+// warp reads 128 contiguous bytes.  Bound by those loads: 16 bytes per
+// candidate, 4 KB per lane at K = 256, ~20 flops per candidate.  The
+// winner is the lexicographic argmin over (d^2, slot) by warp shuffle,
+// which keeps the smallest slot among equal d^2 as the TPU kernel's
+// strict < does.  Padded slots hold 1e9, so their d^2 (~1e18) stays
+// finite.  Unmasked lanes get d = t = side = 0 and pid = -1.
+// --------------------------------------------------------------------------
+
+constexpr int SWEEP_THREADS = 256;
+
+__global__ void sweep_resolve_kernel(
+    const uint8_t* __restrict__ mask, const int32_t* __restrict__ row,
+    const float* __restrict__ q, const float* __restrict__ coords,
+    const int32_t* __restrict__ cand, int64_t n, int32_t K, int32_t Kp,
+    float* __restrict__ d_out, float* __restrict__ t_out,
+    float* __restrict__ side_out, int32_t* __restrict__ pid_out) {
+  const int64_t i =
+      ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (i >= n) return;
+  if (!mask[i]) {
+    if (lane == 0) {
+      d_out[i] = 0.f;
+      t_out[i] = 0.f;
+      side_out[i] = 0.f;
+      pid_out[i] = -1;
+    }
+    return;
+  }
+  const int64_t r = row[i];
+  const float qx = q[2 * i];
+  const float qy = q[2 * i + 1];
+  const float* ax_p = coords + r * 4 * Kp;
+  const float* ay_p = ax_p + Kp;
+  const float* bx_p = ay_p + Kp;
+  const float* by_p = bx_p + Kp;
+
+  float best_d2 = __int_as_float(0x7f800000);  // +inf
+  int best_slot = Kp;
+  float best_t = 0.f;
+  float best_side = 0.f;
+  for (int k = lane; k < Kp; k += 32) {
+    const float ax = ax_p[k];
+    const float ay = ay_p[k];
+    const float ex = bx_p[k] - ax;
+    const float ey = by_p[k] - ay;
+    const float wx = qx - ax;
+    const float wy = qy - ay;
+    const float den = fmaxf(ex * ex + ey * ey, 1e-30f);
+    const float t = fminf(fmaxf((wx * ex + wy * ey) / den, 0.f), 1.f);
+    const float dx = wx - t * ex;
+    const float dy = wy - t * ey;
+    const float d2 = dx * dx + dy * dy;
+    if (d2 < best_d2) {
+      best_d2 = d2;
+      best_slot = k;
+      best_t = t;
+      best_side = ex * wy - ey * wx;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float od2 = __shfl_down_sync(FULL, best_d2, o);
+    const int os = __shfl_down_sync(FULL, best_slot, o);
+    const float ot = __shfl_down_sync(FULL, best_t, o);
+    const float oside = __shfl_down_sync(FULL, best_side, o);
+    if (od2 < best_d2 || (od2 == best_d2 && os < best_slot)) {
+      best_d2 = od2;
+      best_slot = os;
+      best_t = ot;
+      best_side = oside;
+    }
+  }
+  if (lane == 0) {
+    d_out[i] = sqrtf(best_d2);
+    t_out[i] = best_t;
+    side_out[i] = best_side;
+    pid_out[i] = best_slot < K ? cand[r * K + best_slot] : -1;
+  }
+}
+
+// --------------------------------------------------------------------------
+// K3: the two endpoint colors of color row cfi = 2 * pid + (side < 0), on
+// masked lanes.  One thread per lane; bound by the 24-byte row load and the
+// 24-byte write per set lane (a random-access load: L2 serves the rows of
+// boundary-hugging lanes).  Unmasked lanes, and rows out of range, get 0.
+// --------------------------------------------------------------------------
+
+constexpr int COLOR_THREADS = 256;
+
+__global__ void fetch_colors_kernel(const uint8_t* __restrict__ mask,
+                                    const int32_t* __restrict__ cfi,
+                                    const float* __restrict__ rows,
+                                    int64_t n, int64_t n_rows,
+                                    float* __restrict__ c0,
+                                    float* __restrict__ c1) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int64_t r = cfi[i];
+  const bool on = mask[i] && r >= 0 && r < n_rows;
+  const float* src = rows + (on ? r : 0) * 6;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    c0[3 * i + c] = on ? src[c] : 0.f;
+    c1[3 * i + c] = on ? src[3 + c] : 0.f;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Scratch: 2 * ceil(n / 1024) int32 (tile counts, tile offsets).
+int compact_lanes_launch(const void* mask, int64_t n, int32_t cap,
+                         void* lanes, void* cnt, void* scratch,
+                         void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int64_t n_tiles = (n + CT_TILE - 1) / CT_TILE;
+  int32_t* tile_counts = (int32_t*)scratch;
+  int32_t* tile_offsets = tile_counts + n_tiles;
+  if (n_tiles > 0) {
+    compact_count<<<(unsigned)n_tiles, CT_THREADS, 0, s>>>(
+        (const uint8_t*)mask, n, tile_counts);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  compact_scan<<<1, SCAN_THREADS, 0, s>>>(tile_counts, n_tiles,
+                                          tile_offsets, (int32_t*)cnt);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_tiles == 0) return (int)e;
+  compact_write<<<(unsigned)n_tiles, CT_THREADS, 0, s>>>(
+      (const uint8_t*)mask, n, tile_offsets, cap, (int32_t*)lanes);
+  return (int)cudaGetLastError();
+}
+
+int sweep_resolve_launch(const void* mask, const void* row, const void* q,
+                         const void* coords, const void* cand, int64_t n,
+                         int32_t K, int32_t Kp, void* d, void* t, void* side,
+                         void* pid, void* stream) {
+  if (n == 0) return 0;
+  const int lanes_per_block = SWEEP_THREADS / 32;
+  const int64_t blocks = (n + lanes_per_block - 1) / lanes_per_block;
+  sweep_resolve_kernel<<<(unsigned)blocks, SWEEP_THREADS, 0,
+                         (cudaStream_t)stream>>>(
+      (const uint8_t*)mask, (const int32_t*)row, (const float*)q,
+      (const float*)coords, (const int32_t*)cand, n, K, Kp, (float*)d,
+      (float*)t, (float*)side, (int32_t*)pid);
+  return (int)cudaGetLastError();
+}
+
+int fetch_colors_launch(const void* mask, const void* cfi, const void* rows,
+                        int64_t n, int64_t n_rows, void* c0, void* c1,
+                        void* stream) {
+  if (n == 0) return 0;
+  const int64_t blocks = (n + COLOR_THREADS - 1) / COLOR_THREADS;
+  fetch_colors_kernel<<<(unsigned)blocks, COLOR_THREADS, 0,
+                        (cudaStream_t)stream>>>(
+      (const uint8_t*)mask, (const int32_t*)cfi, (const float*)rows, n,
+      n_rows, (float*)c0, (float*)c1);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,90 @@
+"""Experiment runner: config JSON -> problem -> integrator -> exports.
+
+Port of ``elaina_tpu/exec.py`` (reference: exec.cu run_expr): copies the
+config next to the outputs, runs the uniform integrator's SOLUTION
+channel, performs the export list and writes ``result.json`` with the
+solve duration, the walk steps and the exactly resolved lane-steps, the
+scene tables' sizes, the solve's peak device memory on CUDA, and a
+timestamp.
+
+The device is CUDA when PyTorch sees a GPU and the CPU otherwise
+(``CUDA_VISIBLE_DEVICES`` picks the card).
+"""
+
+from __future__ import annotations
+
+import datetime
+import json
+import os
+
+import torch
+
+from .core.config import ExperimentConfig
+from .core.logger import log_error, log_success
+from .core.problem import Problem
+from .solver.integrator import CHANNELS, UniformIntegrator
+
+
+def _cache_dir() -> str:
+    """On-disk candidate-grid cache, overridable with ELAINA_CACHE_DIR."""
+    d = os.environ.get("ELAINA_CACHE_DIR",
+                       os.path.expanduser("~/.cache/elaina_tpu_torch"))
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def run_expr(conf_path: str) -> dict:
+    conf_path = os.path.abspath(conf_path)
+    if not os.path.exists(conf_path):
+        log_error("Configuration file does not exist: %s", conf_path)
+        return {}
+    cfg = ExperimentConfig.from_file(conf_path)
+    if cfg.integrator_type != "uniform":
+        raise NotImplementedError(
+            f"integrator {cfg.integrator_type!r}: the guided integrator "
+            f"arrives with the ROADMAP item 'guided'")
+    for channel in set(cfg.channels) | {e.channel for e in cfg.exports}:
+        if channel not in CHANNELS:
+            raise NotImplementedError(
+                f"channel {channel!r} arrives with the ROADMAP item "
+                f"'other channels and masks'")
+    out_dir = os.path.join(cfg.base_path, cfg.exp_name)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(conf_path) as f:
+        raw_conf = json.load(f)
+    with open(os.path.join(out_dir, "conf.json"), "w") as f:
+        json.dump(raw_conf, f, indent=4)
+    log_success("Configuration file copied to %s",
+                os.path.join(out_dir, "conf.json"))
+
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    problem = Problem(cfg.dimensionality, device).load_config(
+        cfg.scene, base_dir=os.getcwd(), cache_dir=_cache_dir())
+    integrator = UniformIntegrator(problem, cfg.settings, out_dir)
+
+    result: dict = {}
+    if problem.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(problem.device)
+    if "SOLUTION" in cfg.channels:
+        result["duration"] = integrator.solve()
+        result["walk_steps"] = integrator.total_walk_steps
+        result["resolved_lanes"] = integrator.total_resolved
+    for e in cfg.exports:
+        if e.type == "image":
+            integrator.export_image(e.channel, e.file_name)
+        elif e.type == "energy":
+            integrator.export_energy(e.channel, e.tone, e.file_name)
+        else:
+            log_error("Unrecognized export type %r, skipping...", e.type)
+    result["device"] = str(problem.device)
+    result["table_bytes"] = problem.table_bytes()
+    if problem.device.type == "cuda":
+        result["peak_device_bytes"] = torch.cuda.max_memory_allocated(
+            problem.device)
+    result["timestamp"] = datetime.datetime.now().strftime(
+        "%Y-%m-%d %H:%M:%S")
+    with open(os.path.join(out_dir, "result.json"), "w") as f:
+        json.dump(result, f, indent=4)
+    log_success("Result file written to %s",
+                os.path.join(out_dir, "result.json"))
+    return result

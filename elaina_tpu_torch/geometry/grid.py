@@ -1,0 +1,390 @@
+"""Adaptive candidate grid + FinePack for exact closest-segment queries.
+
+Port of the parts of ``elaina_tpu/geometry/grid.py`` that the 2D uniform
+slice reads.  The build is the reference's, level for level: every cell of
+a grid over the domain keeps the band of primitives that can be the
+nearest one for some point in the cell; cells whose band exceeds K split
+2x per axis, up to ``max_levels``.  The per-level band passes run in the
+native library (``native/scene_build.cpp``); the result is cached on disk
+under the reference's key, in the reference's file format.
+
+The FinePack collapses the refinement chain into one int32 per finest
+cell: bit 31 the need flag (baked with the solve's eps), bits 30..20 a
+quantized lower bound of the boundary distance, bits 19..0 the candidate
+row.  ``fine_decode`` turns a query point into (row, need, bound) with one
+load.  The port builds it on the host by upsampling level by level, in
+place of the reference's TPU-tiled interleaves.
+
+Device layouts are the port's own: the coordinate table is (R, 4, Kp)
+planes ax, ay, bx, by with Kp = K rounded up to the warp width (padded
+slots hold PAD_COORD), so the 32 threads of a warp read 32 neighbouring
+floats; the color table is (2P, 6) rows [c0.rgb, c1.rgb] per
+(prim, side).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import logging
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+PAD_COORD = 1.0e9     # far-away coordinate for padded candidate slots
+FINE_BUCKETS = 2047
+FINE_ROW_MASK = (1 << 20) - 1
+WARP = 32
+_FINE_CELL_CAP = 300_000_000   # dense finest-grid cap (1.2 GB int32)
+_COORD_CHUNK_ROWS = 1 << 16
+
+
+@dataclass
+class GridArrays:
+    """Host (numpy) result of ``build_candidate_grid``; the same fields as
+    the reference's CandidateGrid."""
+
+    origin: np.ndarray       # (D,) f32
+    inv_cell: np.ndarray     # (D,) f32 level-0 cells per world unit
+    res: tuple               # level-0 cell counts per axis
+    cand: np.ndarray         # (R, K) int32 prim rows, -1 padded
+    meta: list               # per-level int32: >= 0 row id, < 0 pointer
+    coverage: float          # 1.0 if every leaf band fit K
+    lbound: np.ndarray       # (C0,) f32 level-0 cell lower bound
+    row_lbound: np.ndarray   # (R,) f32 leaf-cell lower bound
+    row_diag: np.ndarray     # (R,) f32 leaf-cell diameter
+    row_trunc: np.ndarray    # (R,) bool band exceeded K (nearest-K kept)
+
+
+@dataclass
+class FinePack:
+    packed: torch.Tensor     # (prod(res),) int32
+    origin: torch.Tensor     # (D,) f32
+    inv_cell: torch.Tensor   # (D,) f32 finest cells per world unit
+    r0: float                # quantization base (an exact f32 value)
+    res: tuple               # finest resolution per axis
+    s: float                 # buckets per octave
+    eps: float               # epsilon the need bit was baked with
+
+
+@dataclass
+class CandidateGrid:
+    origin: torch.Tensor     # (D,) f32
+    inv_cell: torch.Tensor   # (D,) f32
+    res: tuple
+    cand: torch.Tensor       # (R, K) int32
+    meta: list               # host int32 arrays (FinePack build input)
+    row_lbound: torch.Tensor  # (R,) f32
+    row_diag: torch.Tensor   # (R,) f32
+    row_trunc: torch.Tensor  # (R,) bool
+    trunc_min_rl: float      # min row_lbound over truncated rows (inf: none)
+    coords: torch.Tensor     # (R, 4, Kp) f32 planes ax, ay, bx, by
+    color_rows: torch.Tensor  # (2P, 6) f32 [c0.rgb, c1.rgb] per (prim, side)
+    fine: FinePack | None = None
+
+
+# --------------------------------------------------------------------------- #
+# build
+# --------------------------------------------------------------------------- #
+
+
+def _cell_centers(lo, hi, res):
+    dim = len(res)
+    axes = [lo[d] + (np.arange(res[d]) + 0.5) * (hi[d] - lo[d]) / res[d]
+            for d in range(dim)]
+    mesh = np.meshgrid(*axes, indexing="ij")
+    return np.stack([m.reshape(-1) for m in mesh], axis=-1).astype(np.float32)
+
+
+def _children_centers(centers, hcell, dim):
+    """2^dim children per cell; child ordinal bit d set <-> upper half of
+    axis d."""
+    offs = []
+    for sub in range(2 ** dim):
+        offs.append([(0.25 if (sub >> d) & 1 else -0.25) * 2.0 * hcell[d]
+                     for d in range(dim)])
+    offs = np.asarray(offs, np.float32)
+    return (centers[:, None, :] + offs[None]).reshape(-1, dim)
+
+
+def build_candidate_grid(verts: np.ndarray, indices: np.ndarray,
+                         lo: np.ndarray, hi: np.ndarray, K: int = 256,
+                         max_res: int = 2048, max_levels: int = 6,
+                         cache_dir: str | None = None) -> GridArrays:
+    """Build the adaptive candidate grid on the host (cached by geometry
+    hash).  Level 0 targets 512 cells on the longest 2D axis, capped at
+    ``max_res``; cells whose band exceeds K subdivide."""
+    from .native import grid_band_full_native
+
+    verts = np.ascontiguousarray(verts, np.float32)
+    indices = np.ascontiguousarray(indices, np.int32)
+    dim = indices.shape[1]
+    lo = np.asarray(lo, np.float32)
+    hi = np.asarray(hi, np.float32)
+    span = hi - lo
+
+    key = hashlib.sha1(
+        b"v6" + verts.tobytes() + indices.tobytes() + lo.tobytes()
+        + hi.tobytes() + np.int64([K, max_res, max_levels]).tobytes()
+    ).hexdigest()[:16]
+    cache_path = (os.path.join(cache_dir, f"candgrid_{key}.npz")
+                  if cache_dir else None)
+    if cache_path and os.path.exists(cache_path):
+        z = np.load(cache_path)
+        rlb = np.asarray(z["row_lbound"])
+        return GridArrays(
+            origin=np.asarray(z["origin"]), inv_cell=np.asarray(z["inv_cell"]),
+            res=tuple(int(r) for r in z["res"]), cand=np.asarray(z["cand"]),
+            meta=[np.asarray(z[f"meta_{i}"])
+                  for i in range(int(z["n_levels"]))],
+            coverage=float(z["coverage"]), lbound=np.asarray(z["lbound"]),
+            row_lbound=rlb, row_diag=np.asarray(z["row_diag"]),
+            row_trunc=np.asarray(z["row_trunc"] if "row_trunc" in z
+                                 else np.zeros(rlb.shape, bool)))
+
+    base = 512 if dim == 2 else 64
+    res = tuple(int(np.clip(base * span[d] / max(span), 8, max_res))
+                for d in range(dim))
+    centers = _cell_centers(lo, hi, res)
+    hcell = 0.5 * span / np.asarray(res, np.float64)
+
+    metas, row_blocks, lb_blocks, tr_blocks, dg_blocks = [], [], [], [], []
+    row_base = 0
+    lbound = None
+    coverage = 1.0
+    for lvl in range(max_levels):
+        counts, rows, lcell = grid_band_full_native(verts, indices, centers,
+                                                    hcell, K)
+        if lvl == 0:
+            lbound = lcell
+        last = lvl == max_levels - 1
+        # deep-interior cutoff (3D, levels 0-1): see the reference build
+        deep = ((lcell > 4.0 * np.linalg.norm(hcell)) & (counts > K)
+                if lvl <= 1 and dim == 3 else np.zeros_like(counts, bool))
+        fit = (counts <= K) | deep if not last else np.ones_like(counts, bool)
+        trunc = counts > K if last else deep
+        if trunc.any():
+            coverage = 0.0
+            logging.getLogger("elaina").warning(
+                "candidate grid: %d cells keep nearest-%d truncated bands "
+                "at level %d (max band %d)", int(trunc.sum()), K, lvl,
+                int(counts.max()))
+        fit_idx = np.flatnonzero(fit)
+        over_idx = np.flatnonzero(~fit)
+        meta = np.empty((centers.shape[0],), np.int32)
+        meta[fit_idx] = row_base + np.arange(fit_idx.shape[0], dtype=np.int32)
+        meta[over_idx] = -np.arange(over_idx.shape[0], dtype=np.int32) - 1
+        metas.append(meta)
+        if fit_idx.shape[0]:
+            row_blocks.append(rows[fit_idx])
+            lb_blocks.append(lcell[fit_idx])
+            tr_blocks.append(counts[fit_idx] > K)
+            diam = np.float32(2.0 * np.linalg.norm(hcell))
+            dg_blocks.append(np.full((fit_idx.shape[0],), diam, np.float32))
+            row_base += fit_idx.shape[0]
+        if over_idx.shape[0] == 0:
+            break
+        centers = _children_centers(centers[over_idx], hcell, dim)
+        hcell = hcell * 0.5
+
+    cand = (np.concatenate(row_blocks, 0) if row_blocks
+            else np.full((1, K), -1, np.int32))
+    row_lbound = (np.concatenate(lb_blocks) if lb_blocks
+                  else np.zeros((1,), np.float32))
+    row_trunc = (np.concatenate(tr_blocks) if tr_blocks
+                 else np.zeros((1,), bool))
+    row_diag = (np.concatenate(dg_blocks) if dg_blocks
+                else np.full((1,), np.float32(np.inf)))
+    inv_cell = np.asarray(res, np.float32) / np.maximum(span, 1e-20)
+    if cache_path:
+        os.makedirs(cache_dir, exist_ok=True)
+        tmp = cache_path[:-4] + f".tmp{os.getpid()}.npz"
+        np.savez_compressed(
+            tmp, origin=lo, inv_cell=inv_cell, res=np.asarray(res, np.int64),
+            cand=cand, n_levels=np.int64(len(metas)),
+            coverage=np.float32(coverage), lbound=lbound,
+            row_lbound=row_lbound, row_diag=row_diag, row_trunc=row_trunc,
+            **{f"meta_{i}": m for i, m in enumerate(metas)})
+        os.replace(tmp, cache_path)
+    return GridArrays(origin=lo, inv_cell=inv_cell, res=res, cand=cand,
+                      meta=metas, coverage=coverage, lbound=lbound,
+                      row_lbound=row_lbound, row_diag=row_diag,
+                      row_trunc=row_trunc)
+
+
+# --------------------------------------------------------------------------- #
+# device tables
+# --------------------------------------------------------------------------- #
+
+
+def padded_k(K: int) -> int:
+    """Candidate slots per row in the coordinate table (warp multiple)."""
+    return -(-K // WARP) * WARP
+
+
+def coords_from_cand(cand: torch.Tensor, verts: torch.Tensor,
+                     indices: torch.Tensor) -> torch.Tensor:
+    """(R, K) candidate ids -> (R, 4, Kp) planes ax, ay, bx, by; -1 and
+    pad slots hold PAD_COORD.  Built in row chunks on cand's device."""
+    R, K = cand.shape
+    out = torch.full((R, 4, padded_k(K)), PAD_COORD, dtype=torch.float32,
+                     device=cand.device)
+    for r0 in range(0, R, _COORD_CHUNK_ROWS):
+        c = cand[r0:r0 + _COORD_CHUNK_ROWS].long()
+        valid = c >= 0
+        ends = indices[c.clamp(min=0)]                     # (r, K, 2)
+        for k in range(2):
+            for d in range(2):
+                v = verts[ends[..., k], d]
+                out[r0:r0 + c.shape[0], 2 * k + d, :K] = torch.where(
+                    valid, v, torch.full_like(v, PAD_COORD))
+    return out
+
+
+def color_rows_from(colors: torch.Tensor,
+                    indices: torch.Tensor) -> torch.Tensor:
+    """(V, 2, 3) two-sided vertex colors -> (2P, 6): row 2p + s holds the
+    side-s colors of prim p's two endpoints."""
+    c0 = colors[indices[:, 0]]                             # (P, 2, 3)
+    c1 = colors[indices[:, 1]]
+    return torch.cat([c0, c1], dim=-1).reshape(-1, 6).contiguous()
+
+
+def grid_from_numpy(*, cand, meta, row_lbound, row_diag, row_trunc, origin,
+                    inv_cell, res, verts, indices, colors,
+                    device: torch.device) -> CandidateGrid:
+    """The port's CandidateGrid from numpy arrays (the port's own build, or
+    np.asarray of a reference grid) plus the boundary's verts (V, 2),
+    indices (P, 2) and colors (V, 2, 3)."""
+    def t(a, dtype):
+        return torch.as_tensor(np.require(a, requirements=("C", "W")),
+                               dtype=dtype, device=device)
+
+    rlb = np.asarray(row_lbound, np.float32)
+    rt = np.asarray(row_trunc, bool)
+    verts_t = t(np.asarray(verts, np.float32), torch.float32)
+    idx_t = t(np.asarray(indices, np.int64), torch.int64)
+    cand_t = t(np.asarray(cand, np.int32), torch.int32)
+    return CandidateGrid(
+        origin=t(np.asarray(origin, np.float32), torch.float32),
+        inv_cell=t(np.asarray(inv_cell, np.float32), torch.float32),
+        res=tuple(int(r) for r in res), cand=cand_t,
+        meta=[np.asarray(m, np.int32) for m in meta],
+        row_lbound=t(rlb, torch.float32),
+        row_diag=t(np.asarray(row_diag, np.float32), torch.float32),
+        row_trunc=t(rt, torch.bool),
+        trunc_min_rl=float(rlb[rt].min()) if rt.any() else float("inf"),
+        coords=coords_from_cand(cand_t, verts_t, idx_t),
+        color_rows=color_rows_from(t(np.asarray(colors, np.float32),
+                                     torch.float32), idx_t))
+
+
+# --------------------------------------------------------------------------- #
+# FinePack
+# --------------------------------------------------------------------------- #
+
+
+def _meta_coords_np(metas: list, res0) -> list:
+    """Per-level integer cell coords (n_l, D) of every meta entry: a
+    level-(l+1) entry e descends from the level-l pointer with ordinal
+    e >> D, child offset bit d <-> upper half of axis d."""
+    dim = len(res0)
+    coords = [np.stack(np.meshgrid(*[np.arange(r) for r in res0],
+                                   indexing="ij"), -1).reshape(-1, dim)]
+    for lvl in range(1, len(metas)):
+        prev = metas[lvl - 1]
+        neg = np.flatnonzero(prev < 0)
+        parent_of_ord = np.empty(neg.shape[0], np.int64)
+        parent_of_ord[-prev[neg].astype(np.int64) - 1] = neg
+        e = np.arange(metas[lvl].shape[0], dtype=np.int64)
+        parent = coords[lvl - 1][parent_of_ord[e >> dim]]
+        sub = e & (2 ** dim - 1)
+        off = np.stack([(sub >> d) & 1 for d in range(dim)], -1)
+        coords.append(parent * 2 + off)
+    return coords
+
+
+def _bucket_table(row_lbound: np.ndarray, eps: float, s: float):
+    """(packed0 (R,) int32 leaf entries, r0) — bucket b of each row's lower
+    bound and the need bit ``decoded bound < eps``."""
+    rl = np.asarray(row_lbound, np.float32)
+    rl_pos = np.where(rl > 0, rl, np.float32(np.inf))
+    r0 = np.float32(max(np.min(np.where(np.isfinite(rl_pos), rl_pos,
+                                        np.float32(1.0))), 1e-12))
+    finite = np.isfinite(rl)
+    ratio = np.maximum(np.where(finite, rl, r0), r0) / r0
+    b = np.floor(np.log2(ratio) * np.float32(s)).astype(np.int32) + 1
+    b = np.where(rl <= r0, 0, b)
+    b = np.where(finite, np.clip(b, 0, FINE_BUCKETS - 1), FINE_BUCKETS - 1)
+    rl_dec = np.where(
+        b == 0, np.float32(0.0),
+        r0 * np.exp2((b.astype(np.float32) - np.float32(1.0)) / np.float32(s))
+        * np.float32(1.0 - 1.9e-6))
+    need = rl_dec < np.float32(eps)
+    rows = np.arange(rl.shape[0], dtype=np.int32)
+    packed0 = rows | (b.astype(np.int32) << 20) | np.where(
+        need, np.int32(-2 ** 31), np.int32(0))
+    return packed0.astype(np.int32), float(r0)
+
+
+def build_fine_pack(grid: CandidateGrid, eps: float,
+                    s: float = 64.0) -> FinePack:
+    """Expand the refinement chain into the dense finest-level table: the
+    level-0 leaves upsample 2x per axis per level, and each deeper level's
+    leaves overwrite the cells they cover."""
+    dim = len(grid.res)
+    L = len(grid.meta)
+    if grid.cand.shape[0] > FINE_ROW_MASK:
+        raise ValueError(f"{grid.cand.shape[0]} candidate rows exceed the "
+                         f"FinePack's 20-bit row field")
+    fine_res = tuple(r << (L - 1) for r in grid.res)
+    if int(np.prod(fine_res)) > _FINE_CELL_CAP:
+        raise ValueError(f"FinePack of {fine_res} cells exceeds the "
+                         f"{_FINE_CELL_CAP}-cell cap")
+    packed0, r0 = _bucket_table(grid.row_lbound.cpu().numpy(), eps, s)
+    metas = grid.meta
+    coords = _meta_coords_np(metas, grid.res)
+    cur = packed0[np.maximum(metas[0], 0)].reshape(grid.res)
+    for lvl in range(1, L):
+        for d in range(dim):
+            cur = np.repeat(cur, 2, axis=d)
+        leaf = np.flatnonzero(metas[lvl] >= 0)
+        cur[tuple(coords[lvl][leaf].T)] = packed0[metas[lvl][leaf]]
+    return fine_pack_from_numpy(
+        packed=cur.reshape(-1), origin=grid.origin.cpu().numpy(),
+        inv_cell=(grid.inv_cell * float(1 << (L - 1))).cpu().numpy(),
+        r0=r0, res=fine_res, s=s, eps=eps, device=grid.cand.device)
+
+
+def fine_pack_from_numpy(*, packed, origin, inv_cell, r0, res, s, eps,
+                         device: torch.device) -> FinePack:
+    return FinePack(
+        packed=torch.as_tensor(np.require(packed, np.int32, ("C", "W")),
+                               device=device),
+        origin=torch.tensor(np.asarray(origin, np.float32), device=device),
+        inv_cell=torch.tensor(np.asarray(inv_cell, np.float32),
+                              device=device),
+        r0=float(np.float32(r0)), res=tuple(int(r) for r in res),
+        s=float(s), eps=float(eps))
+
+
+def fine_decode(fp: FinePack, q: torch.Tensor):
+    """(row int32, need, rl, outside) for query points q (N, D): one load
+    of the packed table per lane."""
+    res_f = torch.tensor(fp.res, dtype=torch.float32, device=q.device)
+    rel = (q - fp.origin) * fp.inv_cell
+    outside = ((rel < 0.0) | (rel >= res_f)).any(dim=-1)
+    idx = torch.minimum(torch.clamp(rel, min=0.0), res_f - 1.0).long()
+    lin = idx[..., 0]
+    for d in range(1, len(fp.res)):
+        lin = lin * fp.res[d] + idx[..., d]
+    p = fp.packed[lin]
+    need = p < 0
+    pu = p & 0x7FFFFFFF
+    row = pu & FINE_ROW_MASK
+    b = pu >> 20
+    rl = torch.where(
+        b == 0, torch.zeros_like(q[..., 0]),
+        fp.r0 * torch.exp2((b.float() - 1.0) / fp.s) * (1.0 - 1.9e-6))
+    return row, need, rl, outside

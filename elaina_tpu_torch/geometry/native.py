@@ -1,0 +1,144 @@
+"""ctypes bindings for the native scene builder (``native/scene_build.cpp``).
+
+The library is compiled from the checkout's source with g++ into the
+port's build directory at first use (``utils/build.py``); the committed
+``native/libelaina_scene.so`` is not loaded, since it was built with
+``-march=native`` on another host.  There is no numpy fallback: a failed
+build raises.  Only the entry points the slice uses are bound: OBJ
+parsing, silhouette entities and the fused candidate-grid band pass.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import platform
+
+import numpy as np
+
+from ..utils.build import REPO_DIR, build_shared
+
+SOURCE = os.path.join(REPO_DIR, "native", "scene_build.cpp")
+# -mfma on x86-64: the reference's library (native/Makefile) is built with
+# -march=native, and g++ contracts its multiply-adds into FMAs; -mfma gives
+# the same roundings (so the same grid tables, bit for bit) without tying
+# the library to one host's other instruction-set extensions.  aarch64 has
+# FMA in its base instruction set.
+CXXFLAGS = (["-O3", "-fPIC", "-std=c++17", "-shared"]
+            + (["-mfma"] if platform.machine() in ("x86_64", "AMD64")
+               else []))
+
+_FP = ctypes.POINTER(ctypes.c_float)
+_IP = ctypes.POINTER(ctypes.c_int32)
+
+
+class _ObjData(ctypes.Structure):
+    _fields_ = [("verts", _FP), ("segs", _IP), ("tris", _IP),
+                ("n_verts", ctypes.c_int64), ("n_segs", ctypes.c_int64),
+                ("n_tris", ctypes.c_int64)]
+
+
+class _SilOut(ctypes.Structure):
+    _fields_ = [("p0", _FP), ("p1", _FP), ("n1", _FP), ("n2", _FP),
+                ("always", ctypes.POINTER(ctypes.c_uint8)),
+                ("n_entities", ctypes.c_int64)]
+
+
+_LIB = None
+
+
+def library() -> ctypes.CDLL:
+    """The scene library, built on first call."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    lib = ctypes.CDLL(build_shared("elaina_scene", ["g++"], [SOURCE],
+                                   CXXFLAGS))
+    lib.obj_load.restype = ctypes.POINTER(_ObjData)
+    lib.obj_load.argtypes = [ctypes.c_char_p]
+    lib.obj_free.restype = None
+    lib.obj_free.argtypes = [ctypes.POINTER(_ObjData)]
+    lib.silhouettes_build.restype = ctypes.POINTER(_SilOut)
+    lib.silhouettes_build.argtypes = [_FP, ctypes.c_int64, _IP,
+                                      ctypes.c_int64, ctypes.c_int32]
+    lib.silhouettes_free.restype = None
+    lib.silhouettes_free.argtypes = [ctypes.POINTER(_SilOut)]
+    lib.grid_band_full.restype = None
+    lib.grid_band_full.argtypes = [
+        _FP, ctypes.c_int64, _IP, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int32, _FP, ctypes.c_int64, _FP, ctypes.c_int32, _IP, _IP,
+        _FP]
+    _LIB = lib
+    return lib
+
+
+def _copy(ptr, shape, dtype):
+    n = int(np.prod(shape))
+    if n == 0:
+        return np.zeros(shape, dtype)
+    return np.ctypeslib.as_array(ptr, shape=(n,)).astype(
+        dtype, copy=True).reshape(shape)
+
+
+def load_obj_native(path: str, dim: int):
+    """(verts (V, dim) f32, indices (P, dim) i32) of an OBJ file."""
+    lib = library()
+    d = lib.obj_load(path.encode())
+    if not d:
+        raise FileNotFoundError(path)
+    try:
+        c = d.contents
+        verts = _copy(c.verts, (int(c.n_verts), 3), np.float32)
+        if dim == 2:
+            verts = verts[:, :2].copy()
+            indices = _copy(c.segs, (int(c.n_segs), 2), np.int32)
+        else:
+            indices = _copy(c.tris, (int(c.n_tris), 3), np.int32)
+    finally:
+        lib.obj_free(d)
+    if indices.shape[0] == 0:
+        raise ValueError(f"{path}: no dim-{dim} primitives found")
+    return verts, indices
+
+
+def silhouette_entities_native(verts: np.ndarray, indices: np.ndarray):
+    """Silhouette entities: dict of p0, p1, n1, n2 (E, D) and always (E,)."""
+    lib = library()
+    dim = verts.shape[1]
+    v = np.ascontiguousarray(verts, np.float32)
+    idx = np.ascontiguousarray(indices, np.int32)
+    out = lib.silhouettes_build(v.ctypes.data_as(_FP), v.shape[0],
+                                idx.ctypes.data_as(_IP), idx.shape[0], dim)
+    try:
+        c = out.contents
+        e = int(c.n_entities)
+        return dict(
+            p0=_copy(c.p0, (e, dim), np.float32),
+            p1=_copy(c.p1, (e, dim), np.float32),
+            n1=_copy(c.n1, (e, dim), np.float32),
+            n2=_copy(c.n2, (e, dim), np.float32),
+            always=_copy(c.always, (e,), np.uint8).astype(bool),
+        )
+    finally:
+        lib.silhouettes_free(out)
+
+
+def grid_band_full_native(verts: np.ndarray, indices: np.ndarray,
+                          centers: np.ndarray, hcell: np.ndarray, K: int):
+    """One band pass over cells: (counts (n,) i32, rows (n, K) i32 -1
+    padded, lcell (n,) f32).  Rows are meaningful where counts <= K."""
+    lib = library()
+    v = np.ascontiguousarray(verts, np.float32)
+    idx = np.ascontiguousarray(indices, np.int32)
+    c = np.ascontiguousarray(centers, np.float32)
+    h = np.ascontiguousarray(hcell, np.float32)
+    n = c.shape[0]
+    counts = np.empty((n,), np.int32)
+    rows = np.empty((n, int(K)), np.int32)
+    lcell = np.empty((n,), np.float32)
+    lib.grid_band_full(
+        v.ctypes.data_as(_FP), v.shape[0], idx.ctypes.data_as(_IP),
+        idx.shape[0], idx.shape[1], v.shape[1], c.ctypes.data_as(_FP), n,
+        h.ctypes.data_as(_FP), int(K), counts.ctypes.data_as(_IP),
+        rows.ctypes.data_as(_IP), lcell.ctypes.data_as(_FP))
+    return counts, rows, lcell

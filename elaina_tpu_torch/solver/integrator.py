@@ -1,0 +1,146 @@
+"""Uniform integrator: the per-sample solve loop and the exports.
+
+Port of ``BaseIntegrator`` / ``UniformIntegrator`` of
+``elaina_tpu/solver/integrator.py`` along the reference's per-sample path
+(integrator.py:188-249): each sample walks every pixel's lane to the
+maximum depth, and the loop accumulates the samples, dumping per-spp
+frames when the config asks.  The balanced persistent solve, which runs
+the same estimator with lanes restarting as their walks die, is a later
+port.  Only the SOLUTION channel exists so far.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ..core.config import IntegratorSettings
+from ..core.logger import log_info
+from ..core.problem import Problem
+from ..geometry.grid import build_fine_pack
+from ..output.film import Film
+from ..utils.rng import run_seed, sample_generators
+from .wost import run_one_sample
+
+CHANNELS = ("SOLUTION",)
+
+
+def _progress(i, n, label="Solving"):
+    if n <= 0:
+        return
+    width = 30
+    done = int(width * (i / n))
+    sys.stderr.write(f"\r{label}... [{'#' * done}{'.' * (width - done)}] "
+                     f"{i}/{n}")
+    if i == n:
+        sys.stderr.write("\n")
+    sys.stderr.flush()
+
+
+class BaseIntegrator:
+    def __init__(self, problem: Problem, settings: IntegratorSettings,
+                 base_path: str, points: torch.Tensor | None = None):
+        """``points`` (optional, (W*H, 2)) replaces the evaluation grid's
+        pixel points, e.g. to solve at a few probe positions."""
+        self.problem = problem
+        self.settings = settings
+        self.base_path = base_path
+        self.films = {c: Film(settings.frameSize) for c in CHANNELS}
+        self.device = problem.device
+
+        # bake the epsilon-shell need bit into the FinePack: the integrator
+        # is the first place eps is known
+        eps = float(settings.epsilonShell)
+        grid = problem.scene.d_grid
+        if grid is not None and (grid.fine is None or grid.fine.eps != eps):
+            grid.fine = build_fine_pack(grid, eps)
+
+        w, h = settings.frameSize
+        self.n_pixels = w * h
+        if points is None:
+            pix = torch.arange(self.n_pixels, device=self.device)
+            points = problem.probe.points(pix, settings.frameSize)
+        if tuple(points.shape) != (self.n_pixels, problem.dim):
+            raise ValueError(f"points {tuple(points.shape)} for a {w}x{h} "
+                             f"frame")
+        self.eval_points = points.to(self.device, torch.float32).contiguous()
+        self.mask = torch.ones((self.n_pixels,), dtype=torch.bool,
+                               device=self.device)
+
+    def export_image(self, channel: str, file_name: str):
+        for ext in (".exr", ".png"):
+            path = os.path.join(self.base_path, file_name + ext)
+            log_info("Exporting image to %s", path)
+            self.films[channel].save(path)
+
+    def export_energy(self, channel: str, tone: str, file_name: str):
+        for ext in (".exr", ".png"):
+            path = os.path.join(self.base_path, file_name + ext)
+            log_info("Exporting energy to %s", path)
+            self.films[channel].save_energy(path, tone)
+
+    def _dump_frames(self, solution_sum: torch.Tensor, spp_done: int,
+                     subdir: str, stem: str):
+        film = self.films["SOLUTION"]
+        film.reset()
+        film.put_frame(solution_sum.cpu().numpy() / max(spp_done, 1))
+        base = os.path.join(self.base_path, subdir)
+        film.save(os.path.join(base, stem + ".exr"))
+        film.save(os.path.join(base, stem + ".png"))
+
+
+class UniformIntegrator(BaseIntegrator):
+    def solve(self) -> int:
+        """Run every sample; returns wall-clock milliseconds.  Leaves the
+        mean in the SOLUTION film, the per-pixel sums in ``sum`` /
+        ``sum_sq``, the live lane-steps in ``total_walk_steps`` and the
+        lane-steps whose Dirichlet distance was resolved exactly (the K2
+        sweep's lanes) in ``total_resolved``."""
+        s = self.settings
+        scene = self.problem.scene
+        spp = int(s.samplesPerPixel)
+        seed = run_seed()
+        start = time.time()
+        total = torch.zeros((self.n_pixels, 3), device=self.device)
+        total_sq = torch.zeros_like(total)
+        steps = torch.zeros((), dtype=torch.int64, device=self.device)
+        resolved = torch.zeros_like(steps)
+        for i in range(spp):
+            contrib, st, res = run_one_sample(
+                scene, self.eval_points, self.mask,
+                sample_generators(seed, i, self.device),
+                eps=float(s.epsilonShell), max_depth=int(s.maxWalkingDepth))
+            total += contrib
+            total_sq += contrib * contrib
+            steps += st
+            resolved += res
+            if (s.saveSppMetricsDuration > 0
+                    and i % s.saveSppMetricsDuration == 0
+                    and i < s.saveSppMetricsUntil):
+                self._dump_frames(total, i + 1, "frames", str(i))
+            if s.saveTimeMetricsDuration > 0 and \
+                    i % s.saveTimeMetricsDuration == 0:
+                self._dump_frames(total, i + 1, "frames_time",
+                                  str(int((time.time() - start) * 1000)))
+            _progress(i + 1, spp)
+        self.total_walk_steps = int(steps)      # waits for the device
+        self.total_resolved = int(resolved)
+        duration_ms = int((time.time() - start) * 1000)
+        self.sum, self.sum_sq, self.spp = total, total_sq, spp
+
+        film = self.films["SOLUTION"]
+        film.reset()
+        film.put_frame(total.cpu().numpy() / max(spp, 1))
+        return duration_ms
+
+    def standard_error(self) -> np.ndarray:
+        """Per-pixel Monte Carlo standard error of the mean, (N, 3)."""
+        n = self.spp
+        mean = self.sum / n
+        var = torch.clamp(self.sum_sq / n - mean * mean, min=0.0) * (
+            n / max(n - 1, 1))
+        return torch.sqrt(var / n).cpu().numpy()

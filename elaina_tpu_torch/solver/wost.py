@@ -1,0 +1,279 @@
+"""Uniform Walk-on-Stars: the walk state and the fused depth step.
+
+Port of the uniform path of ``elaina_tpu/solver/wost.py`` (reference:
+integrator/uniform/integrator.cu:64-623).  Every lane of the wavefront
+is one walk; a depth step updates all lanes with masked tensor ops, in
+the stage order of the reference's solve loop:
+
+  _separate       star radius + epsilon-shell test (Dirichlet resolve on
+                  the K1-K3 kernels, Neumann silhouette distance)
+  _boundary_term  Dirichlet shell contribution
+  _neumann_term   Neumann boundary integral, subtracted
+  _walk           mean-value step, clipped on the Neumann boundary
+
+Randomness comes from the per-(sample, stage) generators of
+``utils/rng.py``.  Each step draws, in this order: from "neumann" the
+prim-selection uniforms (N,) and the point uniforms (N, 2); from "walk"
+the sphere angles (N,) and, when the scene has a Neumann set, the
+hemisphere angles (N,).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+import torch
+
+from ..core.problem import Scene
+from ..geometry import queries as Q
+from ..geometry.grid import fine_decode
+from ..geometry.primitives import (prim_project, prim_sample_point,
+                                   prim_side)
+from ..ops.resolve import compact_lanes, fetch_colors, sweep_resolve
+from ..utils.mathops import frame_from_normal, geometric_interpolate, to_world
+from .green import green_eval
+from .sampling import (sphere_measure, uniform_sample_hemisphere,
+                       uniform_sample_hemisphere_pdf, uniform_sample_sphere,
+                       uniform_sample_sphere_pdf)
+
+
+@dataclass
+class WalkState:
+    pos: torch.Tensor         # (N, D)
+    thp: torch.Tensor         # (N,) scalar throughput
+    active: torch.Tensor      # (N,) walk alive
+    on_neumann: torch.Tensor  # (N,) on the Neumann boundary
+    n_normal: torch.Tensor    # (N, D) boundary normal where on_neumann
+
+
+def init_walk_state(eval_points: torch.Tensor,
+                    active: torch.Tensor) -> WalkState:
+    n, d = eval_points.shape
+    dev = eval_points.device
+    return WalkState(
+        pos=eval_points,
+        thp=torch.ones((n,), dtype=torch.float32, device=dev),
+        active=active,
+        on_neumann=torch.zeros((n,), dtype=torch.bool, device=dev),
+        n_normal=torch.zeros((n, d), dtype=torch.float32, device=dev))
+
+
+def _surface_color(dim, colors, gs, pid, side, uv):
+    """Side-selected two-sided vertex color, interpolated along the prim
+    (integrator/common.h:242-260).  Indices column by column, as in
+    GeomSet.prim_verts."""
+    p = torch.clamp(pid, min=0)
+    pick = torch.where(side >= 0, 0, 1)
+    vals = tuple(colors[gs.indices[p, k], pick] for k in range(dim))
+    return geometric_interpolate(dim, vals, uv)
+
+
+def _fast_dirichlet(scene: Scene, q, active, eps: float):
+    """Dirichlet resolve on the FinePack and kernels K1-K3.
+
+    One FinePack load per lane gives the candidate row, the need bit and a
+    distance lower bound.  The active lanes whose need bit (or out-of-grid
+    force) fired are compacted (K1, cap = N, so the compacted path always
+    applies), swept exactly over their row (K2), and the in-shell ones
+    fetch their boundary colors (K3); results scatter back by lane id.
+    Returns (R_D, in_shell, color (N, 3), need).
+    """
+    g = scene.d_grid
+    fp = g.fine
+    if fp is None or fp.eps != float(eps):
+        raise ValueError(f"the FinePack was baked for eps "
+                         f"{None if fp is None else fp.eps}, not {eps}")
+    n = q.shape[0]
+    dev = q.device
+    row, need_f, rl, outside = fine_decode(fp, q)
+    need = active & (need_f | outside)
+
+    lanes, cnt = compact_lanes(need, cap=n)
+    valid = torch.arange(n, device=dev) < cnt
+    safe = torch.where(valid, lanes, 0).long()
+    q_c = q[safe].contiguous()
+    row_c = row[safe].contiguous()
+    d_e, t, side, pid = sweep_resolve(valid, row_c, q_c, g.coords, g.cand)
+    ins = valid & (d_e < eps) & (t > 0.0) & (t < 1.0)
+    cfi = 2 * torch.clamp(pid, min=0) + (side < 0).to(torch.int32)
+    c0, c1 = fetch_colors(ins, torch.where(ins, cfi, 0), g.color_rows)
+    col = c0 * (1.0 - t[:, None]) + c1 * t[:, None]
+    out_c = torch.cat([d_e[:, None], col, ins.to(torch.float32)[:, None]],
+                      dim=-1)
+    # scatter back; invalid slots land on the spare row n and are dropped
+    out = torch.zeros((n + 1, 5), dtype=torch.float32, device=dev)
+    out[torch.where(valid, lanes.long(), n)] = out_c
+    out = out[:n]
+
+    in_shell = need & (out[:, 4] > 0.5)
+    R_D = torch.where(need, out[:, 0], rl)
+    if g.trunc_min_rl < 2.0 * float(eps):
+        # truncated nearest-K rows near the shell: the sweep's min over a
+        # subset can overestimate the distance; the cell's lower bound is
+        # the valid star radius there (reference wost.py:295-307)
+        tr = need & ~outside & g.row_trunc[row.long()]
+        R_D = torch.where(tr, g.row_lbound[row.long()], R_D)
+    in_shell &= R_D < eps
+    color = torch.where(in_shell[:, None], out[:, 1:4], 0.0)
+    return R_D, in_shell, color, need
+
+
+def _separate(scene: Scene, state: WalkState, eps: float, shrink: bool):
+    """Star radius and epsilon-shell classification: (in_shell, R_B,
+    bcolor, R_D, need), bcolor the interpolated Dirichlet color (unscaled)
+    and need the lanes whose Dirichlet distance was resolved exactly."""
+    q = state.pos
+    n = q.shape[0]
+    dev = q.device
+    inf = torch.full((n,), float("inf"), device=dev)
+    if scene.dirichlet is None:
+        R_D = inf
+        in_shell = torch.zeros((n,), dtype=torch.bool, device=dev)
+        bcolor = torch.zeros((n, 3), device=dev)
+        need = in_shell
+    else:
+        R_D, in_shell, bcolor, need = _fast_dirichlet(scene, q,
+                                                      state.active, eps)
+    R_N = (Q.closest_silhouette(scene.neumann.gs, q)
+           if scene.neumann is not None else inf)
+    R_B = torch.clamp(torch.minimum(R_D, R_N), min=1e-4)
+    if shrink:
+        R_B = R_B * 0.99
+    return in_shell, R_B, bcolor, R_D, need
+
+
+def _boundary_term(scene: Scene, state: WalkState, in_shell, bcolor):
+    contrib = bcolor * scene.dirichlet_intensity * state.thp[:, None]
+    return torch.where((state.active & in_shell)[:, None], contrib, 0.0)
+
+
+def _sample_direction(gen, state: WalkState, dim: int, has_neumann: bool):
+    """Hemisphere around the Neumann normal on the boundary, the full
+    sphere elsewhere: (dir, pdf, alpha)."""
+    n = state.pos.shape[0]
+    dev = state.pos.device
+    d_sph = uniform_sample_sphere(gen, n, dim)
+    if not has_neumann:
+        return (d_sph,
+                torch.full((n,), uniform_sample_sphere_pdf(dim), device=dev),
+                torch.ones((n,), device=dev))
+    d_hem = to_world(dim, frame_from_normal(dim, state.n_normal),
+                     uniform_sample_hemisphere(gen, n, dim))
+    on = state.on_neumann
+    direction = torch.where(on[:, None], d_hem, d_sph)
+    pdf = torch.where(on, uniform_sample_hemisphere_pdf(dim),
+                      uniform_sample_sphere_pdf(dim))
+    alpha = torch.where(on, 0.5, 1.0)
+    return direction, pdf, alpha
+
+
+def _neumann_term(scene: Scene, state: WalkState, live, R_B, gen,
+                  eps: float):
+    """Neumann boundary-integral contribution, subtracted
+    (integrator.cu:318-445)."""
+    dim = scene.dim
+    gs = scene.neumann.gs
+    n = state.pos.shape[0]
+    u_sel = torch.rand(n, generator=gen, device=gen.device)
+    pid, pdf = Q.sample_in_ball(gs, state.pos, R_B, u_sel)
+    valid = (pid >= 0) & (pdf > 0)
+
+    u_pt = torch.rand((n, 2), generator=gen, device=gen.device)
+    pv = gs.prim_verts(pid)
+    sample_pt = prim_sample_point(dim, pv, u_pt[:, 0], u_pt[:, 1])
+    r = torch.linalg.norm(sample_pt - state.pos, dim=-1)
+    valid &= (r < R_B) & (r > 0)
+
+    # first-intersection visibility (integrator.cu:372-394)
+    origin = state.pos + torch.where(state.on_neumann[:, None],
+                                     eps * state.n_normal, 0.0)
+    ray = sample_pt - origin
+    clamp_dist = torch.linalg.norm(ray, dim=-1)
+    ray_dir = ray / torch.clamp(clamp_dist, min=1e-20)[:, None]
+    occluded, _, _ = Q.ray_intersect(gs, origin, ray_dir, clamp_dist - eps)
+    valid &= ~occluded
+
+    side = prim_side(dim, state.pos, pv)
+    normal = gs.prim_normal[torch.clamp(pid, min=0)]
+    side_on = torch.sign(torch.sum(normal * state.n_normal, dim=-1))
+    side = torch.where(state.on_neumann, side_on, side)
+    valid &= side != 0
+
+    uv = prim_project(dim, sample_pt, pv)
+    color = _surface_color(dim, scene.neumann.colors, gs, pid, side, uv)
+    alpha = torch.where(state.on_neumann, 0.5, 1.0)
+    weight = (green_eval(torch.clamp(r, min=1e-20), R_B, dim) / alpha
+              / torch.clamp(pdf, min=1e-30))
+    contrib = color * scene.neumann_intensity * (state.thp * weight)[:, None]
+    return torch.where((live & valid)[:, None], -contrib, 0.0)
+
+
+def _walk(scene: Scene, state: WalkState, live, R_B, gen, eps: float):
+    """One mean-value step: sample a direction, clip on the Neumann
+    boundary, update throughput (integrator.cu:447-526)."""
+    dim = scene.dim
+    direction, pdf, alpha = _sample_direction(gen, state, dim,
+                                              scene.neumann is not None)
+    next_pos = state.pos + R_B[:, None] * direction
+    hit = torch.zeros_like(state.active)
+    normal = torch.zeros_like(state.pos)
+    if scene.neumann is not None:
+        current = state.pos + torch.where(state.on_neumann[:, None],
+                                          eps * state.n_normal, 0.0)
+        gs = scene.neumann.gs
+        hit, t, pid = Q.ray_intersect(gs, current, direction, R_B)
+        n_raw = gs.prim_normal[pid]
+        # shading normal opposes the incoming direction (:509-512)
+        n_flip = torch.where(
+            torch.sum(n_raw * direction, dim=-1, keepdim=True) > 0,
+            -n_raw, n_raw)
+        normal = torch.where(hit[:, None], n_flip, normal)
+        t = torch.where(hit, t, 0.0)
+        next_pos = torch.where(hit[:, None], current + t[:, None] * direction,
+                               next_pos)
+    thp = state.thp / (pdf * alpha * sphere_measure(dim))
+    return WalkState(
+        pos=torch.where(live[:, None], next_pos, state.pos),
+        thp=torch.where(live, thp, state.thp),
+        active=state.active,
+        on_neumann=torch.where(live, hit, state.on_neumann),
+        n_normal=torch.where(live[:, None], normal, state.n_normal))
+
+
+def wost_depth_step(scene: Scene, state: WalkState, gens: dict,
+                    eps: float):
+    """One depth iteration for every lane: (state', contrib (N, 3), the
+    number of lanes resolved exactly as a 0-dim device tensor)."""
+    in_shell, R_B, bcolor, _, need = _separate(scene, state, eps,
+                                               shrink=True)
+    in_shell &= state.active
+    contrib = torch.zeros((state.pos.shape[0], 3), device=state.pos.device)
+    if scene.dirichlet is not None:
+        contrib += _boundary_term(scene, state, in_shell, bcolor)
+    # lanes that terminated (in shell) or have an unbounded star die here
+    live = state.active & ~in_shell & torch.isfinite(R_B)
+    if scene.neumann is not None:
+        contrib += _neumann_term(scene, state, live, R_B, gens["neumann"],
+                                 eps)
+    state = _walk(scene, state, live, R_B, gens["walk"], eps)
+    return replace(state, active=live), contrib, need.sum()
+
+
+def run_one_sample(scene: Scene, eval_points, mask, gens: dict, *,
+                   eps: float, max_depth: int):
+    """One sample per pixel: every lane walks to ``max_depth``.  Returns
+    (contribution (N, 3), live lane-steps, exactly resolved lane-steps),
+    the counts as 0-dim device tensors."""
+    if scene.neumann is not None:
+        Q.check_dense(scene.neumann.gs)
+    state = init_walk_state(eval_points, mask)
+    dev = eval_points.device
+    total = torch.zeros((eval_points.shape[0], 3), device=dev)
+    lives = torch.zeros((), dtype=torch.int64, device=dev)
+    resolved = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(max_depth):
+        lives += state.active.sum()
+        state, contrib, n_need = wost_depth_step(scene, state, gens, eps)
+        total += contrib
+        resolved += n_need
+    return total, lives, resolved
