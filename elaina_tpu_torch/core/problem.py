@@ -1,17 +1,22 @@
-"""Problem (scene) layer: config -> boundary geometry, colors, grid.
+"""Problem (scene) layer: config -> boundary geometry, colors, grids.
 
-Port of ``elaina_tpu/core/problem.py`` for the 2D uniform slice: OBJ
+Port of ``elaina_tpu/core/problem.py`` for uniform WoSt in 2D and 3D: OBJ
 Dirichlet and Neumann boundaries with two-sided vertex colors, the
-evaluation grid, and the Dirichlet candidate grid (always built; the
-slice has no BVH query).  The scene's tensors live on the device passed
-in; the solver works wherever they are.
+evaluation grid, the Dirichlet candidate grid (always built; the port has
+no BVH query), and for a 3D Neumann set its silhouette and prim-band
+grids (always built, on the reference's bounds: the port has no dense or
+BVH 3D query, and both grids give valid star radii at any set size).  A
+2D Neumann set takes the dense sweeps.  The scene's tensors live on the
+device passed in; the solver works wherever they are.
 
-Every set takes the same grid and resolve: a 512-cell level 0, and the
-FinePack's need bit chooses the lanes that the kernels resolve exactly.
-Rows are as wide as the set when it has fewer than K = 256 segments,
-since a row never holds more.  A 64-cell level 0 for small sets was
-tried and is wrong at depth 64: its one-level FinePack is as coarse as
-the cells, so its bound falls a cell diagonal short of the distance, and
+Every set takes the same grid and resolve: a 512-cell level 0 in 2D (64
+in 3D), and the FinePack's need bit chooses the lanes that the kernels
+resolve exactly.  Rows are as wide as the set when it has fewer than
+K = 256 prims, since a row never holds more; the band grids' rows
+likewise (K = 64 otherwise, the reference's).  In 2D a 64-cell level 0
+for small sets was tried and is wrong at depth 64: its one-level
+FinePack is as coarse as the cells, so its bound falls a cell diagonal
+short of the distance, and
 on the 64-segment circle of ``tests/test_torch_slice.py`` walks took 2.6x
 the steps, more of them met the depth cap, and the image's mean fell to
 0.452 against 0.486 with every lane resolved (1.1e-3 standard error,
@@ -21,6 +26,7 @@ CPU).  At depth 512, or on the 512-cell level 0, it gives 0.487.
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -28,15 +34,18 @@ import numpy as np
 import torch
 
 from ..geometry.geomset import GeomSet, make_geom_set
-from ..geometry.grid import (CandidateGrid, build_candidate_grid,
-                             fine_pack_from_numpy, grid_from_numpy, padded_k)
-from ..geometry.native import load_obj_native
+from ..geometry.grid import (BandGrid, CandidateGrid, band_grid_from_numpy,
+                             build_candidate_grid, build_prim_band_grid,
+                             build_silhouette_grid, fine_pack_from_numpy,
+                             grid_from_numpy, padded_k, sil_grid_from_numpy)
+from ..geometry.native import load_obj_native, silhouette_entities_native
 from ..geometry.queries import check_dense
 from .config import json_get_optional, json_get_or_throw, load_json_file
 from .evaluation_grid import EvaluationGrid
 from .logger import log_info, log_success, log_warning
 
 GRID_K = 256
+BAND_K = 64
 GRID_MAX_RES = 2048
 
 
@@ -56,6 +65,8 @@ class Scene:
     dim: int = 2
     dirichlet_intensity: float = 1.0
     neumann_intensity: float = 1.0
+    n_sgrid: Optional[BandGrid] = None   # 3D Neumann: silhouette grid
+    n_bgrid: Optional[BandGrid] = None   # 3D Neumann: prim-band grid
 
     @property
     def device(self) -> torch.device:
@@ -64,8 +75,13 @@ class Scene:
 
 
 def grid_size_for(n_prims: int) -> tuple[int, int]:
-    """(K, max_res) of the candidate grid for a set of n_prims segments."""
+    """(K, max_res) of the candidate grid for a set of n_prims prims."""
     return min(GRID_K, padded_k(n_prims)), GRID_MAX_RES
+
+
+def band_size_for(n: int) -> tuple[int, int]:
+    """(K, max_res) of a band grid over n prims or entities."""
+    return min(BAND_K, padded_k(n)), GRID_MAX_RES
 
 
 def grid_bounds(verts: np.ndarray, aabb_lo, aabb_hi):
@@ -86,16 +102,19 @@ def _boundary(verts, indices, colors, device) -> Boundary:
 
 def scene_from_numpy(*, aabb_lo, aabb_hi, device: torch.device,
                      dirichlet=None, neumann=None, grid=None, fine=None,
+                     sgrid=None, bgrid=None,
                      dirichlet_intensity: float = 1.0,
                      neumann_intensity: float = 1.0) -> Scene:
     """The port's Scene from numpy arrays.
 
-    ``dirichlet`` / ``neumann``: (verts (V, 2), indices (P, 2), colors
-    (V, 2, 3)).  ``grid``: a mapping with the candidate-grid arrays
-    (cand, meta, row_lbound, row_diag, row_trunc, origin, inv_cell, res),
-    required with a Dirichlet set.  ``fine`` (optional): the FinePack
-    arrays (packed, origin, inv_cell, r0, res, s, eps); without it the
-    integrator bakes one for its eps.
+    ``dirichlet`` / ``neumann``: (verts (V, D), indices (P, D), colors
+    (V, 2, 3)), segments in 2D and triangles in 3D.  ``grid``: a mapping
+    with the candidate-grid arrays (cand, meta, row_lbound, row_diag,
+    row_trunc, origin, inv_cell, res), required with a Dirichlet set.
+    ``fine`` (optional): the FinePack arrays (packed, origin, inv_cell, r0,
+    res, s, eps); without it the integrator bakes one for its eps.
+    ``sgrid`` / ``bgrid``: mappings with the fields of ``BandArrays`` for
+    the silhouette and prim-band grids, required with a 3D Neumann set.
     """
     d_grid = None
     if dirichlet is not None:
@@ -108,18 +127,25 @@ def scene_from_numpy(*, aabb_lo, aabb_hi, device: torch.device,
                                  indices=idx, colors=col, device=device)
         if fine is not None:
             d_grid.fine = fine_pack_from_numpy(**fine, device=device)
-    scene = Scene(
+    n_bound = _boundary(*neumann, device) if neumann is not None else None
+    aabb_lo = np.asarray(aabb_lo, np.float32)
+    n_sgrid = n_bgrid = None
+    if n_bound is not None and n_bound.gs.dim == 3:
+        if sgrid is None or bgrid is None:
+            raise ValueError("a 3D Neumann set needs its silhouette and "
+                             "prim-band grids")
+        n_sgrid = sil_grid_from_numpy(sgrid, n_bound.gs, device)
+        n_bgrid = band_grid_from_numpy(bgrid, neumann[0], neumann[1], device)
+    elif n_bound is not None:
+        check_dense(n_bound.gs)
+    return Scene(
         dirichlet=(_boundary(*dirichlet, device)
                    if dirichlet is not None else None),
-        neumann=_boundary(*neumann, device) if neumann is not None else None,
-        d_grid=d_grid,
-        aabb_lo=np.asarray(aabb_lo, np.float32),
-        aabb_hi=np.asarray(aabb_hi, np.float32),
+        neumann=n_bound, d_grid=d_grid, aabb_lo=aabb_lo,
+        aabb_hi=np.asarray(aabb_hi, np.float32), dim=aabb_lo.shape[0],
         dirichlet_intensity=float(dirichlet_intensity),
-        neumann_intensity=float(neumann_intensity))
-    if scene.neumann is not None:
-        check_dense(scene.neumann.gs)
-    return scene
+        neumann_intensity=float(neumann_intensity),
+        n_sgrid=n_sgrid, n_bgrid=n_bgrid)
 
 
 def _parse_vertex_colors(path: str, n_verts: int) -> np.ndarray:
@@ -156,9 +182,8 @@ class Problem:
     """Host-side scene owner: loads a config, builds the device scene."""
 
     def __init__(self, dim: int, device: torch.device, verbose: bool = True):
-        if dim != 2:
-            raise NotImplementedError(
-                "3D scenes arrive with ROADMAP Queue 1 items 11-12 (3D)")
+        if dim not in (2, 3):
+            raise ValueError(f"dimensionality {dim}: 2 or 3")
         self.dim = dim
         self.device = torch.device(device)
         self.verbose = verbose
@@ -184,7 +209,7 @@ class Problem:
             return p if p is None or os.path.isabs(p) else os.path.join(
                 base_dir, p)
 
-        dirichlet = neumann = grid = None
+        dirichlet = neumann = grid = sgrid = bgrid = None
         if json_get_optional(mesh, "dirichlet_path"):
             v, idx = load_obj_native(resolve(mesh["dirichlet_path"]), self.dim)
             colors = load_colors(resolve(json_get_optional(
@@ -192,6 +217,7 @@ class Problem:
             dirichlet = (v, idx, colors)
             K, max_res = grid_size_for(idx.shape[0])
             lo, hi = grid_bounds(v, aabb_min, aabb_max)
+            t0 = time.time()
             ga = build_candidate_grid(v, idx, lo, hi, K=K, max_res=max_res,
                                       cache_dir=cache_dir)
             grid = vars(ga)
@@ -199,7 +225,9 @@ class Problem:
             self.stats["dirichlet_primitives"] = idx.shape[0]
             self.stats["dirichlet_grid"] = (
                 f"res={ga.res} levels={len(ga.meta)} rows={ga.cand.shape[0]} "
-                f"K={K} coverage={ga.coverage:.0%}")
+                f"K={K} coverage={ga.coverage:.0%} "
+                f"truncated={int(ga.row_trunc.sum())} "
+                f"built_s={time.time() - t0:.1f}")
         if json_get_optional(mesh, "neumann_path"):
             v, idx = load_obj_native(resolve(mesh["neumann_path"]), self.dim)
             colors = load_colors(resolve(json_get_optional(
@@ -207,10 +235,14 @@ class Problem:
             neumann = (v, idx, colors)
             self.stats["neumann_vertices"] = v.shape[0]
             self.stats["neumann_primitives"] = idx.shape[0]
+            if self.dim == 3:
+                sgrid, bgrid = self._neumann_grids(v, idx, aabb_min,
+                                                   aabb_max, cache_dir)
 
         self.scene = scene_from_numpy(
             aabb_lo=aabb_min, aabb_hi=aabb_max, device=self.device,
-            dirichlet=dirichlet, neumann=neumann, grid=grid,
+            dirichlet=dirichlet, neumann=neumann, grid=grid, sgrid=sgrid,
+            bgrid=bgrid,
             dirichlet_intensity=json_get_optional(
                 conf, "dirichlet_intensity", 1.0),
             neumann_intensity=json_get_optional(
@@ -221,14 +253,50 @@ class Problem:
                 log_info("  %s = %s", k, v)
         return self
 
+    def _neumann_grids(self, v, idx, aabb_min, aabb_max, cache_dir):
+        """The silhouette and prim-band grids' arrays of a 3D Neumann set,
+        on the reference's bounds (elaina_tpu/core/problem.py:397-439)."""
+        sil = silhouette_entities_native(v, idx)
+        p0, p1 = sil["p0"], sil["p1"]
+        margin = 0.05 * (aabb_max - aabb_min)
+        t0 = time.time()
+        K, max_res = band_size_for(p0.shape[0])
+        sgrid = build_silhouette_grid(
+            p0, p1, sil["n1"], sil["n2"], sil["always"],
+            np.minimum(np.minimum(aabb_min, p0.min(0)), p1.min(0)) - margin,
+            np.maximum(np.maximum(aabb_max, p0.max(0)), p1.max(0)) + margin,
+            K=K, max_res=max_res, cache_dir=cache_dir)
+        t1 = time.time()
+        K, max_res = band_size_for(idx.shape[0])
+        bgrid = build_prim_band_grid(v, idx, aabb_min - margin,
+                                     aabb_max + margin, K=K, max_res=max_res,
+                                     cache_dir=cache_dir)
+        t2 = time.time()
+        self.stats["neumann_sil_grid"] = (
+            f"res={sgrid.res} K={sgrid.rows.shape[1]} "
+            f"entities={p0.shape[0]} always={int(sil['always'].sum())} "
+            f"built_s={t1 - t0:.1f}")
+        self.stats["neumann_band_grid"] = (
+            f"res={bgrid.res} K={bgrid.rows.shape[1]} "
+            f"r_cap_min={float(bgrid.r_cap.min()):.4g} "
+            f"built_s={t2 - t1:.1f}")
+        return vars(sgrid), vars(bgrid)
+
     def table_bytes(self) -> dict:
-        """Bytes of the Dirichlet tables on the device, by table."""
-        g = self.scene.d_grid if self.scene is not None else None
-        if g is None:
+        """Bytes of the scene's grid tables on the device, by table."""
+        if self.scene is None:
             return {}
-        out = {name: t.numel() * t.element_size() for name, t in (
-            ("cand", g.cand), ("coords", g.coords),
-            ("color_rows", g.color_rows))}
-        if g.fine is not None:
-            out["finepack"] = g.fine.packed.numel() * 4
+        out = {}
+        g = self.scene.d_grid
+        if g is not None:
+            out.update({name: t.numel() * t.element_size() for name, t in (
+                ("cand", g.cand), ("coords", g.coords),
+                ("color_rows", g.color_rows))})
+            if g.fine is not None:
+                out["finepack"] = g.fine.packed.numel() * 4
+        for prefix, bg in (("sil", self.scene.n_sgrid),
+                           ("band", self.scene.n_bgrid)):
+            if bg is not None:
+                out[f"{prefix}_rows"] = bg.rows.numel() * 4
+                out[f"{prefix}_coords"] = bg.coords.numel() * 4
         return out

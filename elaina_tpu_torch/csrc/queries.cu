@@ -1,0 +1,392 @@
+// Neumann band-grid kernels for Hopper (sm_90a), bound through ctypes.
+//
+// They replace the two Pallas kernels of elaina_tpu/ops/pallas_queries.py
+// that run on every depth step of a 3D scene with a Neumann set:
+//
+//   K6 band_neumann_walk_dma_3d (pallas_queries.py:1043, kernel
+//      _make_band_neumann_walk_kernel_3d :862)   -> band_neumann_walk_kernel
+//   K9 sil_band_dma (pallas_queries.py:622, kernel :563; 3D)
+//                                                -> sil_band_kernel
+//
+// The contracts are the TPU kernels'; the TPU shapes are not carried over:
+// no per-lane block DMAs, (BL, 128) tiles, one-hot winner picks or
+// triangular-matmul prefix sums.  One warp serves one lane and strides
+// over the Kp slots of the lane's cell, whose table is planes by slot, so
+// each load instruction of the warp reads 128 contiguous bytes.  Lanes
+// with cell < 0 (outside the grid) do no work.  Each launch function
+// enqueues on the caller's stream, allocates nothing and returns
+// cudaGetLastError().  Built with -fmad=false, as resolve.cu: the plain
+// PyTorch versions write the same products and sums in the same order.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int THREADS = 256;
+constexpr int MAX_ROUNDS = 8;          // Kp <= 256 slots a cell
+constexpr float PAD_COORD = 1.0e9f;
+constexpr float INV_4PI = 0.07957747154594767f;
+
+__device__ __forceinline__ float dot3(const float* u, const float* v) {
+  return u[0] * v[0] + u[1] * v[1] + u[2] * v[2];
+}
+
+__device__ __forceinline__ void cross3(const float* u, const float* v,
+                                       float* out) {
+  out[0] = u[1] * v[2] - u[2] * v[1];
+  out[1] = u[2] * v[0] - u[0] * v[2];
+  out[2] = u[0] * v[1] - u[1] * v[0];
+}
+
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+__device__ __forceinline__ float edge_d2(const float* q, const float* p0,
+                                         const float* p1) {
+  float e[3], w[3], dd[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    e[k] = p1[k] - p0[k];
+    w[k] = q[k] - p0[k];
+  }
+  const float t = fminf(fmaxf(dot3(w, e) / fmaxf(dot3(e, e), 1e-30f), 0.f),
+                        1.f);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) dd[k] = w[k] - t * e[k];
+  return dot3(dd, dd);
+}
+
+// _tri_d2_tile (pallas_queries.py:208); c = corners a, b, c
+__device__ __forceinline__ float tri_d2(const float* q, const float* c) {
+  float e1[3], e2[3], w[3], diff[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    e1[k] = c[3 + k] - c[k];
+    e2[k] = c[6 + k] - c[k];
+    w[k] = q[k] - c[k];
+  }
+  const float d11 = dot3(e1, e1);
+  const float d12 = dot3(e1, e2);
+  const float d22 = dot3(e2, e2);
+  const float w1 = dot3(w, e1);
+  const float w2 = dot3(w, e2);
+  const float den = fmaxf(d11 * d22 - d12 * d12, 1e-30f);
+  const float u = (d22 * w1 - d12 * w2) / den;
+  const float v = (d11 * w2 - d12 * w1) / den;
+  const bool inside = u >= 0.f && v >= 0.f && u + v <= 1.f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) diff[k] = w[k] - u * e1[k] - v * e2[k];
+  const float d2_edge =
+      fminf(fminf(edge_d2(q, c, c + 3), edge_d2(q, c + 3, c + 6)),
+            edge_d2(q, c + 6, c));
+  return inside ? dot3(diff, diff) : d2_edge;
+}
+
+// Moller-Trumbore (geometry/primitives.ray_tri_intersect): t on a hit with
+// |det| > 1e-12 and t in (1e-6, tmax], else +inf.  Padded slots carry
+// identical PAD_COORD corners, so det = 0 and they miss.
+__device__ __forceinline__ float mt_hit(const float* o, const float* d,
+                                        const float* c, float tmax) {
+  float e1[3], e2[3], p[3], tv[3], qv[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    e1[k] = c[3 + k] - c[k];
+    e2[k] = c[6 + k] - c[k];
+    tv[k] = o[k] - c[k];
+  }
+  cross3(d, e2, p);
+  const float det = dot3(e1, p);
+  const bool ok = fabsf(det) > 1e-12f;
+  const float safe = ok ? det : 1.f;
+  const float u = dot3(tv, p) / safe;
+  cross3(tv, e1, qv);
+  const float v = dot3(d, qv) / safe;
+  const float t = dot3(e2, qv) / safe;
+  const bool hit = ok && u >= 0.f && v >= 0.f && u + v <= 1.f && t > 1e-6f &&
+                   t <= tmax;
+  return hit ? t : inf_f();
+}
+
+__device__ __forceinline__ void load_corners(const float* base, int Kp,
+                                             int slot, float* c) {
+#pragma unroll
+  for (int p = 0; p < 9; ++p) c[p] = base[p * Kp + slot];
+}
+
+// --------------------------------------------------------------------------
+// K9: squared distance to the nearest silhouette entity of the lane's
+// SilGrid cell.  Entity planes (C, 12, Kp) = p0 | p1 | n1 | n2 (x, y, z
+// each): 48 bytes per slot, 3 KB per lane at K = 64, ~40 flops per slot;
+// bound by the loads.  An entity counts when s1 * s2 <= 0 (n1 = 0 for
+// "always" entities); padded slots pass with d^2 ~ 1e18, which the caller
+// maps to "none".  Lanes with cell < 0 get +inf.
+// --------------------------------------------------------------------------
+
+__global__ void sil_band_kernel(const int32_t* __restrict__ cell,
+                                const float* __restrict__ q,
+                                const float* __restrict__ coords, int64_t n,
+                                int32_t Kp, float* __restrict__ d2_out) {
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (i >= n) return;
+  const int64_t c = cell[i];
+  if (c < 0) {
+    if (lane == 0) d2_out[i] = inf_f();
+    return;
+  }
+  const float qv[3] = {q[3 * i], q[3 * i + 1], q[3 * i + 2]};
+  const float* base = coords + c * 12 * Kp;
+  float best = inf_f();
+  for (int k = lane; k < Kp; k += 32) {
+    float p0[3], e[3], w[3], v[3], n1[3], n2[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      p0[d] = base[d * Kp + k];
+      e[d] = base[(3 + d) * Kp + k] - p0[d];
+      w[d] = qv[d] - p0[d];
+      n1[d] = base[(6 + d) * Kp + k];
+      n2[d] = base[(9 + d) * Kp + k];
+    }
+    const float den = fmaxf(dot3(e, e), 1e-30f);
+    const float t = fminf(fmaxf(dot3(w, e) / den, 0.f), 1.f);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) v[d] = w[d] - t * e[d];
+    const float d2 = dot3(v, v);
+    const float s1 = dot3(n1, v);
+    const float s2 = dot3(n2, v);
+    if (s1 * s2 <= 0.f && d2 < best) best = d2;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    best = fminf(best, __shfl_xor_sync(FULL, best, o));
+  if (lane == 0) d2_out[i] = best;
+}
+
+// --------------------------------------------------------------------------
+// K6: one depth step's Neumann band work for a lane, over its prim-band
+// cell's corner planes (C, 9, Kp): 36 bytes per slot, 2.3 KB per lane at
+// K = 64, read once from device memory (the winners' reloads hit L1).
+//   1. weights w = area * max((1/max(d, 1e-4) - 1/R) / 4pi, 0) for d < R;
+//      total = their sum; slot = the count of CDF entries <= u_sel * total
+//      (Kp: none).  The CDF is an fp32 warp scan (Kogge-Stone shuffles) in
+//      slot order, one 32-slot round at a time; no tensor-core product, so
+//      no TF32 rounding moves its boundaries.  Against the plain version's
+//      cumsum the slot can flip at a boundary under reassociation.
+//   2. the sample point from barycentrics (1 - sqrt(u1), u2 sqrt(u1)) on
+//      the selected triangle, its unnormalized plane normal, and
+//      side = sign((q - a) . n); no selection gives PAD_COORD corners.
+//   3. the visibility ray from o = q + on eps n to the sample point, any
+//      hit within dist - eps;
+//   4. the walk ray from o along d_walk, closest hit within R (the
+//      smallest slot on equal t), and the hit triangle's unit normal.
+// out (n, 15): w_sel, total, sample_pt.xyz, side, plane_n.xyz, occluded,
+// walk_hit, walk_t, walk_n.xyz; slot (n,).  Lanes with cell < 0 get zeros,
+// walk_t = inf and slot = Kp.
+// --------------------------------------------------------------------------
+
+__global__ void band_neumann_walk_kernel(
+    const int32_t* __restrict__ cell, const float* __restrict__ q,
+    const float* __restrict__ R_in, const uint8_t* __restrict__ on_in,
+    const float* __restrict__ nn, const float* __restrict__ u_sel_in,
+    const float* __restrict__ u_pt, const float* __restrict__ dw,
+    float eps, const float* __restrict__ coords, int64_t n, int32_t Kp,
+    float* __restrict__ out, int32_t* __restrict__ slot_out) {
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (i >= n) return;
+  float* o15 = out + 15 * i;
+  const int64_t c = cell[i];
+  if (c < 0) {
+    if (lane < 15) o15[lane] = lane == 11 ? inf_f() : 0.f;
+    if (lane == 0) slot_out[i] = Kp;
+    return;
+  }
+  const float* base = coords + c * 9 * Kp;
+  const int rounds = Kp >> 5;
+  const float qv[3] = {q[3 * i], q[3 * i + 1], q[3 * i + 2]};
+  const float R = R_in[i];
+
+  // 1. weights and the CDF sample
+  float w[MAX_ROUNDS];
+  float part = 0.f;
+#pragma unroll
+  for (int j = 0; j < MAX_ROUNDS; ++j) {
+    w[j] = 0.f;
+    if (j < rounds) {
+      float cr[9], e1[3], e2[3], x[3];
+      load_corners(base, Kp, j * 32 + lane, cr);
+      const float dd = sqrtf(tri_d2(qv, cr));
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        e1[k] = cr[3 + k] - cr[k];
+        e2[k] = cr[6 + k] - cr[k];
+      }
+      cross3(e1, e2, x);
+      const float area = 0.5f * sqrtf(dot3(x, x));
+      const float g = (1.f / fmaxf(dd, 1e-4f) - 1.f / R) * INV_4PI;
+      w[j] = dd < R ? area * fmaxf(g, 0.f) : 0.f;
+      part += w[j];
+    }
+  }
+  float total = part;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) total += __shfl_xor_sync(FULL, total, o);
+  const float target = u_sel_in[i] * total;
+  float off = 0.f;
+  int cnt = 0;
+#pragma unroll
+  for (int j = 0; j < MAX_ROUNDS; ++j) {
+    if (j < rounds) {
+      float x = w[j];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float y = __shfl_up_sync(FULL, x, o);
+        if (lane >= o) x += y;
+      }
+      const float cdf = off + x;
+      cnt += target >= cdf ? 1 : 0;
+      off = __shfl_sync(FULL, cdf, 31);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(FULL, cnt, o);
+  const int sel = cnt;                       // warp-uniform, 0..Kp
+  float w_own = 0.f;
+#pragma unroll
+  for (int j = 0; j < MAX_ROUNDS; ++j)
+    if (j == (sel >> 5)) w_own = w[j];
+  const float w_sel_all = __shfl_sync(FULL, w_own, sel & 31);
+  const float w_sel = sel < Kp ? w_sel_all : 0.f;
+
+  // 2. the sample point on the selected triangle
+  float s[9];
+  if (sel < Kp) {
+    load_corners(base, Kp, sel, s);
+  } else {
+#pragma unroll
+    for (int p = 0; p < 9; ++p) s[p] = PAD_COORD;
+  }
+  const float su = sqrtf(u_pt[2 * i]);
+  const float b0 = 1.f - su;
+  const float b1 = u_pt[2 * i + 1] * su;
+  const float b2 = 1.f - b0 - b1;
+  float sp[3], e1w[3], e2w[3], nw[3], qa[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    sp[k] = s[k] * b0 + s[3 + k] * b1 + s[6 + k] * b2;
+    e1w[k] = s[3 + k] - s[k];
+    e2w[k] = s[6 + k] - s[k];
+    qa[k] = qv[k] - s[k];
+  }
+  cross3(e1w, e2w, nw);
+  const float pside = dot3(qa, nw);
+  const float side = pside > 0.f ? 1.f : (pside < 0.f ? -1.f : 0.f);
+
+  // 3. visibility ray
+  const float oe = on_in[i] ? eps : 0.f;
+  float o[3], ray[3], rd[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    o[k] = qv[k] + oe * nn[3 * i + k];
+    ray[k] = sp[k] - o[k];
+  }
+  const float dist = sqrtf(dot3(ray, ray));
+#pragma unroll
+  for (int k = 0; k < 3; ++k) rd[k] = ray[k] / fmaxf(dist, 1e-20f);
+  const float vis_tmax = dist - eps;
+  bool any = false;
+  for (int k = lane; k < Kp; k += 32) {
+    float cr[9];
+    load_corners(base, Kp, k, cr);
+    any |= mt_hit(o, rd, cr, vis_tmax) < inf_f();
+  }
+  const bool occluded = __any_sync(FULL, any);
+
+  // 4. walk ray
+  const float dwv[3] = {dw[3 * i], dw[3 * i + 1], dw[3 * i + 2]};
+  float best_t = inf_f();
+  int best_slot = Kp;
+  for (int k = lane; k < Kp; k += 32) {
+    float cr[9];
+    load_corners(base, Kp, k, cr);
+    const float t = mt_hit(o, dwv, cr, R);
+    if (t < best_t) {
+      best_t = t;
+      best_slot = k;
+    }
+  }
+#pragma unroll
+  for (int off2 = 16; off2 > 0; off2 >>= 1) {
+    const float ot = __shfl_down_sync(FULL, best_t, off2);
+    const int os = __shfl_down_sync(FULL, best_slot, off2);
+    if (ot < best_t || (ot == best_t && os < best_slot)) {
+      best_t = ot;
+      best_slot = os;
+    }
+  }
+  best_t = __shfl_sync(FULL, best_t, 0);
+  best_slot = __shfl_sync(FULL, best_slot, 0);
+  const bool whit = best_t < inf_f();
+  float wc[9], we1[3], we2[3], wcr[3];
+  load_corners(base, Kp, best_slot < Kp ? best_slot : Kp - 1, wc);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    we1[k] = wc[3 + k] - wc[k];
+    we2[k] = wc[6 + k] - wc[k];
+  }
+  cross3(we1, we2, wcr);
+  const float wlen = sqrtf(fmaxf(dot3(wcr, wcr), 1e-38f));
+
+  if (lane == 0) {
+    o15[0] = w_sel;
+    o15[1] = total;
+    o15[2] = sp[0];
+    o15[3] = sp[1];
+    o15[4] = sp[2];
+    o15[5] = side;
+    o15[6] = nw[0];
+    o15[7] = nw[1];
+    o15[8] = nw[2];
+    o15[9] = occluded ? 1.f : 0.f;
+    o15[10] = whit ? 1.f : 0.f;
+    o15[11] = whit ? best_t : inf_f();
+#pragma unroll
+    for (int k = 0; k < 3; ++k) o15[12 + k] = whit ? wcr[k] / wlen : 0.f;
+    slot_out[i] = sel;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int sil_band_launch(const void* cell, const void* q, const void* coords,
+                    int64_t n, int32_t Kp, void* d2, void* stream) {
+  if (n == 0) return 0;
+  const int64_t blocks = (n + THREADS / 32 - 1) / (THREADS / 32);
+  sil_band_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)cell, (const float*)q, (const float*)coords, n, Kp,
+      (float*)d2);
+  return (int)cudaGetLastError();
+}
+
+int band_neumann_walk_launch(const void* cell, const void* q, const void* R,
+                             const void* on, const void* nn,
+                             const void* u_sel, const void* u_pt,
+                             const void* dw, float eps, const void* coords,
+                             int64_t n, int32_t Kp, void* out, void* slot,
+                             void* stream) {
+  if (n == 0) return 0;
+  if (Kp > 32 * MAX_ROUNDS || Kp % 32) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (n + THREADS / 32 - 1) / (THREADS / 32);
+  band_neumann_walk_kernel<<<(unsigned)blocks, THREADS, 0,
+                             (cudaStream_t)stream>>>(
+      (const int32_t*)cell, (const float*)q, (const float*)R,
+      (const uint8_t*)on, (const float*)nn, (const float*)u_sel,
+      (const float*)u_pt, (const float*)dw, eps, (const float*)coords, n, Kp,
+      (float*)out, (int32_t*)slot);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

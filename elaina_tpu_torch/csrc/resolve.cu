@@ -1,13 +1,17 @@
 // Dirichlet-resolve kernels for Hopper (sm_90a), bound through ctypes.
 //
-// They replace the three Pallas kernels of elaina_tpu/ops/pallas_resolve.py
-// that run on the 2D main path of every depth step:
+// They replace the Pallas kernels of elaina_tpu/ops/pallas_resolve.py that
+// run on the Dirichlet resolve of every depth step, 2D and 3D:
 //
-//   K1 compact_lanes  (pallas_resolve.py:594) -> compact_count/scan/write
-//   K2 sweep_resolve  (pallas_resolve.py:194, body _sweep_kernel :113)
-//                                            -> sweep_resolve_kernel
-//   K3 fetch_colors   (pallas_resolve.py:540, _fetch_colors_impl :481)
-//                                            -> fetch_colors_kernel
+//   K1 compact_lanes    (pallas_resolve.py:594) -> compact_count/scan/write
+//   K2 sweep_resolve    (pallas_resolve.py:194, body _sweep_kernel :113)
+//                                              -> sweep_resolve_kernel
+//   K3 fetch_colors     (pallas_resolve.py:540, _fetch_colors_impl :481)
+//                                              -> fetch_colors_kernel<2>
+//   K4 sweep_resolve_3d (pallas_resolve.py:352, body _sweep_kernel_3d :280,
+//                        distance pallas_queries.py:208 _tri_d2_tile)
+//                                              -> sweep_resolve_3d_kernel
+//   K5 fetch_colors3    (pallas_resolve.py:554) -> fetch_colors_kernel<3>
 //
 // The contracts are the TPU kernels'; the TPU shapes are not carried over:
 // a bool mask (N,) replaces the bitmask words, and there are no scalar
@@ -17,7 +21,8 @@
 //
 // Built with -fmad=false: contracted multiply-adds would move the distance
 // in its last bits against the plain PyTorch version; without them the
-// segment math below rounds exactly as the plain version does.
+// segment and triangle math below rounds exactly as the plain version
+// does, which writes the same products and sums in the same order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -214,30 +219,155 @@ __global__ void sweep_resolve_kernel(
 }
 
 // --------------------------------------------------------------------------
-// K3: the two endpoint colors of color row cfi = 2 * pid + (side < 0), on
-// masked lanes.  One thread per lane; bound by the 24-byte row load and the
-// 24-byte write per set lane (a random-access load: L2 serves the rows of
-// boundary-hugging lanes).  Unmasked lanes, and rows out of range, get 0.
+// K4: exact closest triangle among a lane's candidate row, on masked lanes.
+// The 3D form of K2: one warp per lane over the (R, 9, Kp) corner planes
+// ax ay az bx by bz cx cy cz, 36 bytes per candidate (9 KB per lane at
+// K = 256), ~120 flops per candidate; bound by those loads.  The distance
+// is _tri_d2_tile's: the interior distance from the explicit residual
+// w - u e1 - v e2 (no |q - p|^2 cancellation), else the least of the three
+// edge distances.  Winner: lexicographic (d^2, slot) argmin by warp
+// shuffle; lane 0 then reloads the winner's 9 corners (an L1 hit).
+// Unmasked lanes get d = 0, pid = -1 and zero corners.
+// --------------------------------------------------------------------------
+
+__device__ __forceinline__ float dot3(const float* u, const float* v) {
+  return u[0] * v[0] + u[1] * v[1] + u[2] * v[2];
+}
+
+__device__ __forceinline__ float edge_d2(const float* q, const float* p0,
+                                         const float* p1) {
+  float e[3], w[3], dd[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    e[k] = p1[k] - p0[k];
+    w[k] = q[k] - p0[k];
+  }
+  const float t = fminf(fmaxf(dot3(w, e) / fmaxf(dot3(e, e), 1e-30f), 0.f),
+                        1.f);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) dd[k] = w[k] - t * e[k];
+  return dot3(dd, dd);
+}
+
+// c: corners a = c[0..2], b = c[3..5], c = c[6..8]
+__device__ __forceinline__ float tri_d2(const float* q, const float* c) {
+  float e1[3], e2[3], w[3], diff[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    e1[k] = c[3 + k] - c[k];
+    e2[k] = c[6 + k] - c[k];
+    w[k] = q[k] - c[k];
+  }
+  const float d11 = dot3(e1, e1);
+  const float d12 = dot3(e1, e2);
+  const float d22 = dot3(e2, e2);
+  const float w1 = dot3(w, e1);
+  const float w2 = dot3(w, e2);
+  const float den = fmaxf(d11 * d22 - d12 * d12, 1e-30f);
+  const float u = (d22 * w1 - d12 * w2) / den;
+  const float v = (d11 * w2 - d12 * w1) / den;
+  const bool inside = u >= 0.f && v >= 0.f && u + v <= 1.f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) diff[k] = w[k] - u * e1[k] - v * e2[k];
+  const float d2_in = dot3(diff, diff);
+  const float d2_edge =
+      fminf(fminf(edge_d2(q, c, c + 3), edge_d2(q, c + 3, c + 6)),
+            edge_d2(q, c + 6, c));
+  return inside ? d2_in : d2_edge;
+}
+
+__global__ void sweep_resolve_3d_kernel(
+    const uint8_t* __restrict__ mask, const int32_t* __restrict__ row,
+    const float* __restrict__ q, const float* __restrict__ coords,
+    const int32_t* __restrict__ cand, int64_t n, int32_t K, int32_t Kp,
+    float* __restrict__ d_out, int32_t* __restrict__ pid_out,
+    float* __restrict__ corners_out) {
+  const int64_t i =
+      ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (i >= n) return;
+  if (!mask[i]) {
+    if (lane == 0) {
+      d_out[i] = 0.f;
+      pid_out[i] = -1;
+    }
+    if (lane < 9) corners_out[9 * i + lane] = 0.f;
+    return;
+  }
+  const int64_t r = row[i];
+  const float qv[3] = {q[3 * i], q[3 * i + 1], q[3 * i + 2]};
+  const float* base = coords + r * 9 * Kp;
+
+  float best_d2 = __int_as_float(0x7f800000);  // +inf
+  int best_slot = Kp;
+  for (int k = lane; k < Kp; k += 32) {
+    float c[9];
+#pragma unroll
+    for (int p = 0; p < 9; ++p) c[p] = base[p * Kp + k];
+    const float d2 = tri_d2(qv, c);
+    if (d2 < best_d2) {
+      best_d2 = d2;
+      best_slot = k;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float od2 = __shfl_down_sync(FULL, best_d2, o);
+    const int os = __shfl_down_sync(FULL, best_slot, o);
+    if (od2 < best_d2 || (od2 == best_d2 && os < best_slot)) {
+      best_d2 = od2;
+      best_slot = os;
+    }
+  }
+  best_slot = __shfl_sync(FULL, best_slot, 0);
+  if (lane < 9) corners_out[9 * i + lane] = base[lane * Kp + best_slot];
+  if (lane == 0) {
+    d_out[i] = sqrtf(best_d2);
+    pid_out[i] = best_slot < K ? cand[r * K + best_slot] : -1;
+  }
+}
+
+// --------------------------------------------------------------------------
+// K3 / K5: the corner colors of color row cfi = 2 * pid + (side < 0), on
+// masked lanes: NC = 2 segment endpoints (K3) or 3 triangle corners (K5).
+// One thread per lane; bound by the 12 * NC-byte row load and write per
+// set lane (a random-access load: L2 serves the rows of boundary-hugging
+// lanes).  out is (NC, n, 3), corner-major, so each corner's colors are a
+// contiguous (n, 3) block.  Unmasked lanes, and rows out of range, get 0.
 // --------------------------------------------------------------------------
 
 constexpr int COLOR_THREADS = 256;
 
+template <int NC>
 __global__ void fetch_colors_kernel(const uint8_t* __restrict__ mask,
                                     const int32_t* __restrict__ cfi,
                                     const float* __restrict__ rows,
                                     int64_t n, int64_t n_rows,
-                                    float* __restrict__ c0,
-                                    float* __restrict__ c1) {
+                                    float* __restrict__ out) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int64_t r = cfi[i];
   const bool on = mask[i] && r >= 0 && r < n_rows;
-  const float* src = rows + (on ? r : 0) * 6;
+  const float* src = rows + (on ? r : 0) * (3 * NC);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    c0[3 * i + c] = on ? src[c] : 0.f;
-    c1[3 * i + c] = on ? src[3 + c] : 0.f;
+  for (int k = 0; k < NC; ++k) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      out[(k * n + i) * 3 + c] = on ? src[3 * k + c] : 0.f;
+    }
   }
+}
+
+template <int NC>
+int fetch_colors_nc(const void* mask, const void* cfi, const void* rows,
+                    int64_t n, int64_t n_rows, void* out, void* stream) {
+  if (n == 0) return 0;
+  const int64_t blocks = (n + COLOR_THREADS - 1) / COLOR_THREADS;
+  fetch_colors_kernel<NC><<<(unsigned)blocks, COLOR_THREADS, 0,
+                            (cudaStream_t)stream>>>(
+      (const uint8_t*)mask, (const int32_t*)cfi, (const float*)rows, n,
+      n_rows, (float*)out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -282,16 +412,32 @@ int sweep_resolve_launch(const void* mask, const void* row, const void* q,
   return (int)cudaGetLastError();
 }
 
-int fetch_colors_launch(const void* mask, const void* cfi, const void* rows,
-                        int64_t n, int64_t n_rows, void* c0, void* c1,
-                        void* stream) {
+int sweep_resolve_3d_launch(const void* mask, const void* row,
+                            const void* q, const void* coords,
+                            const void* cand, int64_t n, int32_t K,
+                            int32_t Kp, void* d, void* pid, void* corners,
+                            void* stream) {
   if (n == 0) return 0;
-  const int64_t blocks = (n + COLOR_THREADS - 1) / COLOR_THREADS;
-  fetch_colors_kernel<<<(unsigned)blocks, COLOR_THREADS, 0,
-                        (cudaStream_t)stream>>>(
-      (const uint8_t*)mask, (const int32_t*)cfi, (const float*)rows, n,
-      n_rows, (float*)c0, (float*)c1);
+  const int lanes_per_block = SWEEP_THREADS / 32;
+  const int64_t blocks = (n + lanes_per_block - 1) / lanes_per_block;
+  sweep_resolve_3d_kernel<<<(unsigned)blocks, SWEEP_THREADS, 0,
+                            (cudaStream_t)stream>>>(
+      (const uint8_t*)mask, (const int32_t*)row, (const float*)q,
+      (const float*)coords, (const int32_t*)cand, n, K, Kp, (float*)d,
+      (int32_t*)pid, (float*)corners);
   return (int)cudaGetLastError();
+}
+
+// out: (2, n, 3) f32, endpoint-major
+int fetch_colors_launch(const void* mask, const void* cfi, const void* rows,
+                        int64_t n, int64_t n_rows, void* out, void* stream) {
+  return fetch_colors_nc<2>(mask, cfi, rows, n, n_rows, out, stream);
+}
+
+// out: (3, n, 3) f32, corner-major
+int fetch_colors3_launch(const void* mask, const void* cfi, const void* rows,
+                         int64_t n, int64_t n_rows, void* out, void* stream) {
+  return fetch_colors_nc<3>(mask, cfi, rows, n, n_rows, out, stream);
 }
 
 }  // extern "C"

@@ -3,9 +3,9 @@
 Port of ``elaina_tpu/exec.py`` (reference: exec.cu run_expr): copies the
 config next to the outputs, runs the uniform integrator's SOLUTION
 channel, performs the export list and writes ``result.json`` with the
-solve duration, the walk steps and the exactly resolved lane-steps, the
-scene tables' sizes, the solve's peak device memory on CUDA, and a
-timestamp.
+solve duration, the walk steps, the exactly resolved lane-steps and the
+walks that met the depth cap, the scene tables' sizes, the solve's peak
+device memory on CUDA, and a timestamp.
 
 The device is CUDA when PyTorch sees a GPU and the CPU otherwise
 (``CUDA_VISIBLE_DEVICES`` picks the card).
@@ -44,6 +44,11 @@ def run_expr(conf_path: str) -> dict:
             f"integrator {cfg.integrator_type!r}: the guided integrator "
             f"arrives with the ROADMAP item 'guided'")
     for channel in set(cfg.channels) | {e.channel for e in cfg.exports}:
+        if channel == "DIRICHLET_SDF":
+            raise NotImplementedError(
+                "channel 'DIRICHLET_SDF' arrives with the ROADMAP item "
+                "'other channels and masks', with kernel K11 "
+                "(grid_band_dma_3d) in 3D and K10 in 2D")
         if channel not in CHANNELS:
             raise NotImplementedError(
                 f"channel {channel!r} arrives with the ROADMAP item "
@@ -69,6 +74,7 @@ def run_expr(conf_path: str) -> dict:
         result["duration"] = integrator.solve()
         result["walk_steps"] = integrator.total_walk_steps
         result["resolved_lanes"] = integrator.total_resolved
+        result["capped_walks"] = integrator.total_capped
     for e in cfg.exports:
         if e.type == "image":
             integrator.export_image(e.channel, e.file_name)

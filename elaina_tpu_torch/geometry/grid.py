@@ -1,12 +1,13 @@
-"""Adaptive candidate grid + FinePack for exact closest-segment queries.
+"""Candidate grid + FinePack (Dirichlet) and band grids (3D Neumann).
 
-Port of the parts of ``elaina_tpu/geometry/grid.py`` that the 2D uniform
-slice reads.  The build is the reference's, level for level: every cell of
-a grid over the domain keeps the band of primitives that can be the
-nearest one for some point in the cell; cells whose band exceeds K split
-2x per axis, up to ``max_levels``.  The per-level band passes run in the
-native library (``native/scene_build.cpp``); the result is cached on disk
-under the reference's key, in the reference's file format.
+Port of the parts of ``elaina_tpu/geometry/grid.py`` that the port's
+uniform solve reads.  The candidate-grid build is the reference's, level
+for level: every cell of a grid over the domain keeps the band of
+primitives that can be the nearest one for some point in the cell; cells
+whose band exceeds K split 2x per axis, up to ``max_levels``.  The
+per-level band passes run in the native library (``native/scene_build.cpp``);
+the result is cached on disk under the reference's key, in the
+reference's file format.
 
 The FinePack collapses the refinement chain into one int32 per finest
 cell: bit 31 the need flag (baked with the solve's eps), bits 30..20 a
@@ -15,11 +16,24 @@ row.  ``fine_decode`` turns a query point into (row, need, bound) with one
 load.  The port builds it on the host by upsampling level by level, in
 place of the reference's TPU-tiled interleaves.
 
-Device layouts are the port's own: the coordinate table is (R, 4, Kp)
-planes ax, ay, bx, by with Kp = K rounded up to the warp width (padded
-slots hold PAD_COORD), so the 32 threads of a warp read 32 neighbouring
-floats; the color table is (2P, 6) rows [c0.rgb, c1.rgb] per
-(prim, side).
+The band grids of a 3D Neumann set are single-level grids of K-wide rows
+(the reference's PrimBandGrid and SilGrid, one ``BandGrid`` here): the
+prim-band grid keeps per cell the K prims of smallest lower bound and a
+completeness cap r_cap (the star radius is clamped to it, so one row holds
+every prim a step's ball or rays can touch); the silhouette grid keeps the
+K nearest entities that may be silhouettes and a validity cap.  Both are
+built by the native band passes and cached under the reference's keys.
+
+Device layouts are the port's own, planes by slot so the 32 threads of a
+warp read 32 neighbouring floats, with Kp = K rounded up to the warp
+width:
+  * candidate and prim-band coordinates (R, dim*D, Kp): plane k*D + d is
+    corner k, axis d (2D ax, ay, bx, by; 3D ax..cz); padded and -1 slots
+    hold PAD_COORD;
+  * silhouette entities (C, 12, Kp): p0.xyz, p1.xyz, n1.xyz, n2.xyz, with
+    n1 = 0 for "always" entities and pads at PAD_COORD with zero normals;
+  * colors (2P, 3*dim): row 2p + s holds the side-s colors of prim p's
+    corners.
 """
 
 from __future__ import annotations
@@ -79,9 +93,40 @@ class CandidateGrid:
     row_diag: torch.Tensor   # (R,) f32
     row_trunc: torch.Tensor  # (R,) bool
     trunc_min_rl: float      # min row_lbound over truncated rows (inf: none)
-    coords: torch.Tensor     # (R, 4, Kp) f32 planes ax, ay, bx, by
-    color_rows: torch.Tensor  # (2P, 6) f32 [c0.rgb, c1.rgb] per (prim, side)
+    coords: torch.Tensor     # (R, dim*D, Kp) f32 corner planes
+    color_rows: torch.Tensor  # (2P, 3*dim) f32 corner colors per (prim, side)
     fine: FinePack | None = None
+
+
+@dataclass
+class BandArrays:
+    """Host (numpy) result of ``build_prim_band_grid`` /
+    ``build_silhouette_grid``: a single-level grid of K-wide rows."""
+
+    origin: np.ndarray       # (D,) f32
+    inv_cell: np.ndarray     # (D,) f32 cells per world unit
+    res: tuple
+    rows: np.ndarray         # (C, K) int32 prim / entity ids, -1 padded
+    r_cap: np.ndarray        # (C,) f32 completeness / validity cap (1e30: all)
+    lbound: np.ndarray       # (C,) f32 min lower bound over the kept ids
+    ent_lo: np.ndarray       # (D,) f32 bbox of the set (out-of-grid bound)
+    ent_hi: np.ndarray       # (D,) f32
+
+
+@dataclass
+class BandGrid:
+    """A band grid on the device: the arrays of ``BandArrays`` as tensors,
+    plus the coordinate table the band kernels sweep."""
+
+    origin: torch.Tensor
+    inv_cell: torch.Tensor
+    res: tuple
+    rows: torch.Tensor       # (C, K) int32
+    r_cap: torch.Tensor      # (C,) f32
+    lbound: torch.Tensor     # (C,) f32
+    ent_lo: torch.Tensor     # (D,) f32
+    ent_hi: torch.Tensor     # (D,) f32
+    coords: torch.Tensor     # (C, 9, Kp) prim corners or (C, 12, Kp) entities
 
 
 # --------------------------------------------------------------------------- #
@@ -225,38 +270,66 @@ def padded_k(K: int) -> int:
 
 def coords_from_cand(cand: torch.Tensor, verts: torch.Tensor,
                      indices: torch.Tensor) -> torch.Tensor:
-    """(R, K) candidate ids -> (R, 4, Kp) planes ax, ay, bx, by; -1 and
-    pad slots hold PAD_COORD.  Built in row chunks on cand's device."""
+    """(R, K) prim ids -> (R, dim*D, Kp) corner planes; -1 and pad slots
+    hold PAD_COORD.  Built in row chunks on cand's device."""
     R, K = cand.shape
-    out = torch.full((R, 4, padded_k(K)), PAD_COORD, dtype=torch.float32,
-                     device=cand.device)
+    dim = indices.shape[1]
+    D = verts.shape[1]
+    out = torch.full((R, dim * D, padded_k(K)), PAD_COORD,
+                     dtype=torch.float32, device=cand.device)
     for r0 in range(0, R, _COORD_CHUNK_ROWS):
         c = cand[r0:r0 + _COORD_CHUNK_ROWS].long()
         valid = c >= 0
-        ends = indices[c.clamp(min=0)]                     # (r, K, 2)
-        for k in range(2):
-            for d in range(2):
-                v = verts[ends[..., k], d]
-                out[r0:r0 + c.shape[0], 2 * k + d, :K] = torch.where(
+        for k in range(dim):
+            vi = indices[c.clamp(min=0), k]                 # (r, K)
+            for d in range(D):
+                v = verts[vi, d]
+                out[r0:r0 + c.shape[0], k * D + d, :K] = torch.where(
                     valid, v, torch.full_like(v, PAD_COORD))
+    return out
+
+
+def sil_coords_from_rows(rows: torch.Tensor, p0, p1, n1, n2,
+                         always) -> torch.Tensor:
+    """(C, K) 3D entity ids -> (C, 12, Kp) planes p0, p1, n1, n2 (x, y, z
+    each).  "Always" entities get n1 = 0, so the kernel's s1 s2 <= 0 test
+    keeps them; -1 and pad slots get PAD_COORD points and zero normals
+    (they pass the test at a distance that never wins)."""
+    C, K = rows.shape
+    if p0.shape[1] != 3:
+        raise ValueError("the silhouette table is 3D only")
+    n1 = torch.where(always[:, None], torch.zeros_like(n1), n1)
+    out = torch.zeros((C, 12, padded_k(K)), dtype=torch.float32,
+                      device=rows.device)
+    out[:, :6] = PAD_COORD
+    for r0 in range(0, C, _COORD_CHUNK_ROWS):
+        e = rows[r0:r0 + _COORD_CHUNK_ROWS].long()
+        valid = e >= 0
+        safe = e.clamp(min=0)
+        for g, (arr, pad) in enumerate(((p0, PAD_COORD), (p1, PAD_COORD),
+                                        (n1, 0.0), (n2, 0.0))):
+            for d in range(3):
+                v = arr[safe, d]
+                out[r0:r0 + e.shape[0], 3 * g + d, :K] = torch.where(
+                    valid, v, torch.full_like(v, pad))
     return out
 
 
 def color_rows_from(colors: torch.Tensor,
                     indices: torch.Tensor) -> torch.Tensor:
-    """(V, 2, 3) two-sided vertex colors -> (2P, 6): row 2p + s holds the
-    side-s colors of prim p's two endpoints."""
-    c0 = colors[indices[:, 0]]                             # (P, 2, 3)
-    c1 = colors[indices[:, 1]]
-    return torch.cat([c0, c1], dim=-1).reshape(-1, 6).contiguous()
+    """(V, 2, 3) two-sided vertex colors -> (2P, 3*dim): row 2p + s holds
+    the side-s colors of prim p's corners."""
+    dim = indices.shape[1]
+    per = [colors[indices[:, k]] for k in range(dim)]      # (P, 2, 3) each
+    return torch.cat(per, dim=-1).reshape(-1, 3 * dim).contiguous()
 
 
 def grid_from_numpy(*, cand, meta, row_lbound, row_diag, row_trunc, origin,
                     inv_cell, res, verts, indices, colors,
                     device: torch.device) -> CandidateGrid:
     """The port's CandidateGrid from numpy arrays (the port's own build, or
-    np.asarray of a reference grid) plus the boundary's verts (V, 2),
-    indices (P, 2) and colors (V, 2, 3)."""
+    np.asarray of a reference grid) plus the boundary's verts (V, D),
+    indices (P, D) and colors (V, 2, 3)."""
     def t(a, dtype):
         return torch.as_tensor(np.require(a, requirements=("C", "W")),
                                dtype=dtype, device=device)
@@ -278,6 +351,125 @@ def grid_from_numpy(*, cand, meta, row_lbound, row_diag, row_trunc, origin,
         coords=coords_from_cand(cand_t, verts_t, idx_t),
         color_rows=color_rows_from(t(np.asarray(colors, np.float32),
                                      torch.float32), idx_t))
+
+
+# --------------------------------------------------------------------------- #
+# band grids (3D Neumann)
+# --------------------------------------------------------------------------- #
+
+
+def _band_res(span: np.ndarray, max_res: int) -> tuple:
+    base = 256 if span.shape[0] == 2 else 48
+    return tuple(int(np.clip(base * span[d] / max(span), 8, max_res))
+                 for d in range(span.shape[0]))
+
+
+def _band_build(tag: bytes, prefix: str, key_arrays, lo, hi, K, max_res,
+                cache_dir, native_pass, ent_lo, ent_hi) -> BandArrays:
+    """The reference's single-level band build and its on-disk cache:
+    ``native_pass(centers, hcell, K) -> (rows, r_cap, lbound)``."""
+    lo = np.asarray(lo, np.float32)
+    hi = np.asarray(hi, np.float32)
+    span = hi - lo
+    key = hashlib.sha1(
+        tag + b"".join(a.tobytes() for a in key_arrays) + lo.tobytes()
+        + hi.tobytes() + np.int64([K, max_res]).tobytes()).hexdigest()[:16]
+    cache_path = (os.path.join(cache_dir, f"{prefix}_{key}.npz")
+                  if cache_dir else None)
+    if cache_path and os.path.exists(cache_path):
+        z = np.load(cache_path)
+        return BandArrays(
+            origin=np.asarray(z["origin"]), inv_cell=np.asarray(z["inv_cell"]),
+            res=tuple(int(r) for r in z["res"]), rows=np.asarray(z["rows"]),
+            r_cap=np.asarray(z["r_cap"]), lbound=np.asarray(z["lbound"]),
+            ent_lo=ent_lo, ent_hi=ent_hi)
+    res = _band_res(span, max_res)
+    centers = _cell_centers(lo, hi, res)
+    hcell = 0.5 * span / np.asarray(res, np.float64)
+    rows, r_cap, lbound = native_pass(centers, hcell, K)
+    inv_cell = np.asarray(res, np.float32) / np.maximum(span, 1e-20)
+    if cache_path:
+        os.makedirs(cache_dir, exist_ok=True)
+        tmp = cache_path[:-4] + f".tmp{os.getpid()}.npz"
+        np.savez_compressed(tmp, origin=lo, inv_cell=inv_cell, rows=rows,
+                            r_cap=r_cap, lbound=lbound,
+                            res=np.asarray(res, np.int64))
+        os.replace(tmp, cache_path)
+    return BandArrays(origin=lo, inv_cell=inv_cell, res=res, rows=rows,
+                      r_cap=r_cap, lbound=lbound, ent_lo=ent_lo,
+                      ent_hi=ent_hi)
+
+
+def build_prim_band_grid(verts, indices, lo, hi, K: int = 64,
+                         max_res: int = 2048,
+                         cache_dir: str | None = None) -> BandArrays:
+    """The radius-complete prim band grid of a Neumann set (48 cells on
+    the longest 3D axis), cached under the reference's ``pband1`` key."""
+    from .native import prim_band_rows_native
+
+    verts = np.ascontiguousarray(verts, np.float32)
+    indices = np.ascontiguousarray(indices, np.int32)
+    pv = verts[indices.reshape(-1)]
+    return _band_build(
+        b"pband1", "pbandgrid", (verts, indices), lo, hi, K, max_res,
+        cache_dir,
+        lambda c, h, k: prim_band_rows_native(verts, indices, c, h, k),
+        pv.min(0), pv.max(0))
+
+
+def build_silhouette_grid(p0, p1, n1, n2, always, lo, hi, K: int = 64,
+                          max_res: int = 2048,
+                          cache_dir: str | None = None) -> BandArrays:
+    """The silhouette band grid of a Neumann set's entities, cached under
+    the reference's ``sil1`` key."""
+    from .native import sil_band_rows_native
+
+    p0 = np.ascontiguousarray(p0, np.float32)
+    p1 = np.ascontiguousarray(p1, np.float32)
+    n1 = np.ascontiguousarray(n1, np.float32)
+    always = np.asarray(always, bool)
+    return _band_build(
+        b"sil1", "silgrid", (p0, p1, n1, always.astype(np.uint8)), lo, hi,
+        K, max_res, cache_dir,
+        lambda c, h, k: sil_band_rows_native(p0, p1, n1, n2, always, c, h,
+                                             k),
+        np.minimum(p0.min(0), p1.min(0)), np.maximum(p0.max(0), p1.max(0)))
+
+
+def _band_tensors(arrays: dict, device) -> dict:
+    def t(a):
+        return torch.as_tensor(np.require(a, requirements=("C", "W")),
+                               device=device)
+
+    return dict(
+        origin=t(np.asarray(arrays["origin"], np.float32)),
+        inv_cell=t(np.asarray(arrays["inv_cell"], np.float32)),
+        res=tuple(int(r) for r in arrays["res"]),
+        rows=t(np.asarray(arrays["rows"], np.int32)),
+        r_cap=t(np.asarray(arrays["r_cap"], np.float32)),
+        lbound=t(np.asarray(arrays["lbound"], np.float32)),
+        ent_lo=t(np.asarray(arrays["ent_lo"], np.float32)),
+        ent_hi=t(np.asarray(arrays["ent_hi"], np.float32)))
+
+
+def band_grid_from_numpy(arrays: dict, verts, indices,
+                         device: torch.device) -> BandGrid:
+    """The prim-band grid on the device from the fields of ``BandArrays``
+    (the port's build, or np.asarray of a reference grid) and the set's
+    verts (V, 3) and indices (P, 3)."""
+    f = _band_tensors(arrays, device)
+    v = torch.as_tensor(np.asarray(verts, np.float32), device=device)
+    idx = torch.as_tensor(np.asarray(indices, np.int64), device=device)
+    return BandGrid(**f, coords=coords_from_cand(f["rows"], v, idx))
+
+
+def sil_grid_from_numpy(arrays: dict, gs, device: torch.device) -> BandGrid:
+    """The silhouette grid on the device from the fields of ``BandArrays``
+    and the set's entities (a GeomSet on ``device``)."""
+    f = _band_tensors(arrays, device)
+    return BandGrid(**f, coords=sil_coords_from_rows(
+        f["rows"], gs.sil_p0, gs.sil_p1, gs.sil_n1, gs.sil_n2,
+        gs.sil_always))
 
 
 # --------------------------------------------------------------------------- #

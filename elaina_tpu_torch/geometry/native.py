@@ -4,8 +4,15 @@ The library is compiled from the checkout's source with g++ into the
 port's build directory at first use (``utils/build.py``); the committed
 ``native/libelaina_scene.so`` is not loaded, since it was built with
 ``-march=native`` on another host.  There is no numpy fallback: a failed
-build raises.  Only the entry points the slice uses are bound: OBJ
-parsing, silhouette entities and the fused candidate-grid band pass.
+build raises.  Only the entry points the port uses are bound: OBJ
+parsing, silhouette entities, the fused candidate-grid band pass, and the
+silhouette and prim band passes of the 3D Neumann grids.
+
+The band passes treat each cell on its own (the BVH they build over the
+set is the only shared state, and it is rebuilt identically per call), so
+the wrappers split the cells into chunks and run one native call per
+chunk on a thread pool; ctypes releases the interpreter lock during the
+call, and the outputs are the single call's, bit for bit.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import os
 import platform
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -30,6 +38,9 @@ CXXFLAGS = (["-O3", "-fPIC", "-std=c++17", "-shared"]
 
 _FP = ctypes.POINTER(ctypes.c_float)
 _IP = ctypes.POINTER(ctypes.c_int32)
+_UP = ctypes.POINTER(ctypes.c_uint8)
+_CHUNKS_PER_THREAD = 4      # native calls per thread of a band pass (each
+#                             call rebuilds the set's BVH, milliseconds)
 
 
 class _ObjData(ctypes.Structure):
@@ -67,6 +78,15 @@ def library() -> ctypes.CDLL:
     lib.grid_band_full.argtypes = [
         _FP, ctypes.c_int64, _IP, ctypes.c_int64, ctypes.c_int32,
         ctypes.c_int32, _FP, ctypes.c_int64, _FP, ctypes.c_int32, _IP, _IP,
+        _FP]
+    lib.sil_band_rows.restype = None
+    lib.sil_band_rows.argtypes = [
+        _FP, _FP, _FP, _FP, _UP, ctypes.c_int64, ctypes.c_int32, _FP,
+        ctypes.c_int64, _FP, ctypes.c_int32, _IP, _FP, _FP]
+    lib.prim_band_rows.restype = None
+    lib.prim_band_rows.argtypes = [
+        _FP, ctypes.c_int64, _IP, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int32, _FP, ctypes.c_int64, _FP, ctypes.c_int32, _IP, _FP,
         _FP]
     _LIB = lib
     return lib
@@ -123,22 +143,100 @@ def silhouette_entities_native(verts: np.ndarray, indices: np.ndarray):
         lib.silhouettes_free(out)
 
 
+def _f32(a):
+    return np.ascontiguousarray(a, np.float32)
+
+
+def _over_cells(call, centers: np.ndarray, outs: list) -> None:
+    """Run ``call(centers_chunk, *out_chunks)`` over chunks of the cells on
+    a thread pool; every array of ``outs`` has the cells on axis 0."""
+    n = centers.shape[0]
+    workers = os.cpu_count() or 1
+    cuts = np.linspace(0, n, min(n, _CHUNKS_PER_THREAD * workers) + 1)
+    spans = list(zip(cuts[:-1].astype(int), cuts[1:].astype(int)))
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        futures = [pool.submit(call, centers[a:b], *(o[a:b] for o in outs))
+                   for a, b in spans]
+        for f in futures:
+            f.result()
+
+
 def grid_band_full_native(verts: np.ndarray, indices: np.ndarray,
                           centers: np.ndarray, hcell: np.ndarray, K: int):
     """One band pass over cells: (counts (n,) i32, rows (n, K) i32 -1
     padded, lcell (n,) f32).  Rows are meaningful where counts <= K."""
     lib = library()
-    v = np.ascontiguousarray(verts, np.float32)
+    v = _f32(verts)
     idx = np.ascontiguousarray(indices, np.int32)
-    c = np.ascontiguousarray(centers, np.float32)
-    h = np.ascontiguousarray(hcell, np.float32)
+    c = _f32(centers)
+    h = _f32(hcell)
     n = c.shape[0]
     counts = np.empty((n,), np.int32)
     rows = np.empty((n, int(K)), np.int32)
     lcell = np.empty((n,), np.float32)
-    lib.grid_band_full(
-        v.ctypes.data_as(_FP), v.shape[0], idx.ctypes.data_as(_IP),
-        idx.shape[0], idx.shape[1], v.shape[1], c.ctypes.data_as(_FP), n,
-        h.ctypes.data_as(_FP), int(K), counts.ctypes.data_as(_IP),
-        rows.ctypes.data_as(_IP), lcell.ctypes.data_as(_FP))
+
+    def call(cc, counts_c, rows_c, lcell_c):
+        lib.grid_band_full(
+            v.ctypes.data_as(_FP), v.shape[0], idx.ctypes.data_as(_IP),
+            idx.shape[0], idx.shape[1], v.shape[1], cc.ctypes.data_as(_FP),
+            cc.shape[0], h.ctypes.data_as(_FP), int(K),
+            counts_c.ctypes.data_as(_IP), rows_c.ctypes.data_as(_IP),
+            lcell_c.ctypes.data_as(_FP))
+
+    _over_cells(call, c, [counts, rows, lcell])
     return counts, rows, lcell
+
+
+def sil_band_rows_native(p0, p1, n1, n2, always, centers, hcell, K: int):
+    """Silhouette band pass (``sil_band_rows``): per cell the K nearest
+    (by lower bound) entities not certified non-silhouette over the cell,
+    the validity cap r_cap and the kept entities' min lower bound.
+    Returns (rows (n, K) i32 -1 padded, r_cap (n,), lbound (n,))."""
+    lib = library()
+    p0, p1, n1, n2 = (_f32(a) for a in (p0, p1, n1, n2))
+    aw = np.ascontiguousarray(always, np.uint8)
+    c = _f32(centers)
+    h = _f32(hcell)
+    n = c.shape[0]
+    rows = np.empty((n, int(K)), np.int32)
+    rcap = np.empty((n,), np.float32)
+    lbound = np.empty((n,), np.float32)
+
+    def call(cc, rows_c, rcap_c, lbound_c):
+        lib.sil_band_rows(
+            p0.ctypes.data_as(_FP), p1.ctypes.data_as(_FP),
+            n1.ctypes.data_as(_FP), n2.ctypes.data_as(_FP),
+            aw.ctypes.data_as(_UP), p0.shape[0], p0.shape[1],
+            cc.ctypes.data_as(_FP), cc.shape[0], h.ctypes.data_as(_FP),
+            int(K), rows_c.ctypes.data_as(_IP), rcap_c.ctypes.data_as(_FP),
+            lbound_c.ctypes.data_as(_FP))
+
+    _over_cells(call, c, [rows, rcap, lbound])
+    return rows, rcap, lbound
+
+
+def prim_band_rows_native(verts, indices, centers, hcell, K: int):
+    """Radius-complete prim band pass (``prim_band_rows``): per cell the K
+    prims of smallest lower bound over the cell and the completeness cap
+    r_cap (every prim of lower bound < r_cap is in the row).  Returns
+    (rows (n, K) i32 -1 padded, r_cap (n,), lbound (n,))."""
+    lib = library()
+    v = _f32(verts)
+    idx = np.ascontiguousarray(indices, np.int32)
+    c = _f32(centers)
+    h = _f32(hcell)
+    n = c.shape[0]
+    rows = np.empty((n, int(K)), np.int32)
+    rcap = np.empty((n,), np.float32)
+    lbound = np.empty((n,), np.float32)
+
+    def call(cc, rows_c, rcap_c, lbound_c):
+        lib.prim_band_rows(
+            v.ctypes.data_as(_FP), v.shape[0], idx.ctypes.data_as(_IP),
+            idx.shape[0], idx.shape[1], v.shape[1], cc.ctypes.data_as(_FP),
+            cc.shape[0], h.ctypes.data_as(_FP), int(K),
+            rows_c.ctypes.data_as(_IP), rcap_c.ctypes.data_as(_FP),
+            lbound_c.ctypes.data_as(_FP))
+
+    _over_cells(call, c, [rows, rcap, lbound])
+    return rows, rcap, lbound

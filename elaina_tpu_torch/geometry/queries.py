@@ -1,18 +1,27 @@
-"""Dense queries over a small boundary set (lanes x prims sweeps).
+"""Neumann-set queries: dense sweeps (2D) and band-grid queries (3D).
 
-Port of the dense branches of ``elaina_tpu/geometry/queries.py`` that a
-Neumann set of at most ``BRUTE_FORCE_MAX`` prims takes: closest
-silhouette, ray intersection and Green-weighted in-ball sampling.  The
-reference's ``small_gather`` one-hot matmuls become plain indexing.
-Larger Neumann sets need the band grids (ROADMAP Queue 1 item 12).
+Port of ``elaina_tpu/geometry/queries.py``:
+
+* the dense branches that a 2D Neumann set of at most ``BRUTE_FORCE_MAX``
+  prims takes: closest silhouette, ray intersection and Green-weighted
+  in-ball sampling (the reference's ``small_gather`` one-hot matmuls are
+  plain indexing);
+* the band-grid queries of a 3D Neumann set: the silhouette distance over
+  the SilGrid (kernel K9) and one depth step's in-ball sample, visibility
+  ray and walk ray over the prim-band grid (kernel K6).  A 3D set always
+  takes these; there is no dense or BVH 3D query.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
+from ..ops import queries as K
 from ..solver.green import GREEN_R_CLAMP, green_eval
 from .geomset import GeomSet
+from .grid import BandGrid
 from .primitives import prim_closest_point, prim_ray_intersect
 
 BRUTE_FORCE_MAX = 64
@@ -20,11 +29,13 @@ _INF = float("inf")
 
 
 def check_dense(gs: GeomSet):
+    """A 2D Neumann set takes the dense sweeps: at most BRUTE_FORCE_MAX
+    prims (a 3D set takes the band grids instead)."""
     if gs.n_prims > BRUTE_FORCE_MAX:
         raise NotImplementedError(
-            f"Neumann set of {gs.n_prims} prims: sets above "
-            f"{BRUTE_FORCE_MAX} need the band grids of ROADMAP Queue 1 "
-            f"item 12 (3D Neumann-heavy path)")
+            f"2D Neumann set of {gs.n_prims} prims: sets above "
+            f"{BRUTE_FORCE_MAX} need the 2D band grids of ROADMAP Queue 1 "
+            f"item 12")
 
 
 def _prim_verts_all(gs: GeomSet):
@@ -84,3 +95,104 @@ def sample_in_ball(gs: GeomSet, q, R, u):
         torch.zeros_like(total))
     idx = torch.where((total > 0) & (w_sel > 0), idx, torch.full_like(idx, -1))
     return idx, pdf
+
+
+# --------------------------------------------------------------------------- #
+# band-grid queries (3D)
+# --------------------------------------------------------------------------- #
+
+
+def band_cell(bg: BandGrid, q: torch.Tensor):
+    """(lin int64, outside): the grid cell of each query point (N, D),
+    out-of-grid points clamped to a border cell."""
+    res_f = torch.tensor(bg.res, dtype=torch.float32, device=q.device)
+    rel = (q - bg.origin) * bg.inv_cell
+    outside = ((rel < 0.0) | (rel >= res_f)).any(dim=-1)
+    idx = torch.minimum(rel.to(torch.int32).clamp(min=0),
+                        torch.tensor([r - 1 for r in bg.res],
+                                     dtype=torch.int32, device=q.device))
+    lin = idx[..., 0].long()
+    for d in range(1, len(bg.res)):
+        lin = lin * bg.res[d] + idx[..., d]
+    return lin, outside
+
+
+def _box_distance(bg: BandGrid, q):
+    delta = (torch.clamp(bg.ent_lo - q, min=0.0)
+             + torch.clamp(q - bg.ent_hi, min=0.0))
+    return torch.linalg.norm(delta, dim=-1)
+
+
+def band_r_cap(bg: BandGrid, q):
+    """Completeness radius at q: the cell's r_cap inside the grid, the
+    distance to the set's bbox outside it (the grid covers the scene box,
+    so an out-of-grid point is outside every prim's box)."""
+    lin, outside = band_cell(bg, q)
+    return torch.where(outside, _box_distance(bg, q), bg.r_cap[lin])
+
+
+def _kernel_cell(bg: BandGrid, q):
+    lin, outside = band_cell(bg, q)
+    return lin, outside, torch.where(outside, -1, lin).to(torch.int32)
+
+
+def grid_closest_silhouette(sg: BandGrid, q):
+    """Distance (N,) to the nearest silhouette through the SilGrid:
+    min(nearest kept entity, the cell's r_cap), exact below r_cap and a
+    lower bound above it, either way a valid star radius; the bbox
+    distance outside the grid."""
+    lin, outside, cell = _kernel_cell(sg, q)
+    d2 = K.sil_band(cell, q.contiguous(), sg.coords)
+    # padded slots pass the sign test at ~1e18: a cell whose kept
+    # entities all fail it finds nothing
+    found = torch.where(d2 >= 1e17, float("inf"), torch.sqrt(d2))
+    capped = torch.minimum(found, sg.r_cap[lin])
+    capped = torch.where(capped >= 1e29, float("inf"), capped)
+    return torch.where(outside, _box_distance(sg, q), capped)
+
+
+@dataclass
+class NeumannWalkOut:
+    """One depth step's Neumann band results (``band_neumann_walk``)."""
+
+    pid: torch.Tensor         # (N,) sampled prim, -1 when none
+    pdf_area: torch.Tensor    # (N,) area pdf of sample_pt
+    sample_pt: torch.Tensor   # (N, 3)
+    side: torch.Tensor        # (N,) sign of q against the sampled plane
+    plane_n: torch.Tensor     # (N, 3) unnormalized, prim_normal's way
+    occluded: torch.Tensor    # (N,) bool origin -> sample_pt blocked
+    whit: torch.Tensor        # (N,) bool walk ray hit
+    wt: torch.Tensor          # (N,) walk hit distance (inf on a miss)
+    wnormal: torch.Tensor     # (N, 3) walk hit's unit normal (0 on a miss)
+
+
+def band_neumann_walk(bg: BandGrid, gs: GeomSet, q, R, on_n, n_normal,
+                      u_sel, u_pt, d_walk, eps: float) -> NeumannWalkOut:
+    """The in-ball sample, its visibility ray and the walk ray of one
+    depth step over the prim band of q's cell (kernel K6).  Exact when R
+    (and the eps offset of the ray origins) stays within the cell's
+    r_cap, which ``_separate`` guarantees."""
+    lin, outside, cell = _kernel_cell(bg, q)
+    out, slot = K.band_neumann_walk(
+        cell, q.contiguous(), R.contiguous(), on_n.contiguous(),
+        n_normal.contiguous(), u_sel.contiguous(), u_pt.contiguous(),
+        d_walk.contiguous(), eps, bg.coords)
+    K_row = bg.rows.shape[1]
+    w_sel, total = out[:, 0], out[:, 1]
+    pid = torch.clamp(bg.rows[lin, slot.long().clamp(max=K_row - 1)], min=0)
+    m_sel = gs.prim_measure[pid]
+    ok = (slot < K_row) & (total > 0) & (w_sel > 0) & ~outside
+    pdf_area = torch.where(
+        ok, w_sel / (torch.clamp(total, min=1e-30)
+                     * torch.clamp(m_sel, min=1e-30)),
+        torch.zeros_like(total))
+    return NeumannWalkOut(
+        pid=torch.where(ok, pid, -1).to(torch.int32),
+        pdf_area=pdf_area,
+        sample_pt=out[:, 2:5],
+        side=out[:, 5],
+        plane_n=out[:, 6:9],
+        occluded=(out[:, 9] > 0) & ~outside,
+        whit=(out[:, 10] > 0) & ~outside,
+        wt=torch.where(outside, float("inf"), out[:, 11]),
+        wnormal=torch.where(outside[:, None], 0.0, out[:, 12:15]))

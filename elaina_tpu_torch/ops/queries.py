@@ -1,0 +1,253 @@
+"""Neumann band-grid kernels K6 and K9: wrappers, plain versions, build.
+
+Port of ``band_neumann_walk_dma_3d`` and ``sil_band_dma`` (3D) of
+``elaina_tpu/ops/pallas_queries.py``.  The CUDA sources are in
+``csrc/queries.cu`` (built and bound as ``ops/cuda.py`` says).  Each
+wrapper checks its inputs, allocates its outputs, launches on the current
+stream and counts its launches in ``<wrapper>.launches``.  A CPU tensor
+takes the plain PyTorch version beside the kernel; a CUDA tensor launches
+the kernel or raises.
+
+Contracts (the TPU kernels', minus the per-lane DMAs):
+
+* ``sil_band(cell, q, coords) -> d2 (N,)``: the least squared distance
+  from q to the entities of its SilGrid cell that pass s1 s2 <= 0 (point
+  to segment, t clamped to [0, 1]); +inf where cell < 0.  Padded slots
+  give ~1e18, which the caller reads as "none".
+* ``band_neumann_walk(cell, q, R, on, n_normal, u_sel, u_pt, d_walk, eps,
+  coords) -> (out (N, 15), slot (N,))``: the Green-weighted in-ball CDF
+  sample over the lane's prim-band cell, its sample point, plane side and
+  unnormalized plane normal, the visibility ray's any hit, and the walk
+  ray's closest hit with its unit normal; columns [w_sel, total, sp.xyz,
+  side, plane_n.xyz, occluded, walk_hit, walk_t, walk_n.xyz].  ``slot`` is
+  the count of CDF entries <= u_sel * total, Kp meaning none (then w_sel
+  = 0 and the selected corners are PAD_COORD).  Lanes with cell < 0 get
+  zeros, walk_t = inf and slot = Kp.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from ..geometry.grid import PAD_COORD
+from .cuda import F32, I32, I64, VP
+from .cuda import build_log as _lib_log
+from .cuda import check as _check
+from .cuda import launch as _launch
+from .cuda import load_library
+from .cuda import ptr as _ptr
+from .resolve import tri_d2_planes
+
+INV_4PI = float(np.float32(1.0 / (4.0 * math.pi)))
+_PLAIN_CHUNK = 16384    # lanes per chunk of the plain versions
+
+_SIGNATURES = {
+    "sil_band_launch": [VP, VP, VP, I64, I32, VP, VP],
+    "band_neumann_walk_launch": [VP, VP, VP, VP, VP, VP, VP, VP, F32, VP,
+                                 I64, I32, VP, VP, VP],
+}
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built from ``csrc/queries.cu`` on first call."""
+    return load_library("elaina_queries", "queries.cu", _SIGNATURES)
+
+
+def build_log() -> str:
+    return _lib_log(library())
+
+
+def _dot(u, v):
+    return u[0] * v[0] + u[1] * v[1] + u[2] * v[2]
+
+
+def _cross(u, v):
+    return (u[1] * v[2] - u[2] * v[1], u[2] * v[0] - u[0] * v[2],
+            u[0] * v[1] - u[1] * v[0])
+
+
+# --------------------------------------------------------------------------- #
+# K9 sil_band
+# --------------------------------------------------------------------------- #
+
+
+def sil_band_plain(cell, q, coords):
+    n = cell.shape[0]
+    d2 = torch.full((n,), float("inf"), dtype=torch.float32, device=q.device)
+    sel = torch.nonzero(cell >= 0).flatten()
+    for c0 in range(0, sel.numel(), _PLAIN_CHUNK):
+        ids = sel[c0:c0 + _PLAIN_CHUNK]
+        pl = coords[cell[ids].long()].unbind(1)            # 12 x (m, Kp)
+        qk = [q[ids, k:k + 1] for k in range(3)]
+        e = [pl[3 + k] - pl[k] for k in range(3)]
+        w = [qk[k] - pl[k] for k in range(3)]
+        den = torch.clamp(_dot(e, e), min=1e-30)
+        t = torch.clamp(_dot(w, e) / den, 0.0, 1.0)
+        v = [w[k] - t * e[k] for k in range(3)]
+        s1 = _dot(pl[6:9], v)
+        s2 = _dot(pl[9:12], v)
+        d = torch.where(s1 * s2 <= 0.0, _dot(v, v),
+                        torch.full_like(t, float("inf")))
+        d2[ids] = d.min(dim=1).values
+    return d2
+
+
+def sil_band(cell, q, coords):
+    n = cell.shape[0]
+    dev = q.device
+    C, _, Kp = coords.shape
+    _check("cell", cell, torch.int32, (n,), dev)
+    _check("q", q, torch.float32, (n, 3), dev)
+    _check("coords", coords, torch.float32, (C, 12, Kp), dev)
+    if Kp % 32:
+        raise ValueError(f"coords has {Kp} slots per cell")
+    if dev.type == "cpu":
+        return sil_band_plain(cell, q, coords)
+    d2 = torch.empty((n,), dtype=torch.float32, device=dev)
+    _launch(library().sil_band_launch, _ptr(cell), _ptr(q), _ptr(coords), n,
+            Kp, _ptr(d2), device=dev)
+    sil_band.launches += 1
+    return d2
+
+
+sil_band.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# K6 band_neumann_walk
+# --------------------------------------------------------------------------- #
+
+
+def _mt_planes(o, d, c, tmax):
+    """Moller-Trumbore over corner planes: t (m, Kp), inf on a miss."""
+    a = c[0:3]
+    e1 = [c[3 + k] - a[k] for k in range(3)]
+    e2 = [c[6 + k] - a[k] for k in range(3)]
+    tv = [o[k] - a[k] for k in range(3)]
+    p = _cross(d, e2)
+    det = _dot(e1, p)
+    ok = torch.abs(det) > 1e-12
+    safe = torch.where(ok, det, torch.ones_like(det))
+    u = _dot(tv, p) / safe
+    qv = _cross(tv, e1)
+    v = _dot(d, qv) / safe
+    t = _dot(e2, qv) / safe
+    hit = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 1e-6)
+           & (t <= tmax))
+    return torch.where(hit, t, torch.full_like(t, float("inf")))
+
+
+def _pick(planes, slot):
+    return [p.gather(1, slot[:, None])[:, 0] for p in planes]
+
+
+def band_neumann_walk_plain(cell, q, R, on, n_normal, u_sel, u_pt, d_walk,
+                            eps: float, coords):
+    n = cell.shape[0]
+    Kp = coords.shape[2]
+    dev = q.device
+    inf = float("inf")
+    out = torch.zeros((n, 15), dtype=torch.float32, device=dev)
+    out[:, 11] = inf
+    slot = torch.full((n,), Kp, dtype=torch.int32, device=dev)
+    sel = torch.nonzero(cell >= 0).flatten()
+    for c0 in range(0, sel.numel(), _PLAIN_CHUNK):
+        ids = sel[c0:c0 + _PLAIN_CHUNK]
+        c = coords[cell[ids].long()].unbind(1)             # 9 x (m, Kp)
+        qk = [q[ids, k:k + 1] for k in range(3)]
+        Rm = R[ids][:, None]
+        # 1. weights and the CDF sample
+        dd = torch.sqrt(tri_d2_planes(qk, c))
+        cr = _cross([c[3 + k] - c[k] for k in range(3)],
+                    [c[6 + k] - c[k] for k in range(3)])
+        area = 0.5 * torch.sqrt(_dot(cr, cr))
+        g = (1.0 / torch.clamp(dd, min=1e-4) - 1.0 / Rm) * INV_4PI
+        w = torch.where(dd < Rm, area * torch.clamp(g, min=0.0),
+                        torch.zeros_like(dd))
+        total = w.sum(dim=1)
+        target = u_sel[ids] * total
+        cnt = (target[:, None] >= torch.cumsum(w, dim=1)).sum(dim=1)
+        has = cnt < Kp
+        s_idx = cnt.clamp(max=Kp - 1)
+        w_sel = torch.where(has, w.gather(1, s_idx[:, None])[:, 0],
+                            torch.zeros_like(total))
+        # 2. the sample point on the selected triangle
+        s = [torch.where(has, x, torch.full_like(x, PAD_COORD))
+             for x in _pick(c, s_idx)]
+        su = torch.sqrt(u_pt[ids, 0])
+        b0 = 1.0 - su
+        b1 = u_pt[ids, 1] * su
+        b2 = 1.0 - b0 - b1
+        sp = [s[k] * b0 + s[3 + k] * b1 + s[6 + k] * b2 for k in range(3)]
+        nw = _cross([s[3 + k] - s[k] for k in range(3)],
+                    [s[6 + k] - s[k] for k in range(3)])
+        qv = [q[ids, k] for k in range(3)]
+        side = torch.sign(_dot([qv[k] - s[k] for k in range(3)], nw))
+        # 3. visibility ray
+        oe = torch.where(on[ids], eps, 0.0)
+        o = [qv[k] + oe * n_normal[ids, k] for k in range(3)]
+        ray = [sp[k] - o[k] for k in range(3)]
+        dist = torch.sqrt(_dot(ray, ray))
+        rd = [ray[k] / torch.clamp(dist, min=1e-20) for k in range(3)]
+        o2 = [x[:, None] for x in o]
+        vis = _mt_planes(o2, [x[:, None] for x in rd], c,
+                         (dist - eps)[:, None])
+        occluded = torch.isfinite(vis.min(dim=1).values)
+        # 4. walk ray
+        wt_all = _mt_planes(o2, [d_walk[ids, k:k + 1] for k in range(3)], c,
+                            Rm)
+        wt, wslot = torch.min(wt_all, dim=1)
+        whit = torch.isfinite(wt)
+        wc = _pick(c, wslot)
+        wcr = _cross([wc[3 + k] - wc[k] for k in range(3)],
+                     [wc[6 + k] - wc[k] for k in range(3)])
+        wlen = torch.sqrt(torch.clamp(_dot(wcr, wcr), min=1e-38))
+        wn = [torch.where(whit, x / wlen, torch.zeros_like(x)) for x in wcr]
+        out[ids] = torch.stack(
+            [w_sel, total, *sp, side, *nw, occluded.float(), whit.float(),
+             torch.where(whit, wt, torch.full_like(wt, inf)), *wn], dim=1)
+        slot[ids] = cnt.to(torch.int32)
+    return out, slot
+
+
+def band_neumann_walk(cell, q, R, on, n_normal, u_sel, u_pt, d_walk,
+                      eps: float, coords):
+    n = cell.shape[0]
+    dev = q.device
+    C, _, Kp = coords.shape
+    _check("cell", cell, torch.int32, (n,), dev)
+    for name, x in (("q", q), ("n_normal", n_normal), ("d_walk", d_walk)):
+        _check(name, x, torch.float32, (n, 3), dev)
+    for name, x in (("R", R), ("u_sel", u_sel)):
+        _check(name, x, torch.float32, (n,), dev)
+    _check("on", on, torch.bool, (n,), dev)
+    _check("u_pt", u_pt, torch.float32, (n, 2), dev)
+    _check("coords", coords, torch.float32, (C, 9, Kp), dev)
+    if Kp % 32 or Kp > 256:
+        raise ValueError(f"coords has {Kp} slots per cell (a multiple of "
+                         f"32, at most 256)")
+    if dev.type == "cpu":
+        return band_neumann_walk_plain(cell, q, R, on, n_normal, u_sel,
+                                       u_pt, d_walk, eps, coords)
+    out = torch.empty((n, 15), dtype=torch.float32, device=dev)
+    slot = torch.empty((n,), dtype=torch.int32, device=dev)
+    _launch(library().band_neumann_walk_launch, _ptr(cell), _ptr(q), _ptr(R),
+            _ptr(on), _ptr(n_normal), _ptr(u_sel), _ptr(u_pt), _ptr(d_walk),
+            float(eps), _ptr(coords), n, Kp, _ptr(out), _ptr(slot),
+            device=dev)
+    band_neumann_walk.launches += 1
+    return out, slot
+
+
+band_neumann_walk.launches = 0
+
+KERNELS = (band_neumann_walk, sil_band)
+
+
+def reset_launch_counts():
+    for k in KERNELS:
+        k.launches = 0

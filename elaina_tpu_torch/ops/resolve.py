@@ -1,7 +1,8 @@
-"""Dirichlet-resolve kernels K1-K3: wrappers, plain versions, build.
+"""Dirichlet-resolve kernels K1-K5: wrappers, plain versions, build.
 
 Port of ``elaina_tpu/ops/pallas_resolve.py`` (``compact_lanes``,
-``sweep_resolve``, ``fetch_colors``).  The CUDA sources are in
+``sweep_resolve``, ``fetch_colors``, ``sweep_resolve_3d``,
+``fetch_colors3``).  The CUDA sources are in
 ``csrc/resolve.cu``, compiled with nvcc for sm_90a into ``_build/`` at the
 first launch and bound through ctypes (pointers and the current stream as
 ``c_void_p``).  Each wrapper checks its inputs, allocates its outputs with
@@ -22,86 +23,50 @@ Contracts (from the TPU kernels, minus the bitmask words):
 * ``fetch_colors(mask, cfi, color_rows) -> (c0, c1)``: on masked lanes,
   the two endpoint colors of row ``cfi`` of the (2P, 6) table; 0 on
   unmasked lanes and rows out of range.
+* ``sweep_resolve_3d(mask, row, q, coords, cand) -> (d, pid, corners)``:
+  on masked lanes, the exact closest of the K triangles of row ``row``
+  (the distance of ``_tri_d2_tile``): distance, prim id and the winner's
+  corners (N, 9) [a, b, c]; the smallest slot wins ties.  Unmasked lanes
+  give 0, -1, 0.
+* ``fetch_colors3(mask, cfi, color_rows) -> (ca, cb, cc)``: K3 for the
+  three triangle corners of the (2P, 9) table.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
 
 import torch
 
-from ..utils.build import PKG_DIR, build_shared
+from .cuda import I32, I64, VP
+from .cuda import build_log as _lib_log
+from .cuda import check as _check
+from .cuda import launch as _launch
+from .cuda import load_library
+from .cuda import ptr as _ptr
 
-SOURCE = os.path.join(PKG_DIR, "csrc", "resolve.cu")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
 COMPACT_TILE = 1024     # lanes per tile of the compaction passes
 _PLAIN_CHUNK = 16384    # lanes per chunk of the plain sweep (bounds memory)
 
-_LIB = None
-_VP = ctypes.c_void_p
-_I64 = ctypes.c_int64
-_I32 = ctypes.c_int32
-
-
-def nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the resolve kernels are built "
-                           "on the machine with the GPU")
-    return path
+_SIGNATURES = {
+    "compact_lanes_launch": [VP, I64, I32, VP, VP, VP, VP],
+    "sweep_resolve_launch": [VP, VP, VP, VP, VP, I64, I32, I32, VP, VP, VP,
+                             VP, VP],
+    "sweep_resolve_3d_launch": [VP, VP, VP, VP, VP, I64, I32, I32, VP, VP,
+                                VP, VP],
+    "fetch_colors_launch": [VP, VP, VP, I64, I64, VP, VP],
+    "fetch_colors3_launch": [VP, VP, VP, I64, I64, VP, VP],
+}
 
 
 def library() -> ctypes.CDLL:
     """The kernel library, built from ``csrc/resolve.cu`` on first call."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    lib = ctypes.CDLL(build_shared("elaina_resolve", [nvcc()], [SOURCE],
-                                   NVCC_FLAGS))
-    lib.compact_lanes_launch.restype = ctypes.c_int
-    lib.compact_lanes_launch.argtypes = [_VP, _I64, _I32, _VP, _VP, _VP, _VP]
-    lib.sweep_resolve_launch.restype = ctypes.c_int
-    lib.sweep_resolve_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _I64, _I32,
-                                         _I32, _VP, _VP, _VP, _VP, _VP]
-    lib.fetch_colors_launch.restype = ctypes.c_int
-    lib.fetch_colors_launch.argtypes = [_VP, _VP, _VP, _I64, _I64, _VP, _VP,
-                                        _VP]
-    _LIB = lib
-    return lib
+    return load_library("elaina_resolve", "resolve.cu", _SIGNATURES)
 
 
 def build_log() -> str:
     """The compiler's notes from the kernel build (``-Xptxas -v``)."""
-    with open(library()._name + ".log") as f:
-        return f.read()
-
-
-def _check(name: str, x: torch.Tensor, dtype, shape, device):
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected "
-                         f"{tuple(shape)}")
-    if x.device != device:
-        raise ValueError(f"{name}: on {x.device}, expected {device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
-def _ptr(x: torch.Tensor):
-    return ctypes.c_void_p(x.data_ptr())
-
-
-def _launch(fn, *args, device: torch.device):
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__} failed: cudaError {rc}")
+    return _lib_log(library())
 
 
 # --------------------------------------------------------------------------- #
@@ -204,40 +169,150 @@ sweep_resolve.launches = 0
 
 
 # --------------------------------------------------------------------------- #
-# K3 fetch_colors
+# K3 fetch_colors / K5 fetch_colors3
 # --------------------------------------------------------------------------- #
 
 
-def fetch_colors_plain(mask, cfi, color_rows):
+def _fetch_plain(mask, cfi, color_rows, nc: int):
     r = cfi.long()
-    on = mask & (r >= 0) & (r < color_rows.shape[0])
-    c = torch.where(on[:, None], color_rows[r.clamp(0, color_rows.shape[0]
-                                                    - 1)],
+    n_rows = color_rows.shape[0]
+    on = mask & (r >= 0) & (r < n_rows)
+    c = torch.where(on[:, None], color_rows[r.clamp(0, n_rows - 1)],
                     torch.zeros((), dtype=torch.float32, device=cfi.device))
-    return c[:, :3].contiguous(), c[:, 3:].contiguous()
+    return tuple(c[:, 3 * k:3 * k + 3].contiguous() for k in range(nc))
 
 
-def fetch_colors(mask, cfi, color_rows):
+def _fetch(wrapper, fn: str, mask, cfi, color_rows, nc: int):
     n = cfi.shape[0]
     dev = cfi.device
     _check("mask", mask, torch.bool, (n,), dev)
     _check("cfi", cfi, torch.int32, (n,), dev)
     _check("color_rows", color_rows, torch.float32,
-           (color_rows.shape[0], 6), dev)
+           (color_rows.shape[0], 3 * nc), dev)
     if dev.type == "cpu":
-        return fetch_colors_plain(mask, cfi, color_rows)
-    c0 = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    c1 = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    _launch(library().fetch_colors_launch, _ptr(mask), _ptr(cfi),
-            _ptr(color_rows), n, color_rows.shape[0], _ptr(c0), _ptr(c1),
-            device=dev)
-    fetch_colors.launches += 1
-    return c0, c1
+        return _fetch_plain(mask, cfi, color_rows, nc)
+    out = torch.empty((nc, n, 3), dtype=torch.float32, device=dev)
+    _launch(getattr(library(), fn), _ptr(mask), _ptr(cfi), _ptr(color_rows),
+            n, color_rows.shape[0], _ptr(out), device=dev)
+    wrapper.launches += 1
+    return tuple(out[k] for k in range(nc))
+
+
+def fetch_colors_plain(mask, cfi, color_rows):
+    return _fetch_plain(mask, cfi, color_rows, 2)
+
+
+def fetch_colors(mask, cfi, color_rows):
+    return _fetch(fetch_colors, "fetch_colors_launch", mask, cfi, color_rows,
+                  2)
 
 
 fetch_colors.launches = 0
 
-KERNELS = (compact_lanes, sweep_resolve, fetch_colors)
+
+def fetch_colors3_plain(mask, cfi, color_rows):
+    return _fetch_plain(mask, cfi, color_rows, 3)
+
+
+def fetch_colors3(mask, cfi, color_rows):
+    return _fetch(fetch_colors3, "fetch_colors3_launch", mask, cfi,
+                  color_rows, 3)
+
+
+fetch_colors3.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# K4 sweep_resolve_3d
+# --------------------------------------------------------------------------- #
+
+
+def _edge_d2(q, p0, p1):
+    e = [p1[k] - p0[k] for k in range(3)]
+    w = [q[k] - p0[k] for k in range(3)]
+    t = torch.clamp((w[0] * e[0] + w[1] * e[1] + w[2] * e[2])
+                    / torch.clamp(e[0] * e[0] + e[1] * e[1] + e[2] * e[2],
+                                  min=1e-30), 0.0, 1.0)
+    dd = [w[k] - t * e[k] for k in range(3)]
+    return dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2]
+
+
+def tri_d2_planes(q, c):
+    """Point-triangle squared distance, ``_tri_d2_tile``'s formula with
+    the kernels' order of operations: q a tuple of 3 (n, 1) tensors, c a
+    tuple of 9 (n, K) corner planes."""
+    a, b, cc = c[0:3], c[3:6], c[6:9]
+
+    def dot(u, v):
+        return u[0] * v[0] + u[1] * v[1] + u[2] * v[2]
+
+    e1 = [b[k] - a[k] for k in range(3)]
+    e2 = [cc[k] - a[k] for k in range(3)]
+    w = [q[k] - a[k] for k in range(3)]
+    d11, d12, d22 = dot(e1, e1), dot(e1, e2), dot(e2, e2)
+    w1, w2 = dot(w, e1), dot(w, e2)
+    den = torch.clamp(d11 * d22 - d12 * d12, min=1e-30)
+    u = (d22 * w1 - d12 * w2) / den
+    v = (d11 * w2 - d12 * w1) / den
+    inside = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+    diff = [w[k] - u * e1[k] - v * e2[k] for k in range(3)]
+    d2_edge = torch.minimum(torch.minimum(_edge_d2(q, a, b),
+                                          _edge_d2(q, b, cc)),
+                            _edge_d2(q, cc, a))
+    return torch.where(inside, dot(diff, diff), d2_edge)
+
+
+def sweep_resolve_3d_plain(mask, row, q, coords, cand):
+    n = row.shape[0]
+    K = cand.shape[1]
+    dev = q.device
+    d = torch.zeros((n,), dtype=torch.float32, device=dev)
+    pid = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    corners = torch.zeros((n, 9), dtype=torch.float32, device=dev)
+    sel = torch.nonzero(mask).flatten()
+    for c0 in range(0, sel.numel(), _PLAIN_CHUNK):
+        ids = sel[c0:c0 + _PLAIN_CHUNK]
+        r = row[ids].long()
+        planes = coords[r].unbind(1)                        # 9 x (c, Kp)
+        qc = tuple(q[ids, k:k + 1] for k in range(3))
+        d2 = tri_d2_planes(qc, planes)
+        slot = torch.argmin(d2, dim=1, keepdim=True)       # first minimum
+        d[ids] = torch.sqrt(d2.gather(1, slot)[:, 0])
+        corners[ids] = torch.cat([p.gather(1, slot) for p in planes], dim=1)
+        s = slot[:, 0]
+        pid[ids] = torch.where(s < K, cand[r, s.clamp(max=K - 1)],
+                               torch.full_like(s, -1, dtype=torch.int32))
+    return d, pid, corners
+
+
+def sweep_resolve_3d(mask, row, q, coords, cand):
+    n = row.shape[0]
+    dev = q.device
+    R, K = cand.shape
+    Kp = coords.shape[2]
+    _check("mask", mask, torch.bool, (n,), dev)
+    _check("row", row, torch.int32, (n,), dev)
+    _check("q", q, torch.float32, (n, 3), dev)
+    _check("coords", coords, torch.float32, (R, 9, Kp), dev)
+    _check("cand", cand, torch.int32, (R, K), dev)
+    if Kp < K or Kp % 32:
+        raise ValueError(f"coords has {Kp} slots per row for K={K}")
+    if dev.type == "cpu":
+        return sweep_resolve_3d_plain(mask, row, q, coords, cand)
+    d = torch.empty((n,), dtype=torch.float32, device=dev)
+    pid = torch.empty((n,), dtype=torch.int32, device=dev)
+    corners = torch.empty((n, 9), dtype=torch.float32, device=dev)
+    _launch(library().sweep_resolve_3d_launch, _ptr(mask), _ptr(row), _ptr(q),
+            _ptr(coords), _ptr(cand), n, K, Kp, _ptr(d), _ptr(pid),
+            _ptr(corners), device=dev)
+    sweep_resolve_3d.launches += 1
+    return d, pid, corners
+
+
+sweep_resolve_3d.launches = 0
+
+KERNELS = (compact_lanes, sweep_resolve, fetch_colors, sweep_resolve_3d,
+           fetch_colors3)
 
 
 def reset_launch_counts():

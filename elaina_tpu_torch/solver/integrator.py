@@ -97,9 +97,10 @@ class UniformIntegrator(BaseIntegrator):
     def solve(self) -> int:
         """Run every sample; returns wall-clock milliseconds.  Leaves the
         mean in the SOLUTION film, the per-pixel sums in ``sum`` /
-        ``sum_sq``, the live lane-steps in ``total_walk_steps`` and the
-        lane-steps whose Dirichlet distance was resolved exactly (the K2
-        sweep's lanes) in ``total_resolved``."""
+        ``sum_sq``, the live lane-steps in ``total_walk_steps``, the
+        lane-steps whose Dirichlet distance was resolved exactly (the
+        K2 / K4 sweep's lanes) in ``total_resolved`` and the walks that
+        met the depth cap alive in ``total_capped``."""
         s = self.settings
         scene = self.problem.scene
         spp = int(s.samplesPerPixel)
@@ -109,8 +110,9 @@ class UniformIntegrator(BaseIntegrator):
         total_sq = torch.zeros_like(total)
         steps = torch.zeros((), dtype=torch.int64, device=self.device)
         resolved = torch.zeros_like(steps)
+        capped = torch.zeros_like(steps)
         for i in range(spp):
-            contrib, st, res = run_one_sample(
+            contrib, st, res, cap = run_one_sample(
                 scene, self.eval_points, self.mask,
                 sample_generators(seed, i, self.device),
                 eps=float(s.epsilonShell), max_depth=int(s.maxWalkingDepth))
@@ -118,6 +120,7 @@ class UniformIntegrator(BaseIntegrator):
             total_sq += contrib * contrib
             steps += st
             resolved += res
+            capped += cap
             if (s.saveSppMetricsDuration > 0
                     and i % s.saveSppMetricsDuration == 0
                     and i < s.saveSppMetricsUntil):
@@ -129,6 +132,7 @@ class UniformIntegrator(BaseIntegrator):
             _progress(i + 1, spp)
         self.total_walk_steps = int(steps)      # waits for the device
         self.total_resolved = int(resolved)
+        self.total_capped = int(capped)
         duration_ms = int((time.time() - start) * 1000)
         self.sum, self.sum_sq, self.spp = total, total_sq, spp
 

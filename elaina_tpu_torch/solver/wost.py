@@ -6,16 +6,21 @@ is one walk; a depth step updates all lanes with masked tensor ops, in
 the stage order of the reference's solve loop:
 
   _separate       star radius + epsilon-shell test (Dirichlet resolve on
-                  the K1-K3 kernels, Neumann silhouette distance)
+                  kernels K1-K3 in 2D, K1, K4, K5 in 3D; the Neumann
+                  silhouette distance, in 3D over the SilGrid (K9) and
+                  clamped to the prim band's completeness cap)
   _boundary_term  Dirichlet shell contribution
-  _neumann_term   Neumann boundary integral, subtracted
-  _walk           mean-value step, clipped on the Neumann boundary
+  _neumann_term   Neumann boundary integral, subtracted (2D, dense)
+  _walk           mean-value step, clipped on the Neumann boundary (2D)
+  _neumann_walk_fused
+                  3D: the Neumann term and the walk ray of one step over
+                  the prim band of each lane's cell (K6)
 
 Randomness comes from the per-(sample, stage) generators of
 ``utils/rng.py``.  Each step draws, in this order: from "neumann" the
 prim-selection uniforms (N,) and the point uniforms (N, 2); from "walk"
-the sphere angles (N,) and, when the scene has a Neumann set, the
-hemisphere angles (N,).
+the sphere uniforms ((N,) in 2D, two (N,) in 3D) and, when the scene has
+a Neumann set, the hemisphere uniforms (the same counts).
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ from ..geometry import queries as Q
 from ..geometry.grid import fine_decode
 from ..geometry.primitives import (prim_project, prim_sample_point,
                                    prim_side)
-from ..ops.resolve import compact_lanes, fetch_colors, sweep_resolve
+from ..ops.resolve import (compact_lanes, fetch_colors, fetch_colors3,
+                           sweep_resolve, sweep_resolve_3d)
 from ..utils.mathops import frame_from_normal, geometric_interpolate, to_world
 from .green import green_eval
 from .sampling import (sphere_measure, uniform_sample_hemisphere,
@@ -68,15 +74,39 @@ def _surface_color(dim, colors, gs, pid, side, uv):
     return geometric_interpolate(dim, vals, uv)
 
 
+def _resolve_2d(g, valid, row_c, q_c, eps: float):
+    """K2 + K3 on the compacted lanes: (d, color (n, 3), in-shell)."""
+    d_e, t, side, pid = sweep_resolve(valid, row_c, q_c, g.coords, g.cand)
+    ins = valid & (d_e < eps) & (t > 0.0) & (t < 1.0)
+    cfi = 2 * torch.clamp(pid, min=0) + (side < 0).to(torch.int32)
+    c0, c1 = fetch_colors(ins, torch.where(ins, cfi, 0), g.color_rows)
+    return d_e, c0 * (1.0 - t[:, None]) + c1 * t[:, None], ins
+
+
+def _resolve_3d(g, valid, row_c, q_c, eps: float):
+    """K4 + K5 on the compacted lanes: the winner's barycentrics, side and
+    interior test from its corners, then the in-shell lanes' colors."""
+    d_e, pid, corners = sweep_resolve_3d(valid, row_c, q_c, g.coords, g.cand)
+    pv = (corners[:, 0:3], corners[:, 3:6], corners[:, 6:9])
+    uv = prim_project(3, q_c, pv)
+    side = prim_side(3, q_c, pv)
+    interior = (uv[:, 0] > 0.0) & (uv[:, 1] > 0.0) & (uv[:, 0] + uv[:, 1]
+                                                      < 1.0)
+    ins = valid & (d_e < eps) & interior
+    cfi = 2 * torch.clamp(pid, min=0) + (side < 0).to(torch.int32)
+    ca, cb, cc = fetch_colors3(ins, torch.where(ins, cfi, 0), g.color_rows)
+    return d_e, geometric_interpolate(3, (ca, cb, cc), uv), ins
+
+
 def _fast_dirichlet(scene: Scene, q, active, eps: float):
-    """Dirichlet resolve on the FinePack and kernels K1-K3.
+    """Dirichlet resolve on the FinePack and the resolve kernels.
 
     One FinePack load per lane gives the candidate row, the need bit and a
     distance lower bound.  The active lanes whose need bit (or out-of-grid
     force) fired are compacted (K1, cap = N, so the compacted path always
-    applies), swept exactly over their row (K2), and the in-shell ones
-    fetch their boundary colors (K3); results scatter back by lane id.
-    Returns (R_D, in_shell, color (N, 3), need).
+    applies), swept exactly over their row (K2 / K4), and the in-shell
+    ones fetch their boundary colors (K3 / K5); results scatter back by
+    lane id.  Returns (R_D, in_shell, color (N, 3), need).
     """
     g = scene.d_grid
     fp = g.fine
@@ -91,13 +121,9 @@ def _fast_dirichlet(scene: Scene, q, active, eps: float):
     lanes, cnt = compact_lanes(need, cap=n)
     valid = torch.arange(n, device=dev) < cnt
     safe = torch.where(valid, lanes, 0).long()
-    q_c = q[safe].contiguous()
-    row_c = row[safe].contiguous()
-    d_e, t, side, pid = sweep_resolve(valid, row_c, q_c, g.coords, g.cand)
-    ins = valid & (d_e < eps) & (t > 0.0) & (t < 1.0)
-    cfi = 2 * torch.clamp(pid, min=0) + (side < 0).to(torch.int32)
-    c0, c1 = fetch_colors(ins, torch.where(ins, cfi, 0), g.color_rows)
-    col = c0 * (1.0 - t[:, None]) + c1 * t[:, None]
+    resolve = _resolve_2d if scene.dim == 2 else _resolve_3d
+    d_e, col, ins = resolve(g, valid, row[safe].contiguous(),
+                            q[safe].contiguous(), eps)
     out_c = torch.cat([d_e[:, None], col, ins.to(torch.float32)[:, None]],
                       dim=-1)
     # scatter back; invalid slots land on the spare row n and are dropped
@@ -134,8 +160,18 @@ def _separate(scene: Scene, state: WalkState, eps: float, shrink: bool):
     else:
         R_D, in_shell, bcolor, need = _fast_dirichlet(scene, q,
                                                       state.active, eps)
-    R_N = (Q.closest_silhouette(scene.neumann.gs, q)
-           if scene.neumann is not None else inf)
+    if scene.neumann is None:
+        R_N = inf
+    elif scene.dim == 2:
+        R_N = Q.closest_silhouette(scene.neumann.gs, q)
+    else:
+        R_N = Q.grid_closest_silhouette(scene.n_sgrid, q)
+        # clamp to the prim band's completeness cap, less 2 eps for the
+        # eps-offset ray origins: within it one band row holds every prim
+        # the step's ball and rays can touch (reference wost.py:354-373).
+        # Cells with r_cap ~ 0 drop R_N to 0 and R_B to the 1e-4 floor.
+        rcap = Q.band_r_cap(scene.n_bgrid, q)
+        R_N = torch.minimum(R_N, torch.clamp(rcap - 2.0 * eps, min=0.0))
     R_B = torch.clamp(torch.minimum(R_D, R_N), min=1e-4)
     if shrink:
         R_B = R_B * 0.99
@@ -240,6 +276,60 @@ def _walk(scene: Scene, state: WalkState, live, R_B, gen, eps: float):
         n_normal=torch.where(live[:, None], normal, state.n_normal))
 
 
+def _neumann_walk_fused(scene: Scene, state: WalkState, live, R_B, gens,
+                        eps: float):
+    """3D: the Neumann term and the walk step of ``_neumann_term`` and
+    ``_walk`` in one band query per lane (kernel K6): the in-ball sample,
+    its visibility ray and the walk ray over the prim band of the lane's
+    cell (reference wost.py:513-574).  Returns (contrib, state')."""
+    dim = scene.dim
+    gs = scene.neumann.gs
+    n = state.pos.shape[0]
+    gen_n = gens["neumann"]
+    u_sel = torch.rand(n, generator=gen_n, device=gen_n.device)
+    u_pt = torch.rand((n, 2), generator=gen_n, device=gen_n.device)
+    direction, pdf, alpha = _sample_direction(gens["walk"], state, dim, True)
+    o = Q.band_neumann_walk(scene.n_bgrid, gs, state.pos, R_B,
+                            state.on_neumann, state.n_normal, u_sel, u_pt,
+                            direction, eps)
+
+    # Neumann boundary-integral contribution, subtracted
+    valid = (o.pid >= 0) & (o.pdf_area > 0)
+    r = torch.linalg.norm(o.sample_pt - state.pos, dim=-1)
+    valid &= (r < R_B) & (r > 0) & ~o.occluded
+    side_on = torch.sign(torch.sum(o.plane_n * state.n_normal, dim=-1))
+    side = torch.where(state.on_neumann, side_on, o.side)
+    valid &= side != 0
+    # barycentrics of the sample point (prim_sample_point in 3D)
+    su = torch.sqrt(u_pt[:, 0])
+    b1 = u_pt[:, 1] * su
+    uv = torch.stack([b1, su - b1], dim=-1)
+    color = _surface_color(dim, scene.neumann.colors, gs, o.pid, side, uv)
+    alpha_n = torch.where(state.on_neumann, 0.5, 1.0)
+    weight = (green_eval(torch.clamp(r, min=1e-20), R_B, dim) / alpha_n
+              / torch.clamp(o.pdf_area, min=1e-30))
+    contrib = color * scene.neumann_intensity * (state.thp * weight)[:, None]
+    contrib = torch.where((live & valid)[:, None], -contrib, 0.0)
+
+    # the walk step from the band's ray results
+    current = state.pos + torch.where(state.on_neumann[:, None],
+                                      eps * state.n_normal, 0.0)
+    n_flip = torch.where(
+        torch.sum(o.wnormal * direction, dim=-1, keepdim=True) > 0,
+        -o.wnormal, o.wnormal)
+    normal = torch.where(o.whit[:, None], n_flip, 0.0)
+    next_pos = torch.where(o.whit[:, None],
+                           current + o.wt[:, None] * direction,
+                           state.pos + R_B[:, None] * direction)
+    thp = state.thp / (pdf * alpha * sphere_measure(dim))
+    return contrib, WalkState(
+        pos=torch.where(live[:, None], next_pos, state.pos),
+        thp=torch.where(live, thp, state.thp),
+        active=state.active,
+        on_neumann=torch.where(live, o.whit, state.on_neumann),
+        n_normal=torch.where(live[:, None], normal, state.n_normal))
+
+
 def wost_depth_step(scene: Scene, state: WalkState, gens: dict,
                     eps: float):
     """One depth iteration for every lane: (state', contrib (N, 3), the
@@ -252,20 +342,35 @@ def wost_depth_step(scene: Scene, state: WalkState, gens: dict,
         contrib += _boundary_term(scene, state, in_shell, bcolor)
     # lanes that terminated (in shell) or have an unbounded star die here
     live = state.active & ~in_shell & torch.isfinite(R_B)
-    if scene.neumann is not None:
-        contrib += _neumann_term(scene, state, live, R_B, gens["neumann"],
-                                 eps)
-    state = _walk(scene, state, live, R_B, gens["walk"], eps)
+    if scene.neumann is not None and scene.dim == 3:
+        cn, state = _neumann_walk_fused(scene, state, live, R_B, gens, eps)
+        contrib += cn
+    else:
+        if scene.neumann is not None:
+            contrib += _neumann_term(scene, state, live, R_B,
+                                     gens["neumann"], eps)
+        state = _walk(scene, state, live, R_B, gens["walk"], eps)
     return replace(state, active=live), contrib, need.sum()
+
+
+def check_neumann(scene: Scene):
+    """A 2D Neumann set takes the dense sweeps, a 3D one its band grids."""
+    if scene.neumann is None:
+        return
+    if scene.dim == 2:
+        Q.check_dense(scene.neumann.gs)
+    elif scene.n_sgrid is None or scene.n_bgrid is None:
+        raise ValueError("a 3D Neumann set needs its silhouette and "
+                         "prim-band grids")
 
 
 def run_one_sample(scene: Scene, eval_points, mask, gens: dict, *,
                    eps: float, max_depth: int):
     """One sample per pixel: every lane walks to ``max_depth``.  Returns
-    (contribution (N, 3), live lane-steps, exactly resolved lane-steps),
-    the counts as 0-dim device tensors."""
-    if scene.neumann is not None:
-        Q.check_dense(scene.neumann.gs)
+    (contribution (N, 3), live lane-steps, exactly resolved lane-steps,
+    walks still alive at the depth cap), the counts as 0-dim device
+    tensors."""
+    check_neumann(scene)
     state = init_walk_state(eval_points, mask)
     dev = eval_points.device
     total = torch.zeros((eval_points.shape[0], 3), device=dev)
@@ -276,4 +381,4 @@ def run_one_sample(scene: Scene, eval_points, mask, gens: dict, *,
         state, contrib, n_need = wost_depth_step(scene, state, gens, eps)
         total += contrib
         resolved += n_need
-    return total, lives, resolved
+    return total, lives, resolved, state.active.sum()

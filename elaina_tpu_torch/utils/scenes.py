@@ -1,4 +1,6 @@
-"""The full-scale synthetic 2D scene of ``chip_smoke.py`` and the profiler.
+"""The scenes of ``chip_smoke.py``: a full-scale synthetic 2D scene, the
+repository's 3D configs with their data in the checkout, and the mixed
+Dirichlet/Neumann cube.
 
 The reference's own ``u.json`` workload (configs/ladybug_u.json) runs on a
 ~61k-segment Dirichlet drawing that is not in the repository.  This scene
@@ -21,6 +23,8 @@ import json
 import os
 
 import numpy as np
+
+from .build import REPO_DIR
 
 SEGMENTS = 65_536
 FRAME = 1024
@@ -117,3 +121,77 @@ def write_scene(root: str, spp: int, segments: int = SEGMENTS,
     with open(path, "w") as f:
         json.dump(conf, f, indent=2)
     return path
+
+
+def write_config_copy(root: str, name: str, spp: int) -> str:
+    """``configs/<name>.json`` with its data files in this checkout, the
+    SOLUTION channel and its exports only, ``spp`` samples and outputs
+    under ``root``; returns the copy's path."""
+    with open(os.path.join(REPO_DIR, "configs", name + ".json")) as f:
+        conf = json.load(f)
+    mesh = conf["scene"]["mesh"]
+    for key, path in mesh.items():
+        mesh[key] = os.path.join(REPO_DIR, "configs", "data",
+                                 os.path.basename(path))
+    conf["base_path"] = os.path.join(root, "exp") + "/"
+    conf["integrator"]["channels"] = ["SOLUTION"]
+    conf["integrator"]["setting"]["samplesPerPixel"] = spp
+    conf["export"] = [e for e in conf["export"] if e["channel"] == "SOLUTION"]
+    path = os.path.join(root, name + ".json")
+    with open(path, "w") as f:
+        json.dump(conf, f, indent=2)
+    return path
+
+
+def cube_boundary(n: int = 3, faces=(0, 1, 2, 3, 4, 5)):
+    """The triangulated surface of [-1, 1]^3, n x n squares a face, welded
+    (tests/test_wost_3d.py::_cube_boundary).  Faces 0/1 are -x/+x, 2/3
+    -y/+y, 4/5 -z/+z."""
+    verts, tris = [], []
+    for face in faces:
+        axis, sign = face // 2, (face % 2) * 2 - 1
+        u_ax, v_ax = [a for a in range(3) if a != axis]
+        base = len(verts)
+        for i in range(n + 1):
+            for j in range(n + 1):
+                p = np.zeros(3, np.float32)
+                p[axis] = sign
+                p[u_ax] = -1 + 2 * i / n
+                p[v_ax] = -1 + 2 * j / n
+                verts.append(p)
+        for i in range(n):
+            for j in range(n):
+                a = base + i * (n + 1) + j
+                b, c, d = a + 1, a + (n + 1), a + (n + 1) + 1
+                tris.extend([(a, b, d), (a, d, c)])
+    verts = np.asarray(verts, np.float32)
+    tris = np.asarray(tris, np.int32)
+    keys = np.round(verts * 1e5).astype(np.int64)
+    _, first, inverse = np.unique(keys, axis=0, return_index=True,
+                                  return_inverse=True)
+    remap = np.empty(len(first), np.int32)
+    remap[np.argsort(first)] = np.arange(len(first))
+    return verts[np.sort(first)], remap[inverse.reshape(-1)][tris]
+
+
+def write_mixed_cube(root: str) -> dict:
+    """The mixed cube as OBJs under ``root``: Dirichlet faces x = -1 and
+    x = 1 colored u = (x + 1) / 2, zero Neumann on the other four, whose
+    solution is u = (x + 1) / 2.  Returns the config's ``scene`` entry."""
+    paths = {}
+    for name, faces in (("dirichlet", (0, 1)), ("neumann", (2, 3, 4, 5))):
+        v, t = cube_boundary(3, faces)
+        paths[name] = os.path.join(root, f"cube_{name}.obj")
+        with open(paths[name], "w") as f:
+            f.writelines(f"v {x} {y} {z}\n" for x, y, z in v)
+            f.writelines(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in t)
+        if name == "dirichlet":
+            u = ((v[:, 0] + 1.0) / 2.0).astype(np.float32)
+            colors = np.repeat(np.repeat(u[:, None, None], 2, 1), 3, 2)
+            paths["colors"] = os.path.join(root, "cube_colors.npz")
+            np.savez(paths["colors"], colors=colors)
+    return {"aabb": {"min": [-1.0] * 3, "max": [1.0] * 3},
+            "evaluation_grid": {"mData": {"pos": [0.0] * 3, "scale": 1.0}},
+            "mesh": {"dirichlet_path": paths["dirichlet"],
+                     "vertex_color_dirichlet_path": paths["colors"],
+                     "neumann_path": paths["neumann"]}}

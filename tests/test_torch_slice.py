@@ -197,8 +197,8 @@ def test_unsupported_config_raises(tmp_path):
         scene = dict(conf["scene"], **{key: value})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             problem.load_config(scene)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Problem(3, CPU)
+    with pytest.raises(ValueError):
+        Problem(4, CPU)
     from elaina_tpu_torch.exec import run_expr
     for patch in ({"type": "guided"}, {"channels": ["DIRICHLET_SDF"]}):
         c = json.loads(json.dumps(conf))
