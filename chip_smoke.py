@@ -13,10 +13,10 @@ and never prints its last line:
 1. Build, all at once: the resolve kernels (nvcc, ``csrc/resolve.cu``),
    the Neumann band kernels (nvcc, ``csrc/queries.cu``) and the scene
    library (g++, ``native/scene_build.cpp``).
-2. 2D kernels K1-K3 against their plain PyTorch versions, on the card, at
-   the 2D main path's shapes: 1024^2 lanes, the synthetic scene's
+2. 2D kernels K1-K3 and K10 against their plain PyTorch versions, on the
+   card, at the 2D main path's shapes: 1024^2 lanes, the synthetic scene's
    candidate rows, lanes whose FinePack need bits fired after a few depth
-   steps.
+   steps (K10: every pixel's row through ``grid_row_index``).
 3. The mixed Dirichlet/Neumann square, u = (x + 1) / 2, through
    ``UniformIntegrator``: 256 walks of depth 64 at three points (64 lanes
    a point, 4 samples), each point within 0.07 of u.
@@ -25,25 +25,51 @@ and never prints its last line:
    boundary (a lobed outline and 62 lobed spots inside it) in a 4-segment
    Neumann box, 1024^2 frame, depth 64, eps 1.  The kernels' launch counts
    are zeroed just before it and K1-K3's must rise.
-5. 3D kernels K1, K4, K5, K6, K9 against their plain versions, at the 3D
-   main path's shapes: the neumann3d scene (768-triangle Dirichlet cube,
-   20,480-triangle Neumann blob) loaded with its grids (each build's
-   seconds printed), 65,536 lanes after a few depth steps.
+4b. The 2D channels: the same scene at 256^2, depth 64, 4 spp, with
+   ``configs/data/ladybug_source.nvdb`` as its source (a real NanoVDB
+   file over the scene's frame) and the channels DIRICHLET_SDF,
+   NEUMANN_SDF, SOURCE and SOLUTION, through ``run_expr``: K10 must
+   launch, the SOURCE film equals a plain bilinear sample of the grid and
+   the DIRICHLET_SDF film is finite and >= 0.
+5. 3D kernels K1, K4, K5, K6, K7, K8, K9 and K11 against their plain
+   versions, at the 3D main path's shapes: the neumann3d scene
+   (768-triangle Dirichlet cube, 20,480-triangle Neumann blob) loaded with
+   its grids (each build's seconds printed), 65,536 lanes after a few
+   depth steps (K11: the frame's 65,536 plane points through
+   ``grid_row_index``); K6-K8 also at radii 0.05-1, which reach the blob.
+5b. The fused depth step (K6) against the unfused one (K8 + K7) on
+   neumann3d's lanes, 3 steps with the same generators, held to
+   ``tests/test_fused_band.py``'s lane thresholds.
 6. The mixed cube, u = (x + 1) / 2 (Dirichlet x = +-1, zero Neumann on the
    other faces), through ``Problem.load_config`` and ``UniformIntegrator``:
    1,024 walks at each of three points, depth 256 (walks stall by the
    Neumann-Neumann edges), each within 0.07 of u.  It runs K6 and K9 too.
+6b. The mixed cube with a unit source, u = (x + 1) / 2 + (1 - x^2) / 2,
+   the same way at depth 128, fused and unfused (``ELAINA_FUSED_BAND=0``):
+   each point within 0.07; the source term's K7 launches in both runs.
 7. bumpy3d_u through ``exec.run_expr`` from a copy of
-   ``configs/bumpy3d_u.json`` (20,480 triangles, 256^2, eps 0.01, 64 spp,
-   SOLUTION), at the config's depth 64 and at depth 256: RMSE and mean
-   error against the analytic h = 0.5 + 0.4 (x^2 - y^2), printed for
-   both, within 0.05 and 0.015 at depth 256.  At depth 64 enough walks
-   meet the cap to leave the mean low (the FinePack's cell-wide bounds
-   slow the walks near the surface, as the reference's do; PERF.md).
+   ``configs/bumpy3d_u.json`` with its channels and exports (20,480
+   triangles, 256^2, eps 0.01, 64 spp, SOLUTION and DIRICHLET_SDF), at the
+   config's depth 64 and at depth 256: RMSE and mean error against the
+   analytic h = 0.5 + 0.4 (x^2 - y^2), printed for both, within 0.05 and
+   0.015 at depth 256.  At depth 64 enough walks meet the cap to leave the
+   mean low (the FinePack's cell-wide bounds slow the walks near the
+   surface, as the reference's do; PERF.md).  The DIRICHLET_SDF film is
+   finite and equals the row's lower bound on truncated-row pixels, and
+   K11 equals its plain version on the 2-level grid.
 8. The 3D main path, neumann3d_u, through ``exec.run_expr`` from a copy
-   of ``configs/neumann3d_u.json`` (256^2, depth 64, eps 0.01, 64 spp,
-   SOLUTION): finite, mean in (0.2, 0.8); the launch counts are zeroed
-   just before it and K1, K4, K5, K6 and K9's must rise.
+   of ``configs/neumann3d_u.json`` with its channels and exports (256^2,
+   depth 64, eps 0.01, 64 spp, SOLUTION and DIRICHLET_SDF): finite, mean
+   in (0.2, 0.8), the DIRICHLET_SDF film within 1e-5 of the distance to
+   the cube, 1.3 - max(|x|, |y|), at every pixel; the launch counts are
+   zeroed just before it and K1, K4, K5, K6, K9 and K11's must rise.
+8b. neumann3d_u with a volumetric source (``utils/scenes.
+   write_neumann3d_source``: a smooth 64^3 RGB grid, SOURCE and SOLUTION)
+   at 64 spp: finite, and K7 must launch.
+8c. neumann3d_u unfused (``ELAINA_FUSED_BAND=0``, K8 and K7 in place of
+   K6) and fused, 8 spp each: both walk-steps/s printed, K8 must launch,
+   and the two means agree within 4 combined standard errors on >= 99%
+   of the pixels.
 
 The lines before the last hold the card's name and power limit and one
 JSON object with each kernel's launches, error, times and bound; the last
@@ -52,6 +78,7 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -67,6 +94,10 @@ SPP = 32                     # samples of the 2D main path (phase 4)
 SPP_3D = 64                  # samples of bumpy3d_u and neumann3d_u (the
 #                              configs')
 BUMPY_DEPTH = 256            # bumpy3d_u's depth in phase 7 (the config: 64)
+SOURCE_CUBE_DEPTH = 128      # the source cube's depth (phase 6b): a walk
+#                              that crosses a Neumann face drifts away
+#                              geometrically, and past depth ~240 its
+#                              R^2 / 6 source weight overflows to inf
 WARM_STEPS = 3               # depth steps before the kernel phases take lanes
 TIMED_RUNS = 20              # CUDA-event runs per timing (median kept)
 TOL = 1e-5                   # rtol and atol of distances; ids and colors exact
@@ -83,11 +114,21 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
     "fetch_colors3": (RESOLVE_SOURCE, "elaina_tpu/ops/pallas_resolve.py:554"),
     "band_neumann_walk": (QUERIES_SOURCE,
                           "elaina_tpu/ops/pallas_queries.py:1043"),
+    "band_ray": (QUERIES_SOURCE, "elaina_tpu/ops/pallas_queries.py:792"),
+    "band_ball": (QUERIES_SOURCE, "elaina_tpu/ops/pallas_queries.py:1189"),
     "sil_band": (QUERIES_SOURCE, "elaina_tpu/ops/pallas_queries.py:622"),
+    "grid_band_2d": (RESOLVE_SOURCE, "elaina_tpu/ops/pallas_queries.py:136"),
+    "grid_band_3d": (RESOLVE_SOURCE, "elaina_tpu/ops/pallas_queries.py:316"),
 }
 MAIN_2D = ("compact_lanes", "sweep_resolve", "fetch_colors")
 MAIN_3D = ("compact_lanes", "sweep_resolve_3d", "fetch_colors3",
-           "band_neumann_walk", "sil_band")
+           "band_neumann_walk", "sil_band", "grid_band_3d")
+# the run whose launches each kernel's record reports: its own path
+PATH_OF = {**{k: "lobed_u" for k in MAIN_2D},
+           **{k: "neumann3d_u" for k in MAIN_3D},
+           "grid_band_2d": "channels_2d", "band_ray": "neumann3d_source",
+           "band_ball": "neumann3d_unfused"}
+CDF_FLIPS = 0.005            # K6 / K8 CDF slot flips allowed, share of lanes
 
 
 def log(msg: str) -> None:
@@ -115,6 +156,54 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: k.launches for name, k in all_kernels().items()}
+
+
+@contextlib.contextmanager
+def capture_integrators():
+    """The integrators that ``run_expr`` makes inside the block, so a
+    phase can read the films and sums that the run keeps in memory."""
+    from elaina_tpu_torch.solver import integrator as I
+
+    made = []
+    init = I.BaseIntegrator.__init__
+
+    def record(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    I.BaseIntegrator.__init__ = record
+    try:
+        yield made
+    finally:
+        I.BaseIntegrator.__init__ = init
+
+
+@contextlib.contextmanager
+def fused_band(on: bool):
+    """ELAINA_FUSED_BAND for the block: the fused K6 step or K8 + K7."""
+    old = os.environ.get("ELAINA_FUSED_BAND")
+    os.environ["ELAINA_FUSED_BAND"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["ELAINA_FUSED_BAND"]
+        else:
+            os.environ["ELAINA_FUSED_BAND"] = old
+
+
+def frame_points(conf_path: str) -> np.ndarray:
+    """The config's pixel points (N, dim), in film order."""
+    import torch
+
+    from elaina_tpu_torch.core.evaluation_grid import EvaluationGrid
+
+    with open(conf_path) as f:
+        conf = json.load(f)
+    w, h = conf["integrator"]["setting"]["frameSize"]
+    probe = EvaluationGrid.from_json(conf["scene"]["evaluation_grid"],
+                                     conf["dimensionality"])
+    return probe.points(torch.arange(w * h), (w, h)).numpy()
 
 
 # --------------------------------------------------------------------------- #
@@ -264,6 +353,64 @@ def check_sweep(d, d_p, pid, pid_p, v, label: str) -> float:
     return err
 
 
+def check_grid_band(name: str, row, q, g, kernels: Kernels | None,
+                    label: str) -> None:
+    """K10 / K11 on every lane's candidate row against the plain version:
+    d^2 within TOL, the same slot, prim and corners except at an exact tie
+    of d^2.  With ``kernels``, its record (times and bound) is added."""
+    import torch
+
+    from elaina_tpu_torch.ops import resolve as R
+
+    kern, plain = getattr(R, name), getattr(R, name + "_plain")
+    args = (row.contiguous(), q.contiguous(), g.coords)
+    d2, slot, c = kern(*args)
+    d2_p, slot_p, c_p = plain(*args)
+    v = row >= 0
+    err = float((d2[v] - d2_p[v]).abs().max())
+    if not torch.allclose(d2[v], d2_p[v], rtol=TOL, atol=TOL):
+        raise RuntimeError(f"{name} d^2 differs on {label}: {err}")
+    differ = v & (slot != slot_p)
+    if bool((differ & (d2 != d2_p)).any()):
+        raise RuntimeError(f"{name} picked another slot on {label}")
+    same = v & ~differ
+    K = g.cand.shape[1]
+    pid = g.cand[row.long(), slot.long().clamp(max=K - 1)]
+    pid_p = g.cand[row.long(), slot_p.long().clamp(max=K - 1)]
+    if not (torch.equal(c[same], c_p[same])
+            and torch.equal(pid[same], pid_p[same])):
+        raise RuntimeError(f"{name} corners or ids differ on {label}")
+    n = int(v.sum())
+    rows = n_unique(row[v])
+    log(f"    {name} on {label}: {n} lanes over {rows} rows of K = {K}, "
+        f"{int(differ.sum())} exact ties took another slot")
+    if kernels is None:
+        return
+    dim = q.shape[1]
+    Kp = g.coords.shape[2]
+    kernels.add(name, err, lambda: kern(*args), lambda: plain(*args), None,
+                n * (4 + 4 * dim + 4 + 4 + 4 * dim * dim)
+                + rows * dim * dim * Kp * 4,
+                (20.0 if dim == 2 else 120.0) * n * K)
+
+
+def bilinear_np(data, origin, inv_voxel, p):
+    """A plain bilinear sample of an (X, Y, C) grid at points p (N, 2),
+    clamped at the border, as numpy float32."""
+    f = ((p - origin) * inv_voxel).astype(np.float32)
+    i0 = np.floor(f).astype(np.int64)
+    fr = f - i0.astype(np.float32)
+    hi = np.asarray(data.shape[:2]) - 1
+    out = np.zeros((p.shape[0], data.shape[2]), np.float32)
+    for cx in (0, 1):
+        for cy in (0, 1):
+            ii = np.clip(i0 + np.asarray([cx, cy]), 0, hi)
+            w = ((fr[:, 0] if cx else 1.0 - fr[:, 0])
+                 * (fr[:, 1] if cy else 1.0 - fr[:, 1]))
+            out += w[:, None] * data[ii[:, 0], ii[:, 1]]
+    return out
+
+
 def phase_kernels(conf_path: str, device, kernels: Kernels) -> None:
     """K1-K3 against their plain versions on the 2D main path's lanes."""
     import torch
@@ -325,6 +472,14 @@ def phase_kernels(conf_path: str, device, kernels: Kernels) -> None:
                 lambda: R.fetch_colors_plain(*cargs),
                 lambda: g.color_rows[cfi],
                 n * 5 + n_unique(cfi[ins]) * 24 + n_ins * 24, 0.0)
+
+    # K10: every pixel's row through the chain path, as the DIRICHLET_SDF
+    # channel hands them over
+    from elaina_tpu_torch.geometry.grid import grid_row_index
+
+    q_pix = integ.eval_points
+    check_grid_band("grid_band_2d", grid_row_index(g, q_pix), q_pix, g,
+                    kernels, "the 1024^2 pixels")
 
 
 def square_side(sides, n_per_side=6):
@@ -440,7 +595,8 @@ def run_main(conf_path: str, expect: tuple, label: str, card: str) -> tuple:
 
     reset_counts()
     t0 = time.time()
-    result = run_expr(conf_path)
+    with capture_integrators() as made:
+        result = run_expr(conf_path)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_counts()
@@ -465,15 +621,66 @@ def run_main(conf_path: str, expect: tuple, label: str, card: str) -> tuple:
     log(f"    tables {result['table_bytes']} bytes; peak device memory "
         f"{result['peak_device_bytes']} bytes ({card})")
     log(f"    launches {launches}")
-    return launches, result
+    return launches, result, made[-1]
 
 
 def phase_main(conf_path: str, card: str) -> dict:
     log("[4] 2D main path")
-    launches, _ = run_main(conf_path, MAIN_2D, "lobed_u", card)
+    launches, _, _ = run_main(conf_path, MAIN_2D, "lobed_u", card)
     m_in, n_in, m_out, n_out = check_solution(conf_path)
     log(f"    mean |u| inside the curve {m_in:.4f} ({n_in} px), in the "
         f"Neumann region {m_out:.4f} ({n_out} px)")
+    return launches
+
+
+def phase_channels_2d(root: str, card: str) -> dict:
+    """[4b] The lobed scene at 256^2 with a NanoVDB source and every
+    channel, through run_expr."""
+    from elaina_tpu_torch.utils import scenes as S
+    from elaina_tpu_torch.utils.build import REPO_DIR
+
+    sub = os.path.join(root, "channels")
+    os.makedirs(sub)
+    path = S.write_scene(sub, 4, frame=256)
+    with open(path) as f:
+        conf = json.load(f)
+    conf["exp_name"] = "lobed_channels"
+    conf["integrator"]["channels"] = ["SOLUTION", "SOURCE", "NEUMANN_SDF",
+                                      "DIRICHLET_SDF"]
+    conf["scene"]["source_path"] = os.path.join(
+        REPO_DIR, "configs", "data", "ladybug_source.nvdb")
+    conf["scene"]["source_intensity"] = 1.0
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    log("[4b] 2D channels")
+    launches, _, integ = run_main(path, ("grid_band_2d", "sweep_resolve"),
+                                  "lobed_channels", card)
+    film = {c: integ.films[c].pixels()[..., :3].reshape(-1, 3)
+            for c in ("SOLUTION", "SOURCE", "NEUMANN_SDF", "DIRICHLET_SDF")}
+    src = integ.problem.scene.source
+    want = bilinear_np(src.data.cpu().numpy(), src.origin.cpu().numpy(),
+                       src.inv_voxel.cpu().numpy(), frame_points(path))
+    err = float(np.abs(film["SOURCE"] - want).max())
+    log(f"    SOURCE: grid {tuple(src.data.shape)}, film in "
+        f"[{film['SOURCE'].min():.4g}, {film['SOURCE'].max():.4g}], "
+        f"max |film - plain bilinear| {err:.3g}")
+    if not (np.allclose(film["SOURCE"], want, rtol=1e-5, atol=1e-12)
+            and film["SOURCE"].max() > 0):
+        raise RuntimeError("the SOURCE film is not the bilinear sample")
+    for c in ("DIRICHLET_SDF", "SOLUTION"):
+        x = film[c]
+        log(f"    {c}: in [{x.min():.5g}, {x.max():.5g}], mean "
+            f"{x.mean():.5g}")
+        if not np.isfinite(x).all():
+            raise RuntimeError(f"the {c} film is not finite")
+    if (film["DIRICHLET_SDF"] < 0).any():
+        raise RuntimeError("negative DIRICHLET_SDF")
+    # no corner of the convex Neumann box is a silhouette from inside it
+    nsdf = film["NEUMANN_SDF"]
+    log(f"    NEUMANN_SDF: +inf at {int(np.isinf(nsdf).all(1).sum())} of "
+        f"{len(nsdf)} pixels (every pixel lies inside the convex box)")
+    if not np.isinf(nsdf).all():
+        raise RuntimeError("a box corner was a silhouette from inside")
     return launches
 
 
@@ -615,12 +822,115 @@ def phase_kernels_3d(conf_path: str, device, kernels: Kernels) -> None:
             f"flipped against the plain cumsum")
     kargs = band_args(R_B)
     bKp = bg.coords.shape[2]
+    cells = n_unique(cell[inn])
     kernels.add("band_neumann_walk", err,
                 lambda: QK.band_neumann_walk(*kargs),
                 lambda: QK.band_neumann_walk_plain(*kargs), None,
                 n * (4 + 12 + 4 + 1 + 12 + 4 + 8 + 12 + 60 + 4)
-                + n_unique(cell[inn]) * 9 * bKp * 4,
+                + cells * 9 * bKp * 4,
                 200.0 * n_in * bKp)
+
+    # K7: the walk ray alone, from the eps-offset origin in pos's cell, as
+    # the unfused step and the source term call it
+    current = (state.pos + torch.where(state.on_neumann[:, None],
+                                       eps * state.n_normal, 0.0)).contiguous()
+    d_c = direction.contiguous()
+    err = 0.0
+    for label, radii in (("star radii", R_B), ("radii 0.05-1", wide)):
+        rargs = (cell, current, d_c, radii.contiguous(), bg.coords)
+        t, slot = QK.band_ray(*rargs)
+        t_p, slot_p = QK.band_ray_plain(*rargs)
+        hit = torch.isfinite(t_p)
+        if not (torch.equal(torch.isfinite(t), hit)
+                and torch.equal(slot, slot_p)):
+            raise RuntimeError(f"band_ray: hits or slots differ ({label})")
+        e = float((t[hit] - t_p[hit]).abs().max()) if hit.any() else 0.0
+        if not torch.allclose(t[hit], t_p[hit], rtol=TOL, atol=0.0):
+            raise RuntimeError(f"band_ray t differs: {e}")
+        err = max(err, e)
+        log(f"    band_ray, {label}: {int(hit.sum())} hits of {n_in} lanes "
+            f"in the grid")
+    rargs = (cell, current, d_c, R_B.contiguous(), bg.coords)
+    kernels.add("band_ray", err, lambda: QK.band_ray(*rargs),
+                lambda: QK.band_ray_plain(*rargs), None,
+                n * (4 + 12 + 12 + 4 + 4 + 4) + cells * 9 * bKp * 4,
+                45.0 * n_in * bKp)
+
+    # K8: the in-ball CDF sample alone, as the unfused step calls it
+    err = 0.0
+    for label, radii in (("star radii", R_B), ("radii 0.05-1", wide)):
+        bargs = (cell, q, radii.contiguous(), u_sel, bg.coords)
+        slot, w_sel, total = QK.band_ball(*bargs)
+        slot_p, w_sel_p, total_p = QK.band_ball_plain(*bargs)
+        same = inn & (slot == slot_p)
+        flips = int((inn & ~same).sum())
+        if flips > CDF_FLIPS * n_in or not torch.equal(slot[~inn],
+                                                       slot_p[~inn]):
+            raise RuntimeError(f"band_ball: {flips} CDF slots differ")
+        e = max(float((w_sel[same] - w_sel_p[same]).abs().max()),
+                float((total - total_p).abs().max()))
+        if not (torch.allclose(w_sel[same], w_sel_p[same], rtol=TOL, atol=0)
+                and torch.allclose(total, total_p, rtol=TOL, atol=0)):
+            raise RuntimeError(f"band_ball w_sel or total differs: {e}")
+        err = max(err, e)
+        log(f"    band_ball, {label}: {int((same & (w_sel > 0)).sum())} "
+            f"lanes with a sample, {flips} CDF slots flipped against the "
+            f"plain cumsum")
+    bargs = (cell, q, R_B.contiguous(), u_sel, bg.coords)
+    kernels.add("band_ball", err, lambda: QK.band_ball(*bargs),
+                lambda: QK.band_ball_plain(*bargs), None,
+                n * (4 + 12 + 4 + 4 + 4 + 4 + 4) + cells * 9 * bKp * 4,
+                80.0 * n_in * bKp)
+
+    # K11: the frame's plane points through the chain path, as the
+    # DIRICHLET_SDF channel hands them over
+    from elaina_tpu_torch.geometry.grid import grid_row_index
+
+    q_pix = integ.eval_points
+    check_grid_band("grid_band_3d", grid_row_index(g, q_pix), q_pix, g,
+                    kernels, "neumann3d's 256^2 plane points")
+    phase_fused_vs_unfused(scene, integ, eps)
+
+
+def phase_fused_vs_unfused(scene, integ, eps: float) -> None:
+    """[5b] Three depth steps from every pixel with the same generators,
+    fused (K6) and unfused (K8 + K7), lane for lane
+    (tests/test_fused_band.py:180-190)."""
+    import torch
+
+    from elaina_tpu_torch.solver.wost import init_walk_state, wost_depth_step
+    from elaina_tpu_torch.utils.rng import sample_generators
+
+    runs = {}
+    for on in (True, False):
+        with fused_band(on):
+            reset_counts()
+            st = init_walk_state(integ.eval_points, integ.mask)
+            gens = sample_generators(0, 0, integ.device)
+            acc = torch.zeros_like(st.pos)
+            for _ in range(WARM_STEPS):
+                st, c, _ = wost_depth_step(scene, st, gens, eps)
+                acc += c
+            counts = read_counts()
+        k = "band_neumann_walk" if on else "band_ball"
+        if not counts[k]:
+            raise RuntimeError(f"the {'fused' if on else 'unfused'} step "
+                               f"did not launch {k}: {counts}")
+        runs[on] = (st, acc)
+    (st_f, acc_f), (st_u, acc_u) = runs[True], runs[False]
+    pos = torch.isclose(st_f.pos, st_u.pos, rtol=1e-4, atol=1e-5).all(-1)
+    acc = torch.isclose(acc_f, acc_u, rtol=1e-3, atol=1e-6).all(-1)
+    on = st_f.on_neumann == st_u.on_neumann
+    log(f"[5b] fused vs unfused step, {WARM_STEPS} steps on "
+        f"{pos.shape[0]} lanes: positions {float(pos.float().mean()):.5f}, "
+        f"contributions {float(acc.float().mean()):.5f}, on_neumann "
+        f"{float(on.float().mean()):.5f} equal (>= 0.99 each), active "
+        f"equal {bool(torch.equal(st_f.active, st_u.active))}; "
+        f"{int(st_u.on_neumann.sum())} lanes on the blob")
+    if not (pos.float().mean() >= 0.99 and acc.float().mean() >= 0.99
+            and on.float().mean() >= 0.99
+            and torch.equal(st_f.active, st_u.active)):
+        raise RuntimeError("the fused and unfused steps disagree")
 
 
 def phase_analytic_3d(root: str, device, card: str) -> None:
@@ -640,6 +950,28 @@ def phase_analytic_3d(root: str, device, card: str) -> None:
     if not np.all(np.abs(u - want) <= 0.07):
         raise RuntimeError("analytic cube out of bound")
 
+    # 6b: the same cube with a unit source, fused and unfused
+    problem = Problem(3, device, verbose=False).load_config(
+        S.write_mixed_cube_source(root),
+        cache_dir=os.environ["ELAINA_CACHE_DIR"])
+    want = (pts[:, 0] + 1) / 2 + (1 - pts[:, 0] ** 2) / 2
+    for on in (True, False):
+        with fused_band(on):
+            reset_counts()
+            u, ms, capped = solve_points(problem, pts, 1024, 1,
+                                         SOURCE_CUBE_DEPTH, 0.02)
+            counts = read_counts()
+        step = "band_neumann_walk" if on else "band_ball"
+        log(f"[6b] mixed-BC cube with a unit source, "
+            f"{'fused' if on else 'unfused'}: u {np.round(u, 4).tolist()} "
+            f"vs {np.round(want, 4).tolist()} (atol 0.07), {ms} ms, "
+            f"depth-capped share {capped:.4f}; launches band_ray "
+            f"{counts['band_ray']}, {step} {counts[step]} ({card})")
+        if not (counts["band_ray"] and counts[step]):
+            raise RuntimeError("the source cube did not launch its kernels")
+        if not np.all(np.abs(u - want) <= 0.07):
+            raise RuntimeError("analytic source cube out of bound")
+
 
 def bumpy_errors(conf_path: str) -> tuple[float, float]:
     """(RMSE, mean error) of the exported bumpy3d solution against h."""
@@ -654,6 +986,10 @@ def bumpy_errors(conf_path: str) -> tuple[float, float]:
 def phase_bumpy(conf_path: str, card: str) -> None:
     """bumpy3d_u at the config's depth (a reading) and at BUMPY_DEPTH
     (bounded)."""
+    import torch
+
+    from elaina_tpu_torch.geometry.grid import grid_row_index
+
     log("[7] bumpy3d_u")
     with open(conf_path) as f:
         conf = json.load(f)
@@ -662,10 +998,32 @@ def phase_bumpy(conf_path: str, card: str) -> None:
         conf["integrator"]["setting"]["maxWalkingDepth"] = depth
         with open(conf_path, "w") as f:
             json.dump(conf, f)
-        run_main(conf_path, ("sweep_resolve_3d",), "bumpy3d_u", card)
+        _, _, integ = run_main(conf_path, ("sweep_resolve_3d",
+                                           "grid_band_3d"), "bumpy3d_u", card)
         rmse, bias = bumpy_errors(conf_path)
         log(f"    depth {depth} against h: RMSE {rmse:.5f}, mean error "
             f"{bias:.5f} ({card})")
+        if depth == BUMPY_DEPTH:
+            break
+        # the DIRICHLET_SDF film: finite, the row's lower bound on pixels
+        # in truncated rows; K11 on the 2-level grid against its plain
+        g = integ.problem.scene.d_grid
+        q_pix = integ.eval_points
+        row = grid_row_index(g, q_pix)
+        sdf = torch.as_tensor(integ.films["DIRICHLET_SDF"].pixels()[..., 0]
+                              .reshape(-1), device=q_pix.device)
+        tr = g.row_trunc[row.long()]
+        log(f"    DIRICHLET_SDF in [{float(sdf.min()):.5f}, "
+            f"{float(sdf.max()):.5f}]; {int(tr.sum())} of {tr.numel()} "
+            f"pixels in truncated rows ({len(g.meta)} levels, "
+            f"{int(g.row_trunc.sum())} truncated rows of "
+            f"{g.row_trunc.numel()})")
+        if not (torch.isfinite(sdf).all() and torch.equal(
+                sdf[tr], g.row_lbound[row.long()][tr])):
+            raise RuntimeError("bumpy3d_u's DIRICHLET_SDF film")
+        check_grid_band("grid_band_3d", row, q_pix, g, None,
+                        "bumpy3d's 256^2 pixels")
+        del integ, g
     scale = (64 / SPP_3D) ** 0.5
     log(f"    bounds at depth {BUMPY_DEPTH}: RMSE {0.05 * scale}, mean "
         f"error {0.015 * scale}")
@@ -675,12 +1033,73 @@ def phase_bumpy(conf_path: str, card: str) -> None:
 
 def phase_main_3d(conf_path: str, card: str) -> dict:
     log("[8] 3D main path")
-    launches, _ = run_main(conf_path, MAIN_3D, "neumann3d_u", card)
+    launches, _, integ = run_main(conf_path, MAIN_3D, "neumann3d_u", card)
     mean = float(read_solution(conf_path).mean())
     log(f"    mean u {mean:.5f} (within (0.2, 0.8))")
     if not 0.2 < mean < 0.8:
         raise RuntimeError("neumann3d_u mean out of the boundary data's hull")
+    pts = frame_points(conf_path)
+    sdf = integ.films["DIRICHLET_SDF"].pixels()[..., 0].reshape(-1)
+    want = 1.3 - np.maximum(np.abs(pts[:, 0]), np.abs(pts[:, 1]))
+    err = float(np.abs(sdf - want).max())
+    log(f"    DIRICHLET_SDF against 1.3 - max(|x|, |y|): max error {err:.3g} "
+        f"over {sdf.size} pixels (bound 1e-5)")
+    if not (np.abs(pts[:, 2]).max() == 0.0 and err <= 1e-5):
+        raise RuntimeError("neumann3d_u's DIRICHLET_SDF film")
     return launches
+
+
+def phase_source_3d(root: str, card: str) -> dict:
+    """[8b] neumann3d_u with a volumetric source."""
+    from elaina_tpu_torch.utils import scenes as S
+
+    log("[8b] neumann3d_u with a source")
+    path = S.write_neumann3d_source(root, SPP_3D)
+    launches, _, integ = run_main(
+        path, ("band_ray", "band_neumann_walk", "sweep_resolve_3d"),
+        "neumann3d_source", card)
+    mean = float(read_solution(path).mean())
+    src = integ.films["SOURCE"].pixels()[..., :3]
+    log(f"    mean u {mean:.5f}; SOURCE film in [{src.min():.4f}, "
+        f"{src.max():.4f}]")
+    if not (np.isfinite(src).all() and src.min() > 0):
+        raise RuntimeError("neumann3d_source's SOURCE film")
+    return launches
+
+
+def phase_unfused_3d(conf_path: str, card: str) -> dict:
+    """[8c] neumann3d_u at 8 spp, unfused (K8 + K7) and fused (K6)."""
+    log("[8c] neumann3d_u unfused and fused, 8 spp")
+    with open(conf_path) as f:
+        conf = json.load(f)
+    conf["integrator"]["setting"]["samplesPerPixel"] = 8
+    out = {}
+    for on, expect in ((False, ("band_ball", "band_ray")),
+                       (True, ("band_neumann_walk",))):
+        conf["exp_name"] = "neumann3d_" + ("fused8" if on else "unfused8")
+        path = conf_path[:-5] + ("_fused8" if on else "_unfused8") + ".json"
+        with open(path, "w") as f:
+            json.dump(conf, f)
+        with fused_band(on):
+            launches, result, integ = run_main(path, expect, conf["exp_name"],
+                                               card)
+        if not on and launches["band_neumann_walk"]:
+            raise RuntimeError("the unfused run launched K6")
+        out[on] = (launches, (integ.sum / integ.spp).cpu().numpy(),
+                   integ.standard_error(), result)
+        del integ
+    (lu, mu, su, ru), (_, mf, sf, rf) = out[False], out[True]
+    within = np.abs(mf - mu) <= 4.0 * np.sqrt(su ** 2 + sf ** 2) + 1e-6
+    rate = {k: r["walk_steps"] / (r["duration"] / 1e3)
+            for k, r in (("unfused", ru), ("fused", rf))}
+    log(f"    walk-steps/s unfused {rate['unfused']:.6g}, fused "
+        f"{rate['fused']:.6g} (fused / unfused "
+        f"{rate['fused'] / rate['unfused']:.4f}; {card}); means within 4 "
+        f"combined standard errors on {within.mean():.5f} of the pixel "
+        f"channels (>= 0.99)")
+    if within.mean() < 0.99:
+        raise RuntimeError("the unfused image disagrees with the fused one")
+    return lu
 
 
 def main() -> int:
@@ -700,13 +1119,15 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     phase_build()
     kernels = Kernels(card)
+    runs = {}
     with tempfile.TemporaryDirectory() as root:
         os.environ["ELAINA_CACHE_DIR"] = os.path.join(root, "cache")
         conf_2d = scenes.write_scene(root, SPP)
         phase_kernels(conf_2d, device, kernels)
         torch.cuda.empty_cache()
         phase_analytic(device, card)
-        launches_2d = phase_main(conf_2d, card)
+        runs["lobed_u"] = phase_main(conf_2d, card)
+        runs["channels_2d"] = phase_channels_2d(root, card)
         torch.cuda.empty_cache()
         conf_3d = scenes.write_config_copy(root, "neumann3d_u", SPP_3D)
         phase_kernels_3d(conf_3d, device, kernels)
@@ -715,10 +1136,15 @@ def main() -> int:
         phase_bumpy(scenes.write_config_copy(root, "bumpy3d_u", SPP_3D),
                     card)
         torch.cuda.empty_cache()
-        launches_3d = phase_main_3d(conf_3d, card)
+        runs["neumann3d_u"] = phase_main_3d(conf_3d, card)
+        torch.cuda.empty_cache()
+        runs["neumann3d_source"] = phase_source_3d(root, card)
+        torch.cuda.empty_cache()
+        runs["neumann3d_unfused"] = phase_unfused_3d(conf_3d, card)
     for name, rec in kernels.records.items():
-        rec["launches"] = (launches_2d if name in MAIN_2D
-                           else launches_3d)[name]
+        rec["launches"] = runs[PATH_OF[name]][name]
+        if not rec["launches"]:
+            raise RuntimeError(f"{name} never launched on its path")
     log(f"[9] chip_smoke.py: {time.time() - t_start:.1f} s in all ({card})")
     print(card)
     print(json.dumps({"kernels": [kernels.records[k] for k in KERNELS

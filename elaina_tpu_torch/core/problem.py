@@ -5,9 +5,11 @@ Dirichlet and Neumann boundaries with two-sided vertex colors, the
 evaluation grid, the Dirichlet candidate grid (always built; the port has
 no BVH query), and for a 3D Neumann set its silhouette and prim-band
 grids (always built, on the reference's bounds: the port has no dense or
-BVH 3D query, and both grids give valid star radii at any set size).  A
-2D Neumann set takes the dense sweeps.  The scene's tensors live on the
-device passed in; the solver works wherever they are.
+BVH 3D query, and both grids give valid star radii at any set size), and
+the volumetric source (``source_path``: a dense ``.npy`` / ``.npz`` array
+or a NanoVDB ``.nvdb`` grid, sampled trilinearly).  A 2D Neumann set
+takes the dense sweeps.  The scene's tensors live on the device passed
+in; the solver works wherever they are.
 
 Every set takes the same grid and resolve: a 512-cell level 0 in 2D (64
 in 3D), and the FinePack's need bit chooses the lanes that the kernels
@@ -25,6 +27,7 @@ CPU).  At depth 512, or on the 512-cell level 0, it gives 0.487.
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from dataclasses import dataclass
@@ -43,6 +46,7 @@ from ..geometry.queries import check_dense
 from .config import json_get_optional, json_get_or_throw, load_json_file
 from .evaluation_grid import EvaluationGrid
 from .logger import log_info, log_success, log_warning
+from .nanovdb import read_nvdb
 
 GRID_K = 256
 BAND_K = 64
@@ -53,6 +57,89 @@ GRID_MAX_RES = 2048
 class Boundary:
     gs: GeomSet
     colors: torch.Tensor      # (V, 2, 3) f32: (side >= 0, side < 0) pairs
+
+
+@dataclass
+class SourceGrid:
+    """Dense volumetric source: world -> voxel affine and a trilinear
+    (bilinear in 2D) fetch, clamped at the border.  ``data`` is (X, Y, 3)
+    or (X, Y, Z, 3)."""
+
+    data: torch.Tensor
+    origin: torch.Tensor     # (D,) world position of voxel (0, ..., 0)
+    inv_voxel: torch.Tensor  # (D,) 1 / voxel size
+
+    def sample(self, p: torch.Tensor) -> torch.Tensor:
+        """Values (N, 3) at world points p (N, D)."""
+        dim = p.shape[-1]
+        idx_f = (p - self.origin) * self.inv_voxel
+        i0 = torch.floor(idx_f).to(torch.int64)
+        frac = idx_f - i0.to(idx_f.dtype)
+        hi = torch.tensor(self.data.shape[:dim], device=p.device) - 1
+        out = 0.0
+        for corner in itertools.product((0, 1), repeat=dim):
+            ii = torch.minimum(
+                (i0 + torch.tensor(corner, device=p.device)).clamp(min=0), hi)
+            w = torch.ones(p.shape[:-1], dtype=self.data.dtype,
+                           device=p.device)
+            for d in range(dim):
+                w = w * (frac[..., d] if corner[d] else 1.0 - frac[..., d])
+            out = out + w[..., None] * self.data[ii.unbind(-1)]
+        return out
+
+
+def source_from_numpy(data, origin, voxel, device) -> SourceGrid:
+    data = np.asarray(data, np.float32)
+    return SourceGrid(
+        data=torch.as_tensor(np.require(data, requirements=("C", "W")),
+                             device=device),
+        origin=torch.as_tensor(np.asarray(origin, np.float32), device=device),
+        inv_voxel=torch.as_tensor(
+            (1.0 / np.asarray(voxel, np.float32)).astype(np.float32),
+            device=device))
+
+
+def load_source(path: str, dim: int, device) -> SourceGrid:
+    """The source grid of ``source_path`` (elaina_tpu/core/problem.py
+    ``_load_source``): ``.npy`` (unit voxels at the origin) or ``.npz``
+    (``data``, optional ``origin`` and ``voxel_size``), a scalar grid
+    repeated to RGB; or a NanoVDB ``.nvdb``, whose 2D problems sample the
+    world plane z = 0 (the z interpolation baked in at load)."""
+    if path.endswith((".npy", ".npz")):
+        if path.endswith(".npy"):
+            data = np.load(path)
+            origin = np.zeros(dim, np.float32)
+            voxel = np.ones(dim, np.float32)
+        else:
+            z = np.load(path)
+            data = z["data"]
+            origin = np.asarray(z.get("origin", np.zeros(dim)), np.float32)
+            voxel = np.asarray(z.get("voxel_size", np.ones(dim)), np.float32)
+        if data.ndim == dim:
+            data = np.repeat(data[..., None], 3, axis=-1)
+        return source_from_numpy(data, origin, voxel, device)
+    if path.endswith(".nvdb"):
+        g = read_nvdb(path)
+        data = g.values
+        if data.shape[-1] == 1:
+            data = np.repeat(data, 3, axis=-1)
+        voxel3 = g.voxel_size.astype(np.float32)
+        origin3 = (g.world_offset + g.origin * g.voxel_size).astype(np.float32)
+        if dim == 2:
+            zf = float((0.0 - g.world_offset[2]) / g.voxel_size[2]
+                       - g.origin[2])
+            z0 = int(np.clip(np.floor(zf), 0, data.shape[2] - 1))
+            z1 = int(np.clip(z0 + 1, 0, data.shape[2] - 1))
+            fz = np.float32(np.clip(zf - z0, 0.0, 1.0))
+            data = (1.0 - fz) * data[:, :, z0] + fz * data[:, :, z1]
+            return source_from_numpy(data, origin3[:2], voxel3[:2], device)
+        return source_from_numpy(data, origin3, voxel3, device)
+    if path.endswith(".vdb"):
+        raise NotImplementedError(
+            f"{path!r}: OpenVDB .vdb needs pyopenvdb (not installed); "
+            "convert to .nvdb (tools/make_source_grid.py --nvdb) or a "
+            "dense .npz")
+    raise ValueError(f"unsupported source file {path!r} (.npy, .npz, .nvdb)")
 
 
 @dataclass
@@ -67,6 +154,8 @@ class Scene:
     neumann_intensity: float = 1.0
     n_sgrid: Optional[BandGrid] = None   # 3D Neumann: silhouette grid
     n_bgrid: Optional[BandGrid] = None   # 3D Neumann: prim-band grid
+    source: Optional[SourceGrid] = None  # volumetric source term
+    source_intensity: float = 1.0
 
     @property
     def device(self) -> torch.device:
@@ -102,9 +191,10 @@ def _boundary(verts, indices, colors, device) -> Boundary:
 
 def scene_from_numpy(*, aabb_lo, aabb_hi, device: torch.device,
                      dirichlet=None, neumann=None, grid=None, fine=None,
-                     sgrid=None, bgrid=None,
+                     sgrid=None, bgrid=None, source=None,
                      dirichlet_intensity: float = 1.0,
-                     neumann_intensity: float = 1.0) -> Scene:
+                     neumann_intensity: float = 1.0,
+                     source_intensity: float = 1.0) -> Scene:
     """The port's Scene from numpy arrays.
 
     ``dirichlet`` / ``neumann``: (verts (V, D), indices (P, D), colors
@@ -115,6 +205,7 @@ def scene_from_numpy(*, aabb_lo, aabb_hi, device: torch.device,
     res, s, eps); without it the integrator bakes one for its eps.
     ``sgrid`` / ``bgrid``: mappings with the fields of ``BandArrays`` for
     the silhouette and prim-band grids, required with a 3D Neumann set.
+    ``source`` (optional): a ``SourceGrid``.
     """
     d_grid = None
     if dirichlet is not None:
@@ -145,7 +236,8 @@ def scene_from_numpy(*, aabb_lo, aabb_hi, device: torch.device,
         aabb_hi=np.asarray(aabb_hi, np.float32), dim=aabb_lo.shape[0],
         dirichlet_intensity=float(dirichlet_intensity),
         neumann_intensity=float(neumann_intensity),
-        n_sgrid=n_sgrid, n_bgrid=n_bgrid)
+        n_sgrid=n_sgrid, n_bgrid=n_bgrid, source=source,
+        source_intensity=float(source_intensity))
 
 
 def _parse_vertex_colors(path: str, n_verts: int) -> np.ndarray:
@@ -194,11 +286,10 @@ class Problem:
 
     def load_config(self, conf: dict, base_dir: str = ".",
                     cache_dir: str | None = None) -> "Problem":
-        for key, item in (("source_path", "source and NanoVDB"),
-                          ("mask_path", "other channels and masks")):
-            if json_get_optional(conf, key):
-                raise NotImplementedError(
-                    f"{key!r} arrives with the ROADMAP item '{item}'")
+        if json_get_optional(conf, "mask_path"):
+            raise NotImplementedError(
+                "'mask_path' arrives with the ROADMAP item 'masks' (the "
+                "port has no PNG decoder yet)")
         aabb_min = np.asarray(json_get_or_throw(conf, "aabb/min"), np.float32)
         aabb_max = np.asarray(json_get_or_throw(conf, "aabb/max"), np.float32)
         self.probe = EvaluationGrid.from_json(
@@ -239,14 +330,22 @@ class Problem:
                 sgrid, bgrid = self._neumann_grids(v, idx, aabb_min,
                                                    aabb_max, cache_dir)
 
+        source = None
+        if json_get_optional(conf, "source_path"):
+            source = load_source(resolve(conf["source_path"]), self.dim,
+                                 self.device)
+            self.stats["source_shape"] = tuple(source.data.shape)
+
         self.scene = scene_from_numpy(
             aabb_lo=aabb_min, aabb_hi=aabb_max, device=self.device,
             dirichlet=dirichlet, neumann=neumann, grid=grid, sgrid=sgrid,
-            bgrid=bgrid,
+            bgrid=bgrid, source=source,
             dirichlet_intensity=json_get_optional(
                 conf, "dirichlet_intensity", 1.0),
             neumann_intensity=json_get_optional(
-                conf, "neumann_intensity", 1.0))
+                conf, "neumann_intensity", 1.0),
+            source_intensity=json_get_optional(
+                conf, "source_intensity", 1.0))
         if self.verbose:
             log_success("Problem: loadConfig completed on %s.", self.device)
             for k, v in self.stats.items():

@@ -8,6 +8,18 @@
 //   K9 sil_band_dma (pallas_queries.py:622, kernel :563; 3D)
 //                                                -> sil_band_kernel
 //
+// and the two unfused prim-band queries, which the volumetric source term
+// and the unfused Neumann step run:
+//
+//   K7 band_ray_dma_3d (pallas_queries.py:792, kernel :734)
+//                                                -> band_ray_kernel
+//   K8 band_ball_dma_3d (pallas_queries.py:1189, kernel :1118)
+//                                                -> band_ball_kernel
+//
+// K7 is K6's walk ray and K8 its in-ball CDF sample: they call the same
+// device functions (closest_hit, ball_sample), so the fused and the
+// unfused step agree bit for bit wherever their inputs do.
+//
 // The contracts are the TPU kernels'; the TPU shapes are not carried over:
 // no per-lane block DMAs, (BL, 128) tiles, one-hot winner picks or
 // triangular-matmul prefix sums.  One warp serves one lane and strides
@@ -114,6 +126,106 @@ __device__ __forceinline__ void load_corners(const float* base, int Kp,
   for (int p = 0; p < 9; ++p) c[p] = base[p * Kp + slot];
 }
 
+// The Green-weighted in-ball CDF sample over a cell's Kp slots (K6's step
+// 1 and K8): weights w = area * max((1/max(d, 1e-4) - 1/R) / 4pi, 0) for
+// d < R, total their sum, and the selected slot the count of CDF entries
+// <= u_sel * total (Kp: none).  The CDF is an fp32 warp scan (Kogge-Stone
+// shuffles) in slot order, one 32-slot round at a time; no tensor-core
+// product, so no TF32 rounding moves its boundaries.  Against the plain
+// version's cumsum the slot can flip at a boundary under reassociation.
+// Warp-uniform results; every lane of the warp calls it.
+__device__ __forceinline__ int ball_sample(const float* base, int Kp,
+                                           const float* qv, float R,
+                                           float u_sel, int lane,
+                                           float* w_sel_out,
+                                           float* total_out) {
+  const int rounds = Kp >> 5;
+  float w[MAX_ROUNDS];
+  float part = 0.f;
+#pragma unroll
+  for (int j = 0; j < MAX_ROUNDS; ++j) {
+    w[j] = 0.f;
+    if (j < rounds) {
+      float cr[9], e1[3], e2[3], x[3];
+      load_corners(base, Kp, j * 32 + lane, cr);
+      const float dd = sqrtf(tri_d2(qv, cr));
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        e1[k] = cr[3 + k] - cr[k];
+        e2[k] = cr[6 + k] - cr[k];
+      }
+      cross3(e1, e2, x);
+      const float area = 0.5f * sqrtf(dot3(x, x));
+      const float g = (1.f / fmaxf(dd, 1e-4f) - 1.f / R) * INV_4PI;
+      w[j] = dd < R ? area * fmaxf(g, 0.f) : 0.f;
+      part += w[j];
+    }
+  }
+  float total = part;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) total += __shfl_xor_sync(FULL, total, o);
+  const float target = u_sel * total;
+  float off = 0.f;
+  int cnt = 0;
+#pragma unroll
+  for (int j = 0; j < MAX_ROUNDS; ++j) {
+    if (j < rounds) {
+      float x = w[j];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float y = __shfl_up_sync(FULL, x, o);
+        if (lane >= o) x += y;
+      }
+      const float cdf = off + x;
+      cnt += target >= cdf ? 1 : 0;
+      off = __shfl_sync(FULL, cdf, 31);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(FULL, cnt, o);
+  const int sel = cnt;                       // warp-uniform, 0..Kp
+  float w_own = 0.f;
+#pragma unroll
+  for (int j = 0; j < MAX_ROUNDS; ++j)
+    if (j == (sel >> 5)) w_own = w[j];
+  const float w_sel_all = __shfl_sync(FULL, w_own, sel & 31);
+  *w_sel_out = sel < Kp ? w_sel_all : 0.f;
+  *total_out = total;
+  return sel;
+}
+
+// The closest ray hit over a cell's Kp slots (K6's walk ray and K7): the
+// lexicographic (t, slot) argmin of mt_hit by warp shuffle, so the smallest
+// slot wins equal t.  Warp-uniform t (+inf on a miss) and slot (Kp on a
+// miss); every lane of the warp calls it.
+__device__ __forceinline__ void closest_hit(const float* base, int Kp,
+                                            const float* o, const float* d,
+                                            float tmax, int lane,
+                                            float* t_out, int* slot_out) {
+  float best_t = inf_f();
+  int best_slot = Kp;
+  for (int k = lane; k < Kp; k += 32) {
+    float cr[9];
+    load_corners(base, Kp, k, cr);
+    const float t = mt_hit(o, d, cr, tmax);
+    if (t < best_t) {
+      best_t = t;
+      best_slot = k;
+    }
+  }
+#pragma unroll
+  for (int off2 = 16; off2 > 0; off2 >>= 1) {
+    const float ot = __shfl_down_sync(FULL, best_t, off2);
+    const int os = __shfl_down_sync(FULL, best_slot, off2);
+    if (ot < best_t || (ot == best_t && os < best_slot)) {
+      best_t = ot;
+      best_slot = os;
+    }
+  }
+  *t_out = __shfl_sync(FULL, best_t, 0);
+  *slot_out = __shfl_sync(FULL, best_slot, 0);
+}
+
 // --------------------------------------------------------------------------
 // K9: squared distance to the nearest silhouette entity of the lane's
 // SilGrid cell.  Entity planes (C, 12, Kp) = p0 | p1 | n1 | n2 (x, y, z
@@ -167,19 +279,14 @@ __global__ void sil_band_kernel(const int32_t* __restrict__ cell,
 // K6: one depth step's Neumann band work for a lane, over its prim-band
 // cell's corner planes (C, 9, Kp): 36 bytes per slot, 2.3 KB per lane at
 // K = 64, read once from device memory (the winners' reloads hit L1).
-//   1. weights w = area * max((1/max(d, 1e-4) - 1/R) / 4pi, 0) for d < R;
-//      total = their sum; slot = the count of CDF entries <= u_sel * total
-//      (Kp: none).  The CDF is an fp32 warp scan (Kogge-Stone shuffles) in
-//      slot order, one 32-slot round at a time; no tensor-core product, so
-//      no TF32 rounding moves its boundaries.  Against the plain version's
-//      cumsum the slot can flip at a boundary under reassociation.
+//   1. the in-ball CDF sample of ball_sample (total, slot, w_sel);
 //   2. the sample point from barycentrics (1 - sqrt(u1), u2 sqrt(u1)) on
 //      the selected triangle, its unnormalized plane normal, and
 //      side = sign((q - a) . n); no selection gives PAD_COORD corners.
 //   3. the visibility ray from o = q + on eps n to the sample point, any
 //      hit within dist - eps;
-//   4. the walk ray from o along d_walk, closest hit within R (the
-//      smallest slot on equal t), and the hit triangle's unit normal.
+//   4. the walk ray from o along d_walk, closest hit within R
+//      (closest_hit), and the hit triangle's unit normal.
 // out (n, 15): w_sel, total, sample_pt.xyz, side, plane_n.xyz, occluded,
 // walk_hit, walk_t, walk_n.xyz; slot (n,).  Lanes with cell < 0 get zeros,
 // walk_t = inf and slot = Kp.
@@ -203,61 +310,13 @@ __global__ void band_neumann_walk_kernel(
     return;
   }
   const float* base = coords + c * 9 * Kp;
-  const int rounds = Kp >> 5;
   const float qv[3] = {q[3 * i], q[3 * i + 1], q[3 * i + 2]};
   const float R = R_in[i];
 
-  // 1. weights and the CDF sample
-  float w[MAX_ROUNDS];
-  float part = 0.f;
-#pragma unroll
-  for (int j = 0; j < MAX_ROUNDS; ++j) {
-    w[j] = 0.f;
-    if (j < rounds) {
-      float cr[9], e1[3], e2[3], x[3];
-      load_corners(base, Kp, j * 32 + lane, cr);
-      const float dd = sqrtf(tri_d2(qv, cr));
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        e1[k] = cr[3 + k] - cr[k];
-        e2[k] = cr[6 + k] - cr[k];
-      }
-      cross3(e1, e2, x);
-      const float area = 0.5f * sqrtf(dot3(x, x));
-      const float g = (1.f / fmaxf(dd, 1e-4f) - 1.f / R) * INV_4PI;
-      w[j] = dd < R ? area * fmaxf(g, 0.f) : 0.f;
-      part += w[j];
-    }
-  }
-  float total = part;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) total += __shfl_xor_sync(FULL, total, o);
-  const float target = u_sel_in[i] * total;
-  float off = 0.f;
-  int cnt = 0;
-#pragma unroll
-  for (int j = 0; j < MAX_ROUNDS; ++j) {
-    if (j < rounds) {
-      float x = w[j];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float y = __shfl_up_sync(FULL, x, o);
-        if (lane >= o) x += y;
-      }
-      const float cdf = off + x;
-      cnt += target >= cdf ? 1 : 0;
-      off = __shfl_sync(FULL, cdf, 31);
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(FULL, cnt, o);
-  const int sel = cnt;                       // warp-uniform, 0..Kp
-  float w_own = 0.f;
-#pragma unroll
-  for (int j = 0; j < MAX_ROUNDS; ++j)
-    if (j == (sel >> 5)) w_own = w[j];
-  const float w_sel_all = __shfl_sync(FULL, w_own, sel & 31);
-  const float w_sel = sel < Kp ? w_sel_all : 0.f;
+  // 1. the in-ball CDF sample
+  float w_sel, total;
+  const int sel = ball_sample(base, Kp, qv, R, u_sel_in[i], lane, &w_sel,
+                              &total);
 
   // 2. the sample point on the selected triangle
   float s[9];
@@ -305,28 +364,9 @@ __global__ void band_neumann_walk_kernel(
 
   // 4. walk ray
   const float dwv[3] = {dw[3 * i], dw[3 * i + 1], dw[3 * i + 2]};
-  float best_t = inf_f();
-  int best_slot = Kp;
-  for (int k = lane; k < Kp; k += 32) {
-    float cr[9];
-    load_corners(base, Kp, k, cr);
-    const float t = mt_hit(o, dwv, cr, R);
-    if (t < best_t) {
-      best_t = t;
-      best_slot = k;
-    }
-  }
-#pragma unroll
-  for (int off2 = 16; off2 > 0; off2 >>= 1) {
-    const float ot = __shfl_down_sync(FULL, best_t, off2);
-    const int os = __shfl_down_sync(FULL, best_slot, off2);
-    if (ot < best_t || (ot == best_t && os < best_slot)) {
-      best_t = ot;
-      best_slot = os;
-    }
-  }
-  best_t = __shfl_sync(FULL, best_t, 0);
-  best_slot = __shfl_sync(FULL, best_slot, 0);
+  float best_t;
+  int best_slot;
+  closest_hit(base, Kp, o, dwv, R, lane, &best_t, &best_slot);
   const bool whit = best_t < inf_f();
   float wc[9], we1[3], we2[3], wcr[3];
   load_corners(base, Kp, best_slot < Kp ? best_slot : Kp - 1, wc);
@@ -354,6 +394,81 @@ __global__ void band_neumann_walk_kernel(
 #pragma unroll
     for (int k = 0; k < 3; ++k) o15[12 + k] = whit ? wcr[k] / wlen : 0.f;
     slot_out[i] = sel;
+  }
+}
+
+// --------------------------------------------------------------------------
+// K7: the closest hit of each lane's ray o + t d, t in (1e-6, tmax], over
+// its prim-band cell (K6's walk ray alone): 36 bytes per slot of each
+// distinct cell, ~45 flops per slot; bound by the loads.  t (n,) is +inf
+// and slot (n,) is Kp on a miss and on lanes with cell < 0.
+// --------------------------------------------------------------------------
+
+__global__ void band_ray_kernel(const int32_t* __restrict__ cell,
+                                const float* __restrict__ o,
+                                const float* __restrict__ d,
+                                const float* __restrict__ tmax,
+                                const float* __restrict__ coords, int64_t n,
+                                int32_t Kp, float* __restrict__ t_out,
+                                int32_t* __restrict__ slot_out) {
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (i >= n) return;
+  const int64_t c = cell[i];
+  if (c < 0) {
+    if (lane == 0) {
+      t_out[i] = inf_f();
+      slot_out[i] = Kp;
+    }
+    return;
+  }
+  const float ov[3] = {o[3 * i], o[3 * i + 1], o[3 * i + 2]};
+  const float dv[3] = {d[3 * i], d[3 * i + 1], d[3 * i + 2]};
+  float t;
+  int slot;
+  closest_hit(coords + c * 9 * Kp, Kp, ov, dv, tmax[i], lane, &t, &slot);
+  if (lane == 0) {
+    t_out[i] = t;
+    slot_out[i] = slot;
+  }
+}
+
+// --------------------------------------------------------------------------
+// K8: the Green-weighted in-ball CDF sample over each lane's prim-band
+// cell (K6's step 1 alone): slot (n,) (Kp: none), w_sel and total (n,).
+// 36 bytes per slot of each distinct cell, ~80 flops and two square roots
+// per slot; bound by the loads.  Lanes with cell < 0 get slot = Kp and
+// zeros.
+// --------------------------------------------------------------------------
+
+__global__ void band_ball_kernel(const int32_t* __restrict__ cell,
+                                 const float* __restrict__ q,
+                                 const float* __restrict__ R_in,
+                                 const float* __restrict__ u_in,
+                                 const float* __restrict__ coords, int64_t n,
+                                 int32_t Kp, int32_t* __restrict__ slot_out,
+                                 float* __restrict__ w_sel_out,
+                                 float* __restrict__ total_out) {
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (i >= n) return;
+  const int64_t c = cell[i];
+  if (c < 0) {
+    if (lane == 0) {
+      slot_out[i] = Kp;
+      w_sel_out[i] = 0.f;
+      total_out[i] = 0.f;
+    }
+    return;
+  }
+  const float qv[3] = {q[3 * i], q[3 * i + 1], q[3 * i + 2]};
+  float w_sel, total;
+  const int sel = ball_sample(coords + c * 9 * Kp, Kp, qv, R_in[i], u_in[i],
+                              lane, &w_sel, &total);
+  if (lane == 0) {
+    slot_out[i] = sel;
+    w_sel_out[i] = w_sel;
+    total_out[i] = total;
   }
 }
 
@@ -386,6 +501,32 @@ int band_neumann_walk_launch(const void* cell, const void* q, const void* R,
       (const uint8_t*)on, (const float*)nn, (const float*)u_sel,
       (const float*)u_pt, (const float*)dw, eps, (const float*)coords, n, Kp,
       (float*)out, (int32_t*)slot);
+  return (int)cudaGetLastError();
+}
+
+int band_ray_launch(const void* cell, const void* o, const void* d,
+                    const void* tmax, const void* coords, int64_t n,
+                    int32_t Kp, void* t, void* slot, void* stream) {
+  if (n == 0) return 0;
+  const int64_t blocks = (n + THREADS / 32 - 1) / (THREADS / 32);
+  band_ray_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)cell, (const float*)o, (const float*)d,
+      (const float*)tmax, (const float*)coords, n, Kp, (float*)t,
+      (int32_t*)slot);
+  return (int)cudaGetLastError();
+}
+
+int band_ball_launch(const void* cell, const void* q, const void* R,
+                     const void* u, const void* coords, int64_t n,
+                     int32_t Kp, void* slot, void* w_sel, void* total,
+                     void* stream) {
+  if (n == 0) return 0;
+  if (Kp > 32 * MAX_ROUNDS || Kp % 32) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (n + THREADS / 32 - 1) / (THREADS / 32);
+  band_ball_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)cell, (const float*)q, (const float*)R,
+      (const float*)u, (const float*)coords, n, Kp, (int32_t*)slot,
+      (float*)w_sel, (float*)total);
   return (int)cudaGetLastError();
 }
 

@@ -13,6 +13,14 @@
 //                                              -> sweep_resolve_3d_kernel
 //   K5 fetch_colors3    (pallas_resolve.py:554) -> fetch_colors_kernel<3>
 //
+// and the chain path's candidate-row sweeps of elaina_tpu/ops/
+// pallas_queries.py, which serve the DIRICHLET_SDF channel:
+//
+//   K10 grid_band_dma_2d (pallas_queries.py:136, body :36)
+//                                              -> grid_band_kernel<2>
+//   K11 grid_band_dma_3d (pallas_queries.py:316, body :253)
+//                                              -> grid_band_kernel<3>
+//
 // The contracts are the TPU kernels'; the TPU shapes are not carried over:
 // a bool mask (N,) replaces the bitmask words, and there are no scalar
 // bit scans, block-any flags, one-hot picks or lane chunks.  Each launch
@@ -147,6 +155,19 @@ __global__ void compact_write(const uint8_t* __restrict__ mask, int64_t n,
 
 constexpr int SWEEP_THREADS = 256;
 
+// Squared distance from q to the segment a + t e, t = clip((w . e) /
+// max(|e|^2, 1e-30), 0, 1) with w = q - a (pallas_queries.py:97-105);
+// writes t.  K2 and K10 share it.
+__device__ __forceinline__ float seg_d2(float wx, float wy, float ex,
+                                        float ey, float* t_out) {
+  const float den = fmaxf(ex * ex + ey * ey, 1e-30f);
+  const float t = fminf(fmaxf((wx * ex + wy * ey) / den, 0.f), 1.f);
+  const float dx = wx - t * ex;
+  const float dy = wy - t * ey;
+  *t_out = t;
+  return dx * dx + dy * dy;
+}
+
 __global__ void sweep_resolve_kernel(
     const uint8_t* __restrict__ mask, const int32_t* __restrict__ row,
     const float* __restrict__ q, const float* __restrict__ coords,
@@ -185,11 +206,8 @@ __global__ void sweep_resolve_kernel(
     const float ey = by_p[k] - ay;
     const float wx = qx - ax;
     const float wy = qy - ay;
-    const float den = fmaxf(ex * ex + ey * ey, 1e-30f);
-    const float t = fminf(fmaxf((wx * ex + wy * ey) / den, 0.f), 1.f);
-    const float dx = wx - t * ex;
-    const float dy = wy - t * ey;
-    const float d2 = dx * dx + dy * dy;
+    float t;
+    const float d2 = seg_d2(wx, wy, ex, ey, &t);
     if (d2 < best_d2) {
       best_d2 = d2;
       best_slot = k;
@@ -320,11 +338,106 @@ __global__ void sweep_resolve_3d_kernel(
     }
   }
   best_slot = __shfl_sync(FULL, best_slot, 0);
+  // every d^2 overflowed (a walk far outside the grid): slot 0, as the
+  // plain version's argmin gives, not a read past the row
+  best_slot = best_slot < Kp ? best_slot : 0;
   if (lane < 9) corners_out[9 * i + lane] = base[lane * Kp + best_slot];
   if (lane == 0) {
     d_out[i] = sqrtf(best_d2);
     pid_out[i] = best_slot < K ? cand[r * K + best_slot] : -1;
   }
+}
+
+// --------------------------------------------------------------------------
+// K10 / K11: the chain path's exact closest segment (DIM 2) or triangle
+// (DIM 3) over the candidate row of every lane with row >= 0, no mask and
+// no compaction (grid_closest_point_detail, elaina_tpu/geometry/
+// grid.py:1226).  K2's and K4's sweep and distance functions: one warp
+// per lane over the row's DIM*DIM corner planes (R, DIM*DIM, Kp), a
+// lexicographic (d^2, slot) argmin by warp shuffle (the TPU kernels'
+// strict < per column, then the smallest flat slot among equal d^2), and
+// the winner's corners reloaded from L1 by slot.  Bound by the row loads:
+// 16 (2D) or 36 (3D) bytes per candidate of each distinct row.  Lanes
+// with row < 0 get d^2 = +inf, slot 0 and zero corners.
+// --------------------------------------------------------------------------
+
+template <int DIM>
+__global__ void grid_band_kernel(const int32_t* __restrict__ row,
+                                 const float* __restrict__ q,
+                                 const float* __restrict__ coords, int64_t n,
+                                 int32_t Kp, float* __restrict__ d2_out,
+                                 int32_t* __restrict__ slot_out,
+                                 float* __restrict__ corners_out) {
+  constexpr int NP = DIM * DIM;
+  const int64_t i =
+      ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (i >= n) return;
+  const int64_t r = row[i];
+  if (r < 0) {
+    if (lane == 0) {
+      d2_out[i] = __int_as_float(0x7f800000);
+      slot_out[i] = 0;
+    }
+    if (lane < NP) corners_out[NP * i + lane] = 0.f;
+    return;
+  }
+  float qv[DIM];
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) qv[d] = q[DIM * i + d];
+  const float* base = coords + r * NP * Kp;
+
+  float best_d2 = __int_as_float(0x7f800000);  // +inf
+  int best_slot = Kp;
+  for (int k = lane; k < Kp; k += 32) {
+    float d2;
+    if constexpr (DIM == 2) {
+      const float ax = base[k];
+      const float ay = base[Kp + k];
+      float t;
+      d2 = seg_d2(qv[0] - ax, qv[1] - ay, base[2 * Kp + k] - ax,
+                  base[3 * Kp + k] - ay, &t);
+    } else {
+      float c[9];
+#pragma unroll
+      for (int p = 0; p < 9; ++p) c[p] = base[p * Kp + k];
+      d2 = tri_d2(qv, c);
+    }
+    if (d2 < best_d2) {
+      best_d2 = d2;
+      best_slot = k;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float od2 = __shfl_down_sync(FULL, best_d2, o);
+    const int os = __shfl_down_sync(FULL, best_slot, o);
+    if (od2 < best_d2 || (od2 == best_d2 && os < best_slot)) {
+      best_d2 = od2;
+      best_slot = os;
+    }
+  }
+  best_slot = __shfl_sync(FULL, best_slot, 0);
+  best_slot = best_slot < Kp ? best_slot : 0;     // every d^2 overflowed
+  if (lane < NP) corners_out[NP * i + lane] = base[lane * Kp + best_slot];
+  if (lane == 0) {
+    d2_out[i] = best_d2;
+    slot_out[i] = best_slot;
+  }
+}
+
+template <int DIM>
+int grid_band_dim(const void* row, const void* q, const void* coords,
+                  int64_t n, int32_t Kp, void* d2, void* slot, void* corners,
+                  void* stream) {
+  if (n == 0) return 0;
+  const int lanes_per_block = SWEEP_THREADS / 32;
+  const int64_t blocks = (n + lanes_per_block - 1) / lanes_per_block;
+  grid_band_kernel<DIM><<<(unsigned)blocks, SWEEP_THREADS, 0,
+                          (cudaStream_t)stream>>>(
+      (const int32_t*)row, (const float*)q, (const float*)coords, n, Kp,
+      (float*)d2, (int32_t*)slot, (float*)corners);
+  return (int)cudaGetLastError();
 }
 
 // --------------------------------------------------------------------------
@@ -438,6 +551,20 @@ int fetch_colors_launch(const void* mask, const void* cfi, const void* rows,
 int fetch_colors3_launch(const void* mask, const void* cfi, const void* rows,
                          int64_t n, int64_t n_rows, void* out, void* stream) {
   return fetch_colors_nc<3>(mask, cfi, rows, n, n_rows, out, stream);
+}
+
+// K10: corners (n, 4) ax, ay, bx, by
+int grid_band_2d_launch(const void* row, const void* q, const void* coords,
+                        int64_t n, int32_t Kp, void* d2, void* slot,
+                        void* corners, void* stream) {
+  return grid_band_dim<2>(row, q, coords, n, Kp, d2, slot, corners, stream);
+}
+
+// K11: corners (n, 9) ax ay az bx by bz cx cy cz
+int grid_band_3d_launch(const void* row, const void* q, const void* coords,
+                        int64_t n, int32_t Kp, void* d2, void* slot,
+                        void* corners, void* stream) {
+  return grid_band_dim<3>(row, q, coords, n, Kp, d2, slot, corners, stream);
 }
 
 }  // extern "C"

@@ -44,15 +44,9 @@ def run_expr(conf_path: str) -> dict:
             f"integrator {cfg.integrator_type!r}: the guided integrator "
             f"arrives with the ROADMAP item 'guided'")
     for channel in set(cfg.channels) | {e.channel for e in cfg.exports}:
-        if channel == "DIRICHLET_SDF":
-            raise NotImplementedError(
-                "channel 'DIRICHLET_SDF' arrives with the ROADMAP item "
-                "'other channels and masks', with kernel K11 "
-                "(grid_band_dma_3d) in 3D and K10 in 2D")
         if channel not in CHANNELS:
-            raise NotImplementedError(
-                f"channel {channel!r} arrives with the ROADMAP item "
-                f"'other channels and masks'")
+            raise ValueError(f"unknown channel {channel!r}: one of "
+                             f"{CHANNELS}")
     out_dir = os.path.join(cfg.base_path, cfg.exp_name)
     os.makedirs(out_dir, exist_ok=True)
     with open(conf_path) as f:
@@ -70,11 +64,18 @@ def run_expr(conf_path: str) -> dict:
     result: dict = {}
     if problem.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(problem.device)
-    if "SOLUTION" in cfg.channels:
-        result["duration"] = integrator.solve()
-        result["walk_steps"] = integrator.total_walk_steps
-        result["resolved_lanes"] = integrator.total_resolved
-        result["capped_walks"] = integrator.total_capped
+    for channel in sorted(set(cfg.channels), key=CHANNELS.index):
+        if channel == "SOLUTION":
+            result["duration"] = integrator.solve()
+            result["walk_steps"] = integrator.total_walk_steps
+            result["resolved_lanes"] = integrator.total_resolved
+            result["capped_walks"] = integrator.total_capped
+        elif channel == "DIRICHLET_SDF":
+            integrator.render_dirichlet_sdf()
+        elif channel == "NEUMANN_SDF":
+            integrator.render_silhouette_sdf()
+        else:
+            integrator.render_source()
     for e in cfg.exports:
         if e.type == "image":
             integrator.export_image(e.channel, e.file_name)

@@ -9,7 +9,10 @@ per-level band passes run in the native library (``native/scene_build.cpp``);
 the result is cached on disk under the reference's key, in the
 reference's file format.
 
-The FinePack collapses the refinement chain into one int32 per finest
+The chain path (``grid_row_index`` -> ``grid_closest_point_detail``)
+walks each query down the refinement levels to its candidate row and
+sweeps the row exactly with kernels K10 (2D) / K11 (3D); the
+DIRICHLET_SDF channel takes it.  The FinePack collapses the refinement chain into one int32 per finest
 cell: bit 31 the need flag (baked with the solve's eps), bits 30..20 a
 quantized lower bound of the boundary distance, bits 19..0 the candidate
 row.  ``fine_decode`` turns a query point into (row, need, bound) with one
@@ -45,6 +48,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..ops.resolve import grid_band_2d, grid_band_3d
 
 PAD_COORD = 1.0e9     # far-away coordinate for padded candidate slots
 FINE_BUCKETS = 2047
@@ -89,6 +94,7 @@ class CandidateGrid:
     res: tuple
     cand: torch.Tensor       # (R, K) int32
     meta: list               # host int32 arrays (FinePack build input)
+    meta_t: list             # the same levels as int32 device tensors
     row_lbound: torch.Tensor  # (R,) f32
     row_diag: torch.Tensor   # (R,) f32
     row_trunc: torch.Tensor  # (R,) bool
@@ -344,6 +350,7 @@ def grid_from_numpy(*, cand, meta, row_lbound, row_diag, row_trunc, origin,
         inv_cell=t(np.asarray(inv_cell, np.float32), torch.float32),
         res=tuple(int(r) for r in res), cand=cand_t,
         meta=[np.asarray(m, np.int32) for m in meta],
+        meta_t=[t(np.asarray(m, np.int32), torch.int32) for m in meta],
         row_lbound=t(rlb, torch.float32),
         row_diag=t(np.asarray(row_diag, np.float32), torch.float32),
         row_trunc=t(rt, torch.bool),
@@ -580,3 +587,84 @@ def fine_decode(fp: FinePack, q: torch.Tensor):
         b == 0, torch.zeros_like(q[..., 0]),
         fp.r0 * torch.exp2((b.float() - 1.0) / fp.s) * (1.0 - 1.9e-6))
     return row, need, rl, outside
+
+
+# --------------------------------------------------------------------------- #
+# chain path: query -> refinement levels -> candidate row -> exact sweep
+# --------------------------------------------------------------------------- #
+
+
+def grid_cell_index(grid: CandidateGrid, q: torch.Tensor) -> torch.Tensor:
+    """Level-0 linear cell index (int64) of query points q (N, D),
+    clamped to the grid."""
+    rel = (q - grid.origin) * grid.inv_cell
+    hi = torch.tensor([r - 1 for r in grid.res], dtype=torch.int32,
+                      device=q.device)
+    idx = torch.minimum(rel.to(torch.int32).clamp(min=0), hi)
+    lin = idx[..., 0].long()
+    for d in range(1, len(grid.res)):
+        lin = lin * grid.res[d] + idx[..., d]
+    return lin
+
+
+def grid_row_index(grid: CandidateGrid, q: torch.Tensor) -> torch.Tensor:
+    """Each query's candidate row (int32) through the refinement levels:
+    the level-0 cell from floor((q - origin) inv_cell), then one child
+    per level from the fraction within the cell (clipped to 1 - 1e-7, so
+    a point on a cell border stays in its floor cell)."""
+    dim = len(grid.res)
+    rel = (q - grid.origin) * grid.inv_cell
+    hi = torch.tensor([r - 1 for r in grid.res], dtype=torch.int32,
+                      device=q.device)
+    idx = torch.minimum(torch.floor(rel).to(torch.int32).clamp(min=0), hi)
+    lin = idx[..., 0].long()
+    for d in range(1, dim):
+        lin = lin * grid.res[d] + idx[..., d]
+    frac = torch.clamp(rel - idx.to(rel.dtype), 0.0, 1.0 - 1e-7)
+    row = grid.meta_t[0][lin]
+    for lvl in range(1, len(grid.meta_t)):
+        need = row < 0
+        bits = frac >= 0.5
+        sub = bits[..., 0].to(torch.int32)
+        for d in range(1, dim):
+            sub = sub + (bits[..., d].to(torch.int32) << d)
+        child = (-row - 1) * (2 ** dim) + sub
+        child = child.clamp(0, grid.meta_t[lvl].shape[0] - 1)
+        row = torch.where(need, grid.meta_t[lvl][child.long()], row)
+        frac = torch.where(frac >= 0.5, frac * 2.0 - 1.0, frac * 2.0)
+    return torch.clamp(row, min=0)
+
+
+def _trunc_fallback(grid: CandidateGrid, row: torch.Tensor, d: torch.Tensor):
+    """A truncated row (over K, nearest K kept) can overestimate the
+    distance: its cell's lower bound stands in there (valid for a star
+    radius)."""
+    r = row.long()
+    return torch.where(grid.row_trunc[r], grid.row_lbound[r], d)
+
+
+def grid_closest_point_detail(grid: CandidateGrid, q: torch.Tensor,
+                              row: torch.Tensor | None = None):
+    """The exact closest prim through the chain path: (distance (N,),
+    prim id (N,) int32, the winner's corners as a tuple of dim (N, D)
+    tensors).  The row is swept by K10 (2D) or K11 (3D); truncated rows
+    give their lower bound."""
+    dim = len(grid.res)
+    K = grid.cand.shape[1]
+    if row is None:
+        row = grid_row_index(grid, q)
+    band = grid_band_2d if dim == 2 else grid_band_3d
+    d2, slot, corners = band(row.contiguous(), q.contiguous(), grid.coords)
+    pid = torch.clamp(grid.cand[row.long(), slot.long().clamp(max=K - 1)],
+                      min=0)
+    pv = tuple(corners[:, k * dim:(k + 1) * dim] for k in range(dim))
+    return _trunc_fallback(grid, row, torch.sqrt(d2)), pid, pv
+
+
+def grid_closest_point(grid: CandidateGrid, q: torch.Tensor,
+                       row: torch.Tensor | None = None):
+    """(distance (N,), prim id (N,)) through the chain path: exact for
+    in-grid queries whenever every leaf band fit K; out-of-grid queries
+    take the clamped border cell's candidates."""
+    d, pid, _ = grid_closest_point_detail(grid, q, row)
+    return d, pid

@@ -6,10 +6,15 @@ Port of ``elaina_tpu/geometry/queries.py``:
   prims takes: closest silhouette, ray intersection and Green-weighted
   in-ball sampling (the reference's ``small_gather`` one-hot matmuls are
   plain indexing);
+* the exact silhouette distance of the NEUMANN_SDF channel, a dense
+  sweep over the entities (chunked over lanes and, above
+  ``CHUNKED_DENSE_MAX`` entities, over entities too), in 2D and 3D;
 * the band-grid queries of a 3D Neumann set: the silhouette distance over
-  the SilGrid (kernel K9) and one depth step's in-ball sample, visibility
-  ray and walk ray over the prim-band grid (kernel K6).  A 3D set always
-  takes these; there is no dense or BVH 3D query.
+  the SilGrid (kernel K9), one depth step's in-ball sample, visibility
+  ray and walk ray over the prim-band grid fused (kernel K6), and the
+  unfused closest-hit ray (K7) and in-ball sample (K8) that the source
+  term and the unfused step take.  A 3D set always takes these in the
+  solve; there is no BVH 3D query.
 """
 
 from __future__ import annotations
@@ -22,9 +27,12 @@ from ..ops import queries as K
 from ..solver.green import GREEN_R_CLAMP, green_eval
 from .geomset import GeomSet
 from .grid import BandGrid
-from .primitives import prim_closest_point, prim_ray_intersect
+from .primitives import (prim_closest_point, prim_ray_intersect,
+                         seg_closest_point)
 
 BRUTE_FORCE_MAX = 64
+CHUNKED_DENSE_MAX = 4096
+_SWEEP_ELEMS = 1 << 24     # lanes x entities per chunk of the dense sweep
 _INF = float("inf")
 
 
@@ -43,21 +51,43 @@ def _prim_verts_all(gs: GeomSet):
     return tuple(gs.verts[gs.indices[:, k]][None] for k in range(gs.dim))
 
 
-def closest_silhouette(gs: GeomSet, q: torch.Tensor) -> torch.Tensor:
-    """Distance (N,) to the nearest silhouette entity: in 2D a vertex
-    whose two adjacent normals straddle the view vector, or that borders
+def _silhouette_sweep(gs: GeomSet, q, e0: int, e1: int):
+    """Distance (N,) from q to the nearest silhouette among entities
+    [e0, e1): in 2D a vertex, in 3D an edge, that counts when its two
+    adjacent normals straddle the view vector (s1 s2 <= 0) or it borders
     an open end."""
-    if gs.sil_p0.shape[0] == 0:
-        return torch.full(q.shape[:1], _INF, device=q.device)
-    if gs.dim != 2:
-        raise NotImplementedError(
-            "3D silhouettes arrive with ROADMAP Queue 1 item 12")
-    v = q[:, None, :] - gs.sil_p0[None]                  # (N, E, 2)
-    d = torch.linalg.norm(v, dim=-1)
-    s1 = torch.sum(gs.sil_n1[None] * v, dim=-1)
-    s2 = torch.sum(gs.sil_n2[None] * v, dim=-1)
-    is_sil = gs.sil_always[None] | (s1 * s2 <= 0.0)
+    p0 = gs.sil_p0[None, e0:e1]
+    if gs.dim == 2:
+        v = q[:, None, :] - p0
+        d = torch.linalg.norm(v, dim=-1)
+    else:
+        p1 = gs.sil_p1[None, e0:e1]
+        d, t = seg_closest_point(q[:, None, :], p0, p1)
+        v = q[:, None, :] - (p0 + t[..., None] * (p1 - p0))
+    s1 = torch.sum(gs.sil_n1[None, e0:e1] * v, dim=-1)
+    s2 = torch.sum(gs.sil_n2[None, e0:e1] * v, dim=-1)
+    is_sil = gs.sil_always[None, e0:e1] | (s1 * s2 <= 0.0)
     return torch.where(is_sil, d, torch.full_like(d, _INF)).min(dim=-1).values
+
+
+def closest_silhouette(gs: GeomSet, q: torch.Tensor) -> torch.Tensor:
+    """Distance (N,) to the nearest silhouette entity, exact: the dense
+    sweep, over chunks of ``CHUNKED_DENSE_MAX`` entities above that count
+    (the reference's dense and chunked sweeps; its coned-BVH branch gives
+    the same distances) and over chunks of lanes to bound memory."""
+    E = gs.sil_p0.shape[0]
+    out = torch.full(q.shape[:1], _INF, device=q.device)
+    if E == 0:
+        return out
+    chunk_e = min(E, CHUNKED_DENSE_MAX)
+    chunk_n = max(1, _SWEEP_ELEMS // chunk_e)
+    for n0 in range(0, q.shape[0], chunk_n):
+        qc = q[n0:n0 + chunk_n]
+        for e0 in range(0, E, chunk_e):
+            out[n0:n0 + chunk_n] = torch.minimum(
+                out[n0:n0 + chunk_n],
+                _silhouette_sweep(gs, qc, e0, min(E, e0 + chunk_e)))
+    return out
 
 
 def ray_intersect(gs: GeomSet, o, d, tmax):
@@ -196,3 +226,38 @@ def band_neumann_walk(bg: BandGrid, gs: GeomSet, q, R, on_n, n_normal,
         whit=(out[:, 10] > 0) & ~outside,
         wt=torch.where(outside, float("inf"), out[:, 11]),
         wnormal=torch.where(outside[:, None], 0.0, out[:, 12:15]))
+
+
+def band_ray_intersect(bg: BandGrid, gs: GeomSet, o, d, tmax, ref=None):
+    """(hit, t, pid): the closest hit of the rays o + t d, t in (1e-6,
+    tmax], over the prim band of ``ref``'s cell (default: the origin's),
+    kernel K7.  ``ref`` matters when the origin is an eps offset off a
+    boundary: the offset point can sit in a neighbouring cell, whose
+    r_cap the ray's length was not clamped to.  Misses give t = inf and
+    pid 0."""
+    lin, outside, cell = _kernel_cell(bg, o if ref is None else ref)
+    t, slot = K.band_ray(cell, o.contiguous(), d.contiguous(),
+                         tmax.contiguous(), bg.coords)
+    K_row = bg.rows.shape[1]
+    hit = torch.isfinite(t) & (t <= tmax) & ~outside
+    pid = bg.rows[lin, slot.long().clamp(max=K_row - 1)]
+    return (hit, torch.where(hit, t, _INF),
+            torch.where(hit, torch.clamp(pid, min=0), 0).to(torch.int32))
+
+
+def band_sample_in_ball(bg: BandGrid, gs: GeomSet, q, R, u):
+    """(prim id, pdf per unit area): the Green-weighted in-ball prim
+    sample over the band row of q's cell, kernel K8; -1 and 0 when no prim
+    weighs.  The pdf takes the prim's measure (the sample is uniform on
+    the prim); the kernel's in-tile area only weights the CDF."""
+    lin, outside, cell = _kernel_cell(bg, q)
+    slot, w_sel, total = K.band_ball(cell, q.contiguous(), R.contiguous(),
+                                     u.contiguous(), bg.coords)
+    K_row = bg.rows.shape[1]
+    pid = torch.clamp(bg.rows[lin, slot.long().clamp(max=K_row - 1)], min=0)
+    m_sel = gs.prim_measure[pid]
+    ok = (slot < K_row) & (total > 0) & (w_sel > 0) & ~outside
+    pdf = torch.where(ok, w_sel / (torch.clamp(total, min=1e-30)
+                                   * torch.clamp(m_sel, min=1e-30)),
+                      torch.zeros_like(total))
+    return torch.where(ok, pid, -1).to(torch.int32), pdf

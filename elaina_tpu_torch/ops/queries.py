@@ -1,6 +1,7 @@
-"""Neumann band-grid kernels K6 and K9: wrappers, plain versions, build.
+"""Neumann band-grid kernels K6-K9: wrappers, plain versions, build.
 
-Port of ``band_neumann_walk_dma_3d`` and ``sil_band_dma`` (3D) of
+Port of ``band_neumann_walk_dma_3d``, ``band_ray_dma_3d``,
+``band_ball_dma_3d`` and ``sil_band_dma`` (3D) of
 ``elaina_tpu/ops/pallas_queries.py``.  The CUDA sources are in
 ``csrc/queries.cu`` (built and bound as ``ops/cuda.py`` says).  Each
 wrapper checks its inputs, allocates its outputs, launches on the current
@@ -23,6 +24,12 @@ Contracts (the TPU kernels', minus the per-lane DMAs):
   the count of CDF entries <= u_sel * total, Kp meaning none (then w_sel
   = 0 and the selected corners are PAD_COORD).  Lanes with cell < 0 get
   zeros, walk_t = inf and slot = Kp.
+* ``band_ray(cell, o, d, tmax, coords) -> (t (N,), slot (N,))``: K6's
+  walk ray alone, the closest hit with t in (1e-6, tmax] (the smallest
+  slot on equal t); t = inf and slot = Kp on a miss and where cell < 0.
+* ``band_ball(cell, q, R, u, coords) -> (slot, w_sel, total)``: K6's
+  in-ball CDF sample alone; slot = Kp means none (w_sel = 0), and lanes
+  with cell < 0 get slot = Kp and zeros.
 """
 
 from __future__ import annotations
@@ -49,6 +56,8 @@ _SIGNATURES = {
     "sil_band_launch": [VP, VP, VP, I64, I32, VP, VP],
     "band_neumann_walk_launch": [VP, VP, VP, VP, VP, VP, VP, VP, F32, VP,
                                  I64, I32, VP, VP, VP],
+    "band_ray_launch": [VP, VP, VP, VP, VP, I64, I32, VP, VP, VP],
+    "band_ball_launch": [VP, VP, VP, VP, VP, I64, I32, VP, VP, VP, VP],
 }
 
 
@@ -145,6 +154,31 @@ def _pick(planes, slot):
     return [p.gather(1, slot[:, None])[:, 0] for p in planes]
 
 
+def _ball_plain(c, qk, Rm, u):
+    """The in-ball CDF sample over corner planes c (9 x (m, Kp)) from q
+    (3 x (m, 1)) and radii Rm (m, 1), as K6 and K8 take it: (w_sel (m,),
+    total (m,), count of CDF entries <= u * total (m,), Kp meaning none
+    and then w_sel = 0)."""
+    dd = torch.sqrt(tri_d2_planes(qk, c))
+    cr = _cross([c[3 + k] - c[k] for k in range(3)],
+                [c[6 + k] - c[k] for k in range(3)])
+    area = 0.5 * torch.sqrt(_dot(cr, cr))
+    g = (1.0 / torch.clamp(dd, min=1e-4) - 1.0 / Rm) * INV_4PI
+    w = torch.where(dd < Rm, area * torch.clamp(g, min=0.0),
+                    torch.zeros_like(dd))
+    total = w.sum(dim=1)
+    target = u * total
+    cnt = (target[:, None] >= torch.cumsum(w, dim=1)).sum(dim=1)
+    ws = w.gather(1, cnt.clamp(max=w.shape[1] - 1)[:, None])[:, 0]
+    return torch.where(cnt < w.shape[1], ws, torch.zeros_like(ws)), total, cnt
+
+
+def _closest_hit_plain(o, d, c, tmax):
+    """(t, slot) of the closest hit over corner planes c, the first slot
+    on equal t (K6's walk ray and K7); t = inf on a miss."""
+    return torch.min(_mt_planes(o, d, c, tmax), dim=1)
+
+
 def band_neumann_walk_plain(cell, q, R, on, n_normal, u_sel, u_pt, d_walk,
                             eps: float, coords):
     n = cell.shape[0]
@@ -161,20 +195,9 @@ def band_neumann_walk_plain(cell, q, R, on, n_normal, u_sel, u_pt, d_walk,
         qk = [q[ids, k:k + 1] for k in range(3)]
         Rm = R[ids][:, None]
         # 1. weights and the CDF sample
-        dd = torch.sqrt(tri_d2_planes(qk, c))
-        cr = _cross([c[3 + k] - c[k] for k in range(3)],
-                    [c[6 + k] - c[k] for k in range(3)])
-        area = 0.5 * torch.sqrt(_dot(cr, cr))
-        g = (1.0 / torch.clamp(dd, min=1e-4) - 1.0 / Rm) * INV_4PI
-        w = torch.where(dd < Rm, area * torch.clamp(g, min=0.0),
-                        torch.zeros_like(dd))
-        total = w.sum(dim=1)
-        target = u_sel[ids] * total
-        cnt = (target[:, None] >= torch.cumsum(w, dim=1)).sum(dim=1)
+        w_sel, total, cnt = _ball_plain(c, qk, Rm, u_sel[ids])
         has = cnt < Kp
         s_idx = cnt.clamp(max=Kp - 1)
-        w_sel = torch.where(has, w.gather(1, s_idx[:, None])[:, 0],
-                            torch.zeros_like(total))
         # 2. the sample point on the selected triangle
         s = [torch.where(has, x, torch.full_like(x, PAD_COORD))
              for x in _pick(c, s_idx)]
@@ -198,9 +221,8 @@ def band_neumann_walk_plain(cell, q, R, on, n_normal, u_sel, u_pt, d_walk,
                          (dist - eps)[:, None])
         occluded = torch.isfinite(vis.min(dim=1).values)
         # 4. walk ray
-        wt_all = _mt_planes(o2, [d_walk[ids, k:k + 1] for k in range(3)], c,
-                            Rm)
-        wt, wslot = torch.min(wt_all, dim=1)
+        wt, wslot = _closest_hit_plain(
+            o2, [d_walk[ids, k:k + 1] for k in range(3)], c, Rm)
         whit = torch.isfinite(wt)
         wc = _pick(c, wslot)
         wcr = _cross([wc[3 + k] - wc[k] for k in range(3)],
@@ -245,7 +267,104 @@ def band_neumann_walk(cell, q, R, on, n_normal, u_sel, u_pt, d_walk,
 
 band_neumann_walk.launches = 0
 
-KERNELS = (band_neumann_walk, sil_band)
+
+# --------------------------------------------------------------------------- #
+# K7 band_ray
+# --------------------------------------------------------------------------- #
+
+
+def band_ray_plain(cell, o, d, tmax, coords):
+    n = cell.shape[0]
+    Kp = coords.shape[2]
+    dev = o.device
+    t = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
+    slot = torch.full((n,), Kp, dtype=torch.int32, device=dev)
+    sel = torch.nonzero(cell >= 0).flatten()
+    for c0 in range(0, sel.numel(), _PLAIN_CHUNK):
+        ids = sel[c0:c0 + _PLAIN_CHUNK]
+        c = coords[cell[ids].long()].unbind(1)             # 9 x (m, Kp)
+        tt, s = _closest_hit_plain([o[ids, k:k + 1] for k in range(3)],
+                                   [d[ids, k:k + 1] for k in range(3)], c,
+                                   tmax[ids][:, None])
+        t[ids] = tt
+        slot[ids] = torch.where(torch.isfinite(tt), s,
+                                torch.full_like(s, Kp)).to(torch.int32)
+    return t, slot
+
+
+def band_ray(cell, o, d, tmax, coords):
+    n = cell.shape[0]
+    dev = o.device
+    C, _, Kp = coords.shape
+    _check("cell", cell, torch.int32, (n,), dev)
+    _check("o", o, torch.float32, (n, 3), dev)
+    _check("d", d, torch.float32, (n, 3), dev)
+    _check("tmax", tmax, torch.float32, (n,), dev)
+    _check("coords", coords, torch.float32, (C, 9, Kp), dev)
+    if Kp % 32:
+        raise ValueError(f"coords has {Kp} slots per cell")
+    if dev.type == "cpu":
+        return band_ray_plain(cell, o, d, tmax, coords)
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    slot = torch.empty((n,), dtype=torch.int32, device=dev)
+    _launch(library().band_ray_launch, _ptr(cell), _ptr(o), _ptr(d),
+            _ptr(tmax), _ptr(coords), n, Kp, _ptr(t), _ptr(slot), device=dev)
+    band_ray.launches += 1
+    return t, slot
+
+
+band_ray.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# K8 band_ball
+# --------------------------------------------------------------------------- #
+
+
+def band_ball_plain(cell, q, R, u, coords):
+    n = cell.shape[0]
+    Kp = coords.shape[2]
+    dev = q.device
+    slot = torch.full((n,), Kp, dtype=torch.int32, device=dev)
+    w_sel = torch.zeros((n,), dtype=torch.float32, device=dev)
+    total = torch.zeros((n,), dtype=torch.float32, device=dev)
+    sel = torch.nonzero(cell >= 0).flatten()
+    for c0 in range(0, sel.numel(), _PLAIN_CHUNK):
+        ids = sel[c0:c0 + _PLAIN_CHUNK]
+        c = coords[cell[ids].long()].unbind(1)             # 9 x (m, Kp)
+        w_sel[ids], total[ids], cnt = _ball_plain(
+            c, [q[ids, k:k + 1] for k in range(3)], R[ids][:, None], u[ids])
+        slot[ids] = cnt.to(torch.int32)
+    return slot, w_sel, total
+
+
+def band_ball(cell, q, R, u, coords):
+    n = cell.shape[0]
+    dev = q.device
+    C, _, Kp = coords.shape
+    _check("cell", cell, torch.int32, (n,), dev)
+    _check("q", q, torch.float32, (n, 3), dev)
+    _check("R", R, torch.float32, (n,), dev)
+    _check("u", u, torch.float32, (n,), dev)
+    _check("coords", coords, torch.float32, (C, 9, Kp), dev)
+    if Kp % 32 or Kp > 256:
+        raise ValueError(f"coords has {Kp} slots per cell (a multiple of "
+                         f"32, at most 256)")
+    if dev.type == "cpu":
+        return band_ball_plain(cell, q, R, u, coords)
+    slot = torch.empty((n,), dtype=torch.int32, device=dev)
+    w_sel = torch.empty((n,), dtype=torch.float32, device=dev)
+    total = torch.empty((n,), dtype=torch.float32, device=dev)
+    _launch(library().band_ball_launch, _ptr(cell), _ptr(q), _ptr(R),
+            _ptr(u), _ptr(coords), n, Kp, _ptr(slot), _ptr(w_sel),
+            _ptr(total), device=dev)
+    band_ball.launches += 1
+    return slot, w_sel, total
+
+
+band_ball.launches = 0
+
+KERNELS = (band_neumann_walk, band_ray, band_ball, sil_band)
 
 
 def reset_launch_counts():

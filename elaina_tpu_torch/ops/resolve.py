@@ -1,8 +1,10 @@
-"""Dirichlet-resolve kernels K1-K5: wrappers, plain versions, build.
+"""Dirichlet-resolve kernels K1-K5 and the chain-path sweeps K10, K11:
+wrappers, plain versions, build.
 
 Port of ``elaina_tpu/ops/pallas_resolve.py`` (``compact_lanes``,
 ``sweep_resolve``, ``fetch_colors``, ``sweep_resolve_3d``,
-``fetch_colors3``).  The CUDA sources are in
+``fetch_colors3``) and of ``grid_band_dma_2d`` / ``grid_band_dma_3d``
+(``elaina_tpu/ops/pallas_queries.py``).  The CUDA sources are in
 ``csrc/resolve.cu``, compiled with nvcc for sm_90a into ``_build/`` at the
 first launch and bound through ctypes (pointers and the current stream as
 ``c_void_p``).  Each wrapper checks its inputs, allocates its outputs with
@@ -30,6 +32,12 @@ Contracts (from the TPU kernels, minus the bitmask words):
   give 0, -1, 0.
 * ``fetch_colors3(mask, cfi, color_rows) -> (ca, cb, cc)``: K3 for the
   three triangle corners of the (2P, 9) table.
+* ``grid_band_2d(row, q, coords) -> (d2, slot, corners (N, 4))`` and
+  ``grid_band_3d(row, q, coords) -> (d2, slot, corners (N, 9))``: on every
+  lane with row >= 0, the exact closest segment / triangle of the row
+  (K2's and K4's distances, the smallest slot on equal d^2): its squared
+  distance, slot in [0, Kp) and corners.  Lanes with row < 0 give +inf,
+  slot 0 and zero corners.
 """
 
 from __future__ import annotations
@@ -56,6 +64,8 @@ _SIGNATURES = {
                                 VP, VP],
     "fetch_colors_launch": [VP, VP, VP, I64, I64, VP, VP],
     "fetch_colors3_launch": [VP, VP, VP, I64, I64, VP, VP],
+    "grid_band_2d_launch": [VP, VP, VP, I64, I32, VP, VP, VP],
+    "grid_band_3d_launch": [VP, VP, VP, I64, I32, VP, VP, VP],
 }
 
 
@@ -106,6 +116,16 @@ compact_lanes.launches = 0
 # --------------------------------------------------------------------------- #
 
 
+def _seg_d2(wx, wy, ex, ey):
+    """(d^2, t): the squared distance from a + w to the segment a + t e,
+    t = clip((w . e) / max(|e|^2, 1e-30), 0, 1) (csrc ``seg_d2``)."""
+    den = torch.clamp(ex * ex + ey * ey, min=1e-30)
+    tt = torch.clamp((wx * ex + wy * ey) / den, 0.0, 1.0)
+    dx = wx - tt * ex
+    dy = wy - tt * ey
+    return dx * dx + dy * dy, tt
+
+
 def sweep_resolve_plain(mask, row, q, coords, cand):
     n = row.shape[0]
     K = cand.shape[1]
@@ -125,11 +145,7 @@ def sweep_resolve_plain(mask, row, q, coords, cand):
         ey = by - ay
         wx = qx - ax
         wy = qy - ay
-        den = torch.clamp(ex * ex + ey * ey, min=1e-30)
-        tt = torch.clamp((wx * ex + wy * ey) / den, 0.0, 1.0)
-        dx = wx - tt * ex
-        dy = wy - tt * ey
-        d2 = dx * dx + dy * dy
+        d2, tt = _seg_d2(wx, wy, ex, ey)
         slot = torch.argmin(d2, dim=1, keepdim=True)       # first minimum
         d[ids] = torch.sqrt(d2.gather(1, slot)[:, 0])
         t[ids] = tt.gather(1, slot)[:, 0]
@@ -311,8 +327,82 @@ def sweep_resolve_3d(mask, row, q, coords, cand):
 
 sweep_resolve_3d.launches = 0
 
+
+# --------------------------------------------------------------------------- #
+# K10 grid_band_2d / K11 grid_band_3d
+# --------------------------------------------------------------------------- #
+
+
+def _segment_d2_planes(q, c):
+    """K2's segment distance on (m, Kp) planes (ax, ay, bx, by)."""
+    ax, ay, bx, by = c
+    return _seg_d2(q[0] - ax, q[1] - ay, bx - ax, by - ay)[0]
+
+
+def _grid_band_plain(row, q, coords, dim: int):
+    n = row.shape[0]
+    npl = dim * dim
+    dev = q.device
+    d2 = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
+    slot = torch.zeros((n,), dtype=torch.int32, device=dev)
+    corners = torch.zeros((n, npl), dtype=torch.float32, device=dev)
+    dist = _segment_d2_planes if dim == 2 else tri_d2_planes
+    sel = torch.nonzero(row >= 0).flatten()
+    for c0 in range(0, sel.numel(), _PLAIN_CHUNK):
+        ids = sel[c0:c0 + _PLAIN_CHUNK]
+        planes = coords[row[ids].long()].unbind(1)         # npl x (m, Kp)
+        all_d2 = dist(tuple(q[ids, k:k + 1] for k in range(dim)), planes)
+        s = torch.argmin(all_d2, dim=1, keepdim=True)      # first minimum
+        d2[ids] = all_d2.gather(1, s)[:, 0]
+        slot[ids] = s[:, 0].to(torch.int32)
+        corners[ids] = torch.cat([p.gather(1, s) for p in planes], dim=1)
+    return d2, slot, corners
+
+
+def grid_band_2d_plain(row, q, coords):
+    return _grid_band_plain(row, q, coords, 2)
+
+
+def grid_band_3d_plain(row, q, coords):
+    return _grid_band_plain(row, q, coords, 3)
+
+
+def _grid_band(wrapper, fn: str, row, q, coords, dim: int):
+    n = row.shape[0]
+    dev = q.device
+    npl = dim * dim
+    R, _, Kp = coords.shape
+    _check("row", row, torch.int32, (n,), dev)
+    _check("q", q, torch.float32, (n, dim), dev)
+    _check("coords", coords, torch.float32, (R, npl, Kp), dev)
+    if Kp % 32:
+        raise ValueError(f"coords has {Kp} slots per row")
+    if dev.type == "cpu":
+        return _grid_band_plain(row, q, coords, dim)
+    d2 = torch.empty((n,), dtype=torch.float32, device=dev)
+    slot = torch.empty((n,), dtype=torch.int32, device=dev)
+    corners = torch.empty((n, npl), dtype=torch.float32, device=dev)
+    _launch(getattr(library(), fn), _ptr(row), _ptr(q), _ptr(coords), n, Kp,
+            _ptr(d2), _ptr(slot), _ptr(corners), device=dev)
+    wrapper.launches += 1
+    return d2, slot, corners
+
+
+def grid_band_2d(row, q, coords):
+    return _grid_band(grid_band_2d, "grid_band_2d_launch", row, q, coords, 2)
+
+
+grid_band_2d.launches = 0
+
+
+def grid_band_3d(row, q, coords):
+    return _grid_band(grid_band_3d, "grid_band_3d_launch", row, q, coords, 3)
+
+
+grid_band_3d.launches = 0
+
 KERNELS = (compact_lanes, sweep_resolve, fetch_colors, sweep_resolve_3d,
-           fetch_colors3)
+           fetch_colors3, grid_band_2d, grid_band_3d)
 
 
 def reset_launch_counts():

@@ -6,7 +6,11 @@ Port of ``BaseIntegrator`` / ``UniformIntegrator`` of
 maximum depth, and the loop accumulates the samples, dumping per-spp
 frames when the config asks.  The balanced persistent solve, which runs
 the same estimator with lanes restarting as their walks die, is a later
-port.  Only the SOLUTION channel exists so far.
+port.  The one-shot channels fill their films from one query over the
+frame's points (integrator.py:96-131): DIRICHLET_SDF the distance to the
+Dirichlet boundary (the chain path, K10 / K11), NEUMANN_SDF the exact
+distance to the nearest Neumann silhouette, SOURCE the source's value;
+a scene without the boundary or the source gets inf or zeros there.
 """
 
 from __future__ import annotations
@@ -22,11 +26,13 @@ from ..core.config import IntegratorSettings
 from ..core.logger import log_info
 from ..core.problem import Problem
 from ..geometry.grid import build_fine_pack
+from ..geometry import queries as Q
 from ..output.film import Film
 from ..utils.rng import run_seed, sample_generators
-from .wost import run_one_sample
+from .wost import dirichlet_distance, run_one_sample
 
-CHANNELS = ("SOLUTION",)
+# ExportImageChannel order (the film slots of the reference)
+CHANNELS = ("DIRICHLET_SDF", "NEUMANN_SDF", "SOURCE", "SOLUTION")
 
 
 def _progress(i, n, label="Solving"):
@@ -70,6 +76,38 @@ class BaseIntegrator:
         self.eval_points = points.to(self.device, torch.float32).contiguous()
         self.mask = torch.ones((self.n_pixels,), dtype=torch.bool,
                                device=self.device)
+
+    def _put(self, channel: str, vals: np.ndarray):
+        film = self.films[channel]
+        film.reset()
+        film.put_frame(vals)
+
+    def render_dirichlet_sdf(self):
+        scene = self.problem.scene
+        if scene.dirichlet is not None:
+            d, _ = dirichlet_distance(scene, self.eval_points)
+            vals = d.cpu().numpy()
+        else:
+            vals = np.full((self.n_pixels,), np.inf, np.float32)
+        self._put("DIRICHLET_SDF", np.repeat(vals[:, None], 3, -1))
+
+    def render_silhouette_sdf(self):
+        scene = self.problem.scene
+        if scene.neumann is not None:
+            vals = Q.closest_silhouette(scene.neumann.gs,
+                                        self.eval_points).cpu().numpy()
+        else:
+            vals = np.full((self.n_pixels,), np.inf, np.float32)
+        self._put("NEUMANN_SDF", np.repeat(vals[:, None], 3, -1))
+
+    def render_source(self):
+        scene = self.problem.scene
+        if scene.source is not None:
+            vals = (scene.source.sample(self.eval_points)
+                    * scene.source_intensity).cpu().numpy()
+        else:
+            vals = np.zeros((self.n_pixels, 3), np.float32)
+        self._put("SOURCE", vals)
 
     def export_image(self, channel: str, file_name: str):
         for ext in (".exr", ".png"):
@@ -136,9 +174,7 @@ class UniformIntegrator(BaseIntegrator):
         duration_ms = int((time.time() - start) * 1000)
         self.sum, self.sum_sq, self.spp = total, total_sq, spp
 
-        film = self.films["SOLUTION"]
-        film.reset()
-        film.put_frame(total.cpu().numpy() / max(spp, 1))
+        self._put("SOLUTION", total.cpu().numpy() / max(spp, 1))
         return duration_ms
 
     def standard_error(self) -> np.ndarray:

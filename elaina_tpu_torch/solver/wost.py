@@ -10,34 +10,43 @@ the stage order of the reference's solve loop:
                   silhouette distance, in 3D over the SilGrid (K9) and
                   clamped to the prim band's completeness cap)
   _boundary_term  Dirichlet shell contribution
-  _neumann_term   Neumann boundary integral, subtracted (2D, dense)
-  _walk           mean-value step, clipped on the Neumann boundary (2D)
+  _source_term    volumetric source: one Green-sampled point in the star,
+                  its radius clipped on the Neumann boundary (3D: K7)
+  _neumann_term   Neumann boundary integral, subtracted (2D dense; the
+                  unfused 3D step: K8 and K7 over the prim band)
+  _walk           mean-value step, clipped on the Neumann boundary (2D
+                  dense; the unfused 3D step: K7)
   _neumann_walk_fused
                   3D: the Neumann term and the walk ray of one step over
-                  the prim band of each lane's cell (K6)
+                  the prim band of each lane's cell (K6); the default,
+                  ``ELAINA_FUSED_BAND=0`` takes the unfused pair instead
 
 Randomness comes from the per-(sample, stage) generators of
 ``utils/rng.py``.  Each step draws, in this order: from "neumann" the
 prim-selection uniforms (N,) and the point uniforms (N, 2); from "walk"
 the sphere uniforms ((N,) in 2D, two (N,) in 3D) and, when the scene has
-a Neumann set, the hemisphere uniforms (the same counts).
+a Neumann set, the hemisphere uniforms (the same counts); from "source",
+with a source, the direction (as "walk" draws it) and then the radius
+uniforms (N, 3).  The fused and the unfused 3D steps draw the same
+numbers, so the two agree lane for lane.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, replace
 
 import torch
 
 from ..core.problem import Scene
 from ..geometry import queries as Q
-from ..geometry.grid import fine_decode
+from ..geometry.grid import fine_decode, grid_closest_point
 from ..geometry.primitives import (prim_project, prim_sample_point,
                                    prim_side)
 from ..ops.resolve import (compact_lanes, fetch_colors, fetch_colors3,
                            sweep_resolve, sweep_resolve_3d)
 from ..utils.mathops import frame_from_normal, geometric_interpolate, to_world
-from .green import green_eval
+from .green import green_eval, green_norm, green_sample_radius
 from .sampling import (sphere_measure, uniform_sample_hemisphere,
                        uniform_sample_hemisphere_pdf, uniform_sample_sphere,
                        uniform_sample_sphere_pdf)
@@ -72,6 +81,12 @@ def _surface_color(dim, colors, gs, pid, side, uv):
     pick = torch.where(side >= 0, 0, 1)
     vals = tuple(colors[gs.indices[p, k], pick] for k in range(dim))
     return geometric_interpolate(dim, vals, uv)
+
+
+def dirichlet_distance(scene: Scene, q):
+    """(distance, prim id) to the Dirichlet boundary through the chain
+    path of its candidate grid (K10 in 2D, K11 in 3D)."""
+    return grid_closest_point(scene.d_grid, q)
 
 
 def _resolve_2d(g, valid, row_c, q_c, eps: float):
@@ -203,15 +218,52 @@ def _sample_direction(gen, state: WalkState, dim: int, has_neumann: bool):
     return direction, pdf, alpha
 
 
+def _source_term(scene: Scene, state: WalkState, live, R_B, gen,
+                 eps: float):
+    """Volumetric source contribution (integrator.cu:234-316): one point
+    at a Green-sampled radius along a sampled direction, counted when the
+    radius stays short of the first Neumann hit from ``pos + eps dir``
+    (3D: over the prim band of pos's cell, K7; 2D: the dense sweep)."""
+    dim = scene.dim
+    n = state.pos.shape[0]
+    direction, dir_pdf, alpha = _sample_direction(
+        gen, state, dim, scene.neumann is not None)
+    dist = R_B
+    if scene.neumann is not None:
+        offset = state.pos + eps * direction
+        if scene.n_bgrid is not None:
+            hit, t, _ = Q.band_ray_intersect(scene.n_bgrid, scene.neumann.gs,
+                                             offset, direction, dist,
+                                             ref=state.pos)
+        else:
+            hit, t, _ = Q.ray_intersect(scene.neumann.gs, offset, direction,
+                                        dist)
+        dist = torch.where(hit, torch.minimum(t, dist), dist)
+    u = torch.rand((n, 3), generator=gen, device=gen.device)
+    r, _ = green_sample_radius(u, R_B, dim)
+    value = scene.source.sample(state.pos + r[:, None] * direction)
+    value = value * scene.source_intensity
+    # the conditional sphere pdf's ratio (integrator.cu:313): the r powers
+    # cancel, leaving uniform-sphere pdf / direction pdf / alpha
+    scale = green_norm(R_B, dim) * (uniform_sample_sphere_pdf(dim)
+                                    / dir_pdf) / alpha
+    contrib = state.thp[:, None] * value * scale[:, None]
+    return torch.where((live & (r <= dist))[:, None], contrib, 0.0)
+
+
 def _neumann_term(scene: Scene, state: WalkState, live, R_B, gen,
                   eps: float):
     """Neumann boundary-integral contribution, subtracted
     (integrator.cu:318-445)."""
     dim = scene.dim
     gs = scene.neumann.gs
+    bg = scene.n_bgrid
     n = state.pos.shape[0]
     u_sel = torch.rand(n, generator=gen, device=gen.device)
-    pid, pdf = Q.sample_in_ball(gs, state.pos, R_B, u_sel)
+    if bg is not None:
+        pid, pdf = Q.band_sample_in_ball(bg, gs, state.pos, R_B, u_sel)
+    else:
+        pid, pdf = Q.sample_in_ball(gs, state.pos, R_B, u_sel)
     valid = (pid >= 0) & (pdf > 0)
 
     u_pt = torch.rand((n, 2), generator=gen, device=gen.device)
@@ -226,7 +278,12 @@ def _neumann_term(scene: Scene, state: WalkState, live, R_B, gen,
     ray = sample_pt - origin
     clamp_dist = torch.linalg.norm(ray, dim=-1)
     ray_dir = ray / torch.clamp(clamp_dist, min=1e-20)[:, None]
-    occluded, _, _ = Q.ray_intersect(gs, origin, ray_dir, clamp_dist - eps)
+    if bg is not None:
+        occluded, _, _ = Q.band_ray_intersect(bg, gs, origin, ray_dir,
+                                              clamp_dist - eps, ref=state.pos)
+    else:
+        occluded, _, _ = Q.ray_intersect(gs, origin, ray_dir,
+                                         clamp_dist - eps)
     valid &= ~occluded
 
     side = prim_side(dim, state.pos, pv)
@@ -257,7 +314,11 @@ def _walk(scene: Scene, state: WalkState, live, R_B, gen, eps: float):
         current = state.pos + torch.where(state.on_neumann[:, None],
                                           eps * state.n_normal, 0.0)
         gs = scene.neumann.gs
-        hit, t, pid = Q.ray_intersect(gs, current, direction, R_B)
+        if scene.n_bgrid is not None:
+            hit, t, pid = Q.band_ray_intersect(scene.n_bgrid, gs, current,
+                                               direction, R_B, ref=state.pos)
+        else:
+            hit, t, pid = Q.ray_intersect(gs, current, direction, R_B)
         n_raw = gs.prim_normal[pid]
         # shading normal opposes the incoming direction (:509-512)
         n_flip = torch.where(
@@ -330,6 +391,15 @@ def _neumann_walk_fused(scene: Scene, state: WalkState, live, R_B, gens,
         n_normal=torch.where(live[:, None], normal, state.n_normal))
 
 
+def fused_band_available(scene: Scene) -> bool:
+    """A 3D Neumann set takes the fused band step (K6) unless
+    ``ELAINA_FUSED_BAND=0`` asks for the unfused K8 + K7 pair, the JAX
+    package's switch for the same A/B."""
+    return (scene.neumann is not None and scene.n_bgrid is not None
+            and scene.dim == 3
+            and os.environ.get("ELAINA_FUSED_BAND", "1") != "0")
+
+
 def wost_depth_step(scene: Scene, state: WalkState, gens: dict,
                     eps: float):
     """One depth iteration for every lane: (state', contrib (N, 3), the
@@ -342,7 +412,9 @@ def wost_depth_step(scene: Scene, state: WalkState, gens: dict,
         contrib += _boundary_term(scene, state, in_shell, bcolor)
     # lanes that terminated (in shell) or have an unbounded star die here
     live = state.active & ~in_shell & torch.isfinite(R_B)
-    if scene.neumann is not None and scene.dim == 3:
+    if scene.source is not None:
+        contrib += _source_term(scene, state, live, R_B, gens["source"], eps)
+    if fused_band_available(scene):
         cn, state = _neumann_walk_fused(scene, state, live, R_B, gens, eps)
         contrib += cn
     else:

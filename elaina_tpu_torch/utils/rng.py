@@ -9,6 +9,8 @@ Philox.  The two frameworks give different numbers from the same seed:
 parity tests feed identical numpy uniforms to both sides instead.
 
 ``ELAINA_SEED=<int>`` sets the run seed (default 0), as in the reference.
+A stage's stream depends on its index in ``STAGES``: new stages go at the
+end, so the streams of the existing ones (and a run's images) stay.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import os
 
 import torch
 
-STAGES = ("neumann", "walk")
+STAGES = ("neumann", "walk", "source")
 _MASK64 = (1 << 64) - 1
 
 

@@ -1,6 +1,7 @@
 """The scenes of ``chip_smoke.py``: a full-scale synthetic 2D scene, the
-repository's 3D configs with their data in the checkout, and the mixed
-Dirichlet/Neumann cube.
+repository's 3D configs with their data in the checkout (as shipped, or
+neumann3d_u with a volumetric source), and the mixed Dirichlet/Neumann
+cube (with or without a unit source).
 
 The reference's own ``u.json`` workload (configs/ladybug_u.json) runs on a
 ~61k-segment Dirichlet drawing that is not in the repository.  This scene
@@ -123,21 +124,62 @@ def write_scene(root: str, spp: int, segments: int = SEGMENTS,
     return path
 
 
+def _data_path(path: str) -> str:
+    return os.path.join(REPO_DIR, "configs", "data", os.path.basename(path))
+
+
 def write_config_copy(root: str, name: str, spp: int) -> str:
-    """``configs/<name>.json`` with its data files in this checkout, the
-    SOLUTION channel and its exports only, ``spp`` samples and outputs
+    """``configs/<name>.json`` as shipped, channels and exports included,
+    with its data files in this checkout, ``spp`` samples and outputs
     under ``root``; returns the copy's path."""
     with open(os.path.join(REPO_DIR, "configs", name + ".json")) as f:
         conf = json.load(f)
     mesh = conf["scene"]["mesh"]
     for key, path in mesh.items():
-        mesh[key] = os.path.join(REPO_DIR, "configs", "data",
-                                 os.path.basename(path))
+        mesh[key] = _data_path(path)
+    if "source_path" in conf["scene"]:
+        conf["scene"]["source_path"] = _data_path(conf["scene"]["source_path"])
     conf["base_path"] = os.path.join(root, "exp") + "/"
-    conf["integrator"]["channels"] = ["SOLUTION"]
     conf["integrator"]["setting"]["samplesPerPixel"] = spp
-    conf["export"] = [e for e in conf["export"] if e["channel"] == "SOLUTION"]
     path = os.path.join(root, name + ".json")
+    with open(path, "w") as f:
+        json.dump(conf, f, indent=2)
+    return path
+
+
+def smooth_source(res: int, lo, hi) -> dict:
+    """A smooth positive RGB field over the box [lo, hi]^3 at res^3
+    voxels, as a dense ``.npz`` source's arrays: data (res, res, res, 3),
+    origin (the first voxel's centre) and voxel_size."""
+    lo = np.asarray(lo, np.float32)
+    hi = np.asarray(hi, np.float32)
+    voxel = (hi - lo) / (res - 1)
+    x, y, z = np.meshgrid(*[lo[d] + voxel[d] * np.arange(res)
+                            for d in range(3)], indexing="ij")
+    data = np.stack([1.0 + 0.5 * np.sin(np.pi * (x + c / 3.0))
+                     * np.cos(0.5 * np.pi * y) * np.cos(0.5 * np.pi * z)
+                     for c in range(3)], axis=-1)
+    return dict(data=data.astype(np.float32), origin=lo, voxel_size=voxel)
+
+
+def write_neumann3d_source(root: str, spp: int, res: int = 64) -> str:
+    """``configs/neumann3d_u.json`` as shipped plus a volumetric source:
+    ``source_path`` (``smooth_source`` at res^3 over the scene box, as
+    ``.npz``) and ``source_intensity`` 1, the reference schema's keys
+    (``configs/ladybug_source.json``), and the SOURCE channel with an
+    image export of it.  Returns the config's path."""
+    path = write_config_copy(root, "neumann3d_u", spp)
+    with open(path) as f:
+        conf = json.load(f)
+    aabb = conf["scene"]["aabb"]
+    src = os.path.join(root, "neumann3d_source.npz")
+    np.savez(src, **smooth_source(res, aabb["min"], aabb["max"]))
+    conf["exp_name"] = "neumann3d_source"
+    conf["scene"].update(source_path=src, source_intensity=1.0)
+    conf["integrator"]["channels"] = ["SOLUTION", "SOURCE"]
+    conf["export"].append({"type": "image", "channel": "SOURCE",
+                           "file_name": "source"})
+    path = os.path.join(root, "neumann3d_source.json")
     with open(path, "w") as f:
         json.dump(conf, f, indent=2)
     return path
@@ -195,3 +237,24 @@ def write_mixed_cube(root: str) -> dict:
             "mesh": {"dirichlet_path": paths["dirichlet"],
                      "vertex_color_dirichlet_path": paths["colors"],
                      "neumann_path": paths["neumann"]}}
+
+
+def write_mixed_cube_source(root: str) -> dict:
+    """The mixed cube of ``write_mixed_cube`` with a unit source over the
+    box: -Laplace u = 1 gives u = (x + 1) / 2 + (1 - x^2) / 2, which still
+    meets the Dirichlet data at x = +-1 and has zero normal derivative on
+    the Neumann faces.  The dense ``.npz`` grid is 1 on the voxels of
+    [-1, 1]^3 (so every sample inside the box is exactly 1) and 0 one
+    voxel beyond: a walk that leaves the box through a Neumann face (a
+    step ending within the rays' 1e-6 of the face, unflagged, can cross
+    it) takes steps as large as its distance to the box, and a source of
+    1 out there would weigh them by R^2 / 6 without bound.  Returns the
+    config's ``scene`` entry."""
+    scene = write_mixed_cube(root)
+    path = os.path.join(root, "cube_source.npz")
+    data = np.zeros((11, 11, 11), np.float32)
+    data[1:-1, 1:-1, 1:-1] = 1.0
+    np.savez(path, data=data, origin=np.full(3, -1.25, np.float32),
+             voxel_size=np.full(3, 0.25, np.float32))
+    scene.update(source_path=path, source_intensity=1.0)
+    return scene

@@ -189,23 +189,25 @@ def test_cli_matches_jax_on_large_set_rows(tmp_path, monkeypatch):
 
 
 def test_unsupported_config_raises(tmp_path):
-    """What the slice does not carry raises, naming the ROADMAP item."""
+    """What the port does not carry raises, naming the ROADMAP item (a
+    mask, the guided integrator); an unknown channel is refused."""
     obj, colors = _write_scene(tmp_path)
     conf = _conf(tmp_path, "x", 1, obj, colors)
     problem = Problem(2, CPU, verbose=False)
-    for key, value in (("source_path", "src.nvdb"), ("mask_path", "m.png")):
-        scene = dict(conf["scene"], **{key: value})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            problem.load_config(scene)
+    scene = dict(conf["scene"], mask_path="m.png")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        problem.load_config(scene)
     with pytest.raises(ValueError):
         Problem(4, CPU)
     from elaina_tpu_torch.exec import run_expr
-    for patch in ({"type": "guided"}, {"channels": ["DIRICHLET_SDF"]}):
+    for patch, err in (({"type": "guided"}, NotImplementedError),
+                       ({"channels": ["NORMALS"]}, ValueError)):
         c = json.loads(json.dumps(conf))
         c["integrator"].update(patch)
         path = tmp_path / "bad.json"
         path.write_text(json.dumps(c))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(err, match="ROADMAP" if err is NotImplementedError
+                           else "channel"):
             run_expr(str(path))
 
 
