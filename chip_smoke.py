@@ -17,6 +17,14 @@ and never prints its last line:
    card, at the 2D main path's shapes: 1024^2 lanes, the synthetic scene's
    candidate rows, lanes whose FinePack need bits fired after a few depth
    steps (K10: every pixel's row through ``grid_row_index``).
+2c. K13, K12 and K9's 2D form against their plain versions: K13 on the
+   1024^2 frame points x bench.py's 2,048 segments, and on a point at a
+   shared vertex (a tie at 0: the smaller index wins); K12 on the same
+   points over a bare candidate grid of that curve (K = 64, no coordinate
+   table) through ``grid_closest_point``, whose launches are K12's path,
+   held to K13's distances (equal on untruncated rows, at most K13's on
+   truncated ones); K9-2D on the lanes of the lobed scene in a wavy
+   Neumann box of 8,192 segments after a few depth steps.
 3. The mixed Dirichlet/Neumann square, u = (x + 1) / 2, through
    ``UniformIntegrator``: 256 walks of depth 64 at three points (64 lanes
    a point, 4 samples), each point within 0.07 of u.
@@ -31,6 +39,26 @@ and never prints its last line:
    NEUMANN_SDF, SOURCE and SOLUTION, through ``run_expr``: K10 must
    launch, the SOURCE film equals a plain bilinear sample of the grid and
    the DIRICHLET_SDF film is finite and >= 0.
+4c. No candidate grid, through ``run_expr``: bench.py's curve cut into 256
+   segments (the largest set ``Problem`` leaves without a grid) in the
+   4-segment box, 1024^2, depth 64, eps 1, 8 spp, SOLUTION and
+   DIRICHLET_SDF: K13 launches on every depth step and the DIRICHLET_SDF
+   film equals K13's plain distance (1e-5); then the scene solved without
+   and with a candidate grid at depth 256, 4 spp, agrees within 4 combined
+   standard errors on >= 99% of the pixel channels.
+4d. bench.py's own scene as bench builds it (2,048 segments, no grid, no
+   Neumann set) through ``UniformIntegrator``, 1024^2, depth 64, eps 1,
+   4 spp: K13 launches on every step and the film is finite.
+4e. A 2D Neumann set of 2,048 segments (the lobed scene in the wavy box)
+   through ``run_expr``, 256^2, depth 64, 4 spp: the dense silhouette and
+   the chunked ray and in-ball sweeps, a finite film; the same scene with
+   its 2D SilGrid and prim-band grid given explicitly agrees with the
+   chunked sweeps (16 spp each, 4 combined standard errors, >= 99%).
+4f. The wavy box of 8,192 segments through ``run_expr`` (its SilGrid and
+   prim-band grid built), 1024^2, depth 64, eps 1, 8 spp: K9-2D launches
+   on every step; on warmed lanes the SilGrid's R_N is at most the dense
+   silhouette distance and equal to it (1e-5) wherever that lies below
+   the cell's r_cap.
 5. 3D kernels K1, K4, K5, K6, K7, K8, K9 and K11 against their plain
    versions, at the 3D main path's shapes: the neumann3d scene
    (768-triangle Dirichlet cube, 20,480-triangle Neumann blob) loaded with
@@ -98,6 +126,10 @@ SOURCE_CUBE_DEPTH = 128      # the source cube's depth (phase 6b): a walk
 #                              that crosses a Neumann face drifts away
 #                              geometrically, and past depth ~240 its
 #                              R^2 / 6 source weight overflows to inf
+NOGRID_SPP = 8               # samples of the no-grid run (phase 4c)
+ROUTE_DEPTH = 256            # depth of the grid / no-grid comparison (4c)
+AGREE_SPP = 16               # samples a side of the chunked / band check (4e)
+WAVY_SPP = 8                 # samples of the wavy box of 8,192 segments (4f)
 WARM_STEPS = 3               # depth steps before the kernel phases take lanes
 TIMED_RUNS = 20              # CUDA-event runs per timing (median kept)
 TOL = 1e-5                   # rtol and atol of distances; ids and colors exact
@@ -119,6 +151,11 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
     "sil_band": (QUERIES_SOURCE, "elaina_tpu/ops/pallas_queries.py:622"),
     "grid_band_2d": (RESOLVE_SOURCE, "elaina_tpu/ops/pallas_queries.py:136"),
     "grid_band_3d": (RESOLVE_SOURCE, "elaina_tpu/ops/pallas_queries.py:316"),
+    "sil_band_2d": (QUERIES_SOURCE, "elaina_tpu/ops/pallas_queries.py:622"),
+    "candidate_band": (QUERIES_SOURCE,
+                       "elaina_tpu/ops/pallas_queries.py:499"),
+    "closest_point_dense": (QUERIES_SOURCE,
+                            "elaina_tpu/ops/pallas_queries.py:421"),
 }
 MAIN_2D = ("compact_lanes", "sweep_resolve", "fetch_colors")
 MAIN_3D = ("compact_lanes", "sweep_resolve_3d", "fetch_colors3",
@@ -127,7 +164,8 @@ MAIN_3D = ("compact_lanes", "sweep_resolve_3d", "fetch_colors3",
 PATH_OF = {**{k: "lobed_u" for k in MAIN_2D},
            **{k: "neumann3d_u" for k in MAIN_3D},
            "grid_band_2d": "channels_2d", "band_ray": "neumann3d_source",
-           "band_ball": "neumann3d_unfused"}
+           "band_ball": "neumann3d_unfused", "sil_band_2d": "wavy8192_u",
+           "candidate_band": "bare_grid", "closest_point_dense": "nogrid_u"}
 CDF_FLIPS = 0.005            # K6 / K8 CDF slot flips allowed, share of lanes
 
 
@@ -482,6 +520,169 @@ def phase_kernels(conf_path: str, device, kernels: Kernels) -> None:
                     kernels, "the 1024^2 pixels")
 
 
+def check_exact(name: str, d, d_p, ids, ids_p) -> float:
+    """Finite distances within TOL of the plain version's (inf where it is
+    inf), ids or slots exactly equal; returns the largest difference."""
+    import torch
+
+    fin = torch.isfinite(d_p)
+    if not torch.equal(torch.isfinite(d), fin):
+        raise RuntimeError(f"{name}: inf / finite differ")
+    err = float((d[fin] - d_p[fin]).abs().max())
+    if not torch.allclose(d[fin], d_p[fin], rtol=TOL, atol=TOL):
+        raise RuntimeError(f"{name} distances differ: {err}")
+    if not torch.equal(ids, ids_p):
+        raise RuntimeError(f"{name}: {int((ids != ids_p).sum())} ids differ")
+    return err
+
+
+def load_scene(conf_path: str, device):
+    """Problem and UniformIntegrator of a config, through the loader."""
+    import torch
+
+    from elaina_tpu_torch.core.config import ExperimentConfig
+    from elaina_tpu_torch.core.problem import Problem
+    from elaina_tpu_torch.solver.integrator import UniformIntegrator
+
+    cfg = ExperimentConfig.from_file(conf_path)
+    problem = Problem(cfg.dimensionality, device, verbose=False).load_config(
+        cfg.scene, cache_dir=os.environ["ELAINA_CACHE_DIR"])
+    integ = UniformIntegrator(problem, cfg.settings, "unused")
+    torch.cuda.synchronize()
+    return problem, integ
+
+
+def phase_kernels_2c(conf_2d: str, conf_wavy: str, device,
+                     kernels: Kernels) -> dict:
+    """[2c] K13 and K12 on the frame points over bench.py's curve, K9-2D on
+    the wavy box's warmed lanes; returns the launches of the bare-grid
+    ``grid_closest_point`` call (K12's path)."""
+    import torch
+
+    from elaina_tpu_torch.core.problem import grid_bounds
+    from elaina_tpu_torch.geometry import queries as Q
+    from elaina_tpu_torch.geometry.grid import (build_candidate_grid,
+                                                grid_closest_point,
+                                                grid_from_numpy,
+                                                grid_row_index)
+    from elaina_tpu_torch.ops import queries as QK
+    from elaina_tpu_torch.utils import scenes as S
+
+    log("[2c] K13, K12 and K9-2D")
+    q = torch.as_tensor(frame_points(conf_2d), device=device).contiguous()
+    n = q.shape[0]
+    verts, idx, colors = S.bench_square_scene()
+    a = torch.as_tensor(verts[idx[:, 0]], device=device)
+    b = torch.as_tensor(verts[idx[:, 1]], device=device)
+    P = a.shape[0]
+
+    # K13: every frame point against every segment of bench.py's curve
+    d13, pid = QK.closest_point_dense(q, a, b)
+    d_p, pid_p = QK.closest_point_dense_plain(q, a, b)
+    err = check_exact("closest_point_dense", d13, d_p, pid, pid_p)
+    # vertex 5 ends segment 4 and starts segment 5: d = 0 for both
+    dv, pv = QK.closest_point_dense(torch.as_tensor(verts[5:6], device=device),
+                                    a, b)
+    log(f"    closest_point_dense: {n} points x {P} segments, ids equal to "
+        f"the plain version's; at the shared vertex 5: distance "
+        f"{float(dv[0])}, segment {int(pv[0])} (want 0, 4)")
+    if float(dv[0]) != 0.0 or int(pv[0]) != 4:
+        raise RuntimeError("closest_point_dense broke the tie at a vertex")
+    kernels.add("closest_point_dense", err,
+                lambda: QK.closest_point_dense(q, a, b),
+                lambda: QK.closest_point_dense_plain(q, a, b), None,
+                n * 8 + P * 16 + n * 8, 14.0 * n * P)
+
+    # K12: a bare candidate grid of the same curve, through the chain path
+    lo, hi = grid_bounds(verts, [-100, -100], [600, 600])
+    t0 = time.time()
+    ga = build_candidate_grid(verts, idx, lo, hi, K=64, max_res=2048,
+                              cache_dir=os.environ["ELAINA_CACHE_DIR"])
+    bare = grid_from_numpy(**{k: getattr(ga, k) for k in (
+        "cand", "meta", "row_lbound", "row_diag", "row_trunc", "origin",
+        "inv_cell", "res")}, verts=verts, indices=idx, colors=colors,
+        device=device)
+    if bare.coords is not None:
+        raise RuntimeError("the bare grid has a coordinate table")
+    log(f"    bare candidate grid: res {ga.res}, {len(ga.meta)} levels, "
+        f"{ga.cand.shape[0]} rows of K = 64, coverage {ga.coverage:.4f}, "
+        f"{int(ga.row_trunc.sum())} truncated rows, built in "
+        f"{time.time() - t0:.1f} s")
+    reset_counts()
+    d12, _ = grid_closest_point(bare, q)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if not launches["candidate_band"]:
+        raise RuntimeError(f"the bare grid did not launch K12: {launches}")
+    row = grid_row_index(bare, q)
+    tr = bare.row_trunc[row.long()]
+    same = torch.isclose(d12, d13, rtol=TOL, atol=TOL)
+    below = d12 <= d13 * (1 + TOL) + TOL
+    log(f"    grid_closest_point on the bare grid: {int(tr.sum())} of {n} "
+        f"points in truncated rows (at most K13's distance there: "
+        f"{bool(below[tr].all())}), the rest equal to K13's (1e-5): "
+        f"{bool(same[~tr].all())}; {launches['candidate_band']} K12 "
+        f"launches")
+    if not (same[~tr].all() and below[tr].all()):
+        raise RuntimeError("the bare chain path disagrees with K13")
+
+    # K12 alone on every point's gathered row, as _bare_rows hands it over
+    def gather():
+        cand = bare.cand[row.long()]
+        safe = cand.clamp(min=0).long()
+        ends = [bare.verts[bare.indices[:, k][safe]] for k in (0, 1)]
+        return (tuple(e[..., c].contiguous() for e in ends for c in (0, 1))
+                + (cand >= 0,))
+
+    *planes, valid = gather()
+    dk, sk = QK.candidate_band(q, *planes, valid)
+    dk_p, sk_p = QK.candidate_band_plain(q, *planes, valid)
+    err = check_exact("candidate_band", dk, dk_p, sk, sk_p)
+    Kw = valid.shape[1]
+    n_valid = int(valid.sum())
+    gather_ms = cuda_ms(gather, runs=5)
+    path_ms = cuda_ms(lambda: grid_closest_point(bare, q), runs=5)
+    log(f"    candidate_band: {n} lanes x K = {Kw}, {n_valid} valid slots; "
+        f"the gather that feeds it {gather_ms:.4f} ms, grid_closest_point "
+        f"in all {path_ms:.4f} ms ({kernels.card})")
+    kernels.add("candidate_band", err,
+                lambda: QK.candidate_band(q, *planes, valid),
+                lambda: QK.candidate_band_plain(q, *planes, valid), None,
+                n * 8 + n * Kw + n_valid * 16 + n * 8, 14.0 * n_valid)
+    del planes, valid
+
+    # K9-2D on the wavy box's lanes after a few depth steps
+    t0 = time.time()
+    problem, integ = load_scene(conf_wavy, device)
+    log(f"    wavy box of 8,192 segments loaded in {time.time() - t0:.1f} s: "
+        f"{problem.stats['neumann_sil_grid']}; "
+        f"{problem.stats['neumann_band_grid']}")
+    sg = problem.scene.n_sgrid
+    state = warm_state(problem, integ, S.EPS)
+    lin, outside = Q.band_cell(sg, state.pos)
+    cell = torch.where(outside, -1, lin).to(torch.int32)
+    q2 = state.pos.contiguous()
+    d2 = QK.sil_band_2d(cell, q2, sg.coords)
+    d2_p = QK.sil_band_2d_plain(cell, q2, sg.coords)
+    fin = torch.isfinite(d2_p)
+    if not torch.equal(torch.isfinite(d2), fin):
+        raise RuntimeError("sil_band_2d: found / none differ")
+    err = float((d2[fin] - d2_p[fin]).abs().max())
+    if not torch.allclose(d2[fin], d2_p[fin], rtol=TOL, atol=0.0):
+        raise RuntimeError(f"sil_band_2d differs: {err}")
+    n2 = cell.shape[0]
+    n_in = int((cell >= 0).sum())
+    sKp = sg.coords.shape[2]
+    log(f"    sil_band_2d: {n_in} of {n2} lanes in the grid "
+        f"({int(state.active.sum())} live), {int((d2 < 1e17).sum())} with a "
+        f"silhouette in their row")
+    kernels.add("sil_band_2d", err, lambda: QK.sil_band_2d(cell, q2, sg.coords),
+                lambda: QK.sil_band_2d_plain(cell, q2, sg.coords), None,
+                n2 * (4 + 8 + 4) + n_unique(cell[cell >= 0]) * 6 * sKp * 4,
+                12.0 * n_in * sKp)
+    return launches
+
+
 def square_side(sides, n_per_side=6):
     corners = np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]], np.float32)
     verts, idx = [], []
@@ -681,6 +882,222 @@ def phase_channels_2d(root: str, card: str) -> dict:
         f"{len(nsdf)} pixels (every pixel lies inside the convex box)")
     if not np.isinf(nsdf).all():
         raise RuntimeError("a box corner was a silhouette from inside")
+    return launches
+
+
+def within_se(a, b) -> float:
+    """The share of pixel channels where two integrators' means agree
+    within 4 combined standard errors."""
+    ma, mb = ((i.sum / i.spp).cpu().numpy() for i in (a, b))
+    se = np.sqrt(a.standard_error() ** 2 + b.standard_error() ** 2)
+    return float((np.abs(ma - mb) <= 4.0 * se + 1e-6).mean())
+
+
+def solve_settings(integ, spp: int, depth: int):
+    from elaina_tpu_torch.core.config import IntegratorSettings
+
+    s = integ.settings
+    return IntegratorSettings(frameSize=tuple(s.frameSize),
+                              samplesPerPixel=spp, maxWalkingDepth=depth,
+                              epsilonShell=s.epsilonShell)
+
+
+def solve_report(integ, label: str, card: str) -> None:
+    """Solve and print walk-steps/s and the capped share."""
+    ms = integ.solve()
+    walks = integ.n_pixels * integ.spp
+    log(f"    {label}: {integ.spp} spp, depth "
+        f"{integ.settings.maxWalkingDepth}, {ms} ms, "
+        f"{integ.total_walk_steps / (ms / 1e3):.6g} walk-steps/s, "
+        f"depth-capped share {integ.total_capped / walks:.4f} ({card})")
+
+
+def phase_nogrid(root: str, device, card: str) -> dict:
+    """[4c] bench.py's curve at 256 segments without a grid, through
+    run_expr; then its two routes against each other."""
+    import torch
+
+    from elaina_tpu_torch.core.problem import (grid_bounds, grid_size_for,
+                                               scene_from_numpy)
+    from elaina_tpu_torch.geometry.grid import build_candidate_grid
+    from elaina_tpu_torch.ops import queries as QK
+    from elaina_tpu_torch.solver.integrator import UniformIntegrator
+    from elaina_tpu_torch.utils import scenes as S
+
+    sub = os.path.join(root, "nogrid")
+    os.makedirs(sub)
+    path = S.write_scene(sub, NOGRID_SPP, segments=256)
+    with open(path) as f:
+        conf = json.load(f)
+    conf["exp_name"] = "nogrid_u"
+    conf["integrator"]["channels"] = ["SOLUTION", "DIRICHLET_SDF"]
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    log("[4c] no candidate grid: bench.py's curve at 256 segments")
+    launches, _, integ = run_main(path, ("closest_point_dense",), "nogrid_u",
+                                  card)
+    problem = integ.problem
+    scene = problem.scene
+    steps = NOGRID_SPP * S.DEPTH
+    log(f"    {problem.stats['dirichlet_grid']}; K13 launches "
+        f"{launches['closest_point_dense']} for {steps} depth steps and one "
+        f"DIRICHLET_SDF render")
+    if scene.d_grid is not None or launches["closest_point_dense"] < steps:
+        raise RuntimeError("the no-grid scene did not take K13 every step")
+    m_in, _, m_out, _ = check_solution(path)
+    gs = scene.dirichlet.gs
+    want, _ = QK.closest_point_dense_plain(
+        integ.eval_points, gs.verts[gs.indices[:, 0]].contiguous(),
+        gs.verts[gs.indices[:, 1]].contiguous())
+    sdf = torch.as_tensor(integ.films["DIRICHLET_SDF"].pixels()[..., 0]
+                          .reshape(-1), device=device)
+    err = float((sdf - want).abs().max())
+    log(f"    mean |u| inside {m_in:.4f}, in the Neumann region {m_out:.4f}; "
+        f"DIRICHLET_SDF against K13's plain distance: max error {err:.3g}")
+    if not torch.allclose(sdf, want, rtol=TOL, atol=TOL):
+        raise RuntimeError("the no-grid DIRICHLET_SDF film")
+
+    # the same scene with a candidate grid, both at ROUTE_DEPTH
+    settings = solve_settings(integ, 4, ROUTE_DEPTH)
+    del integ
+    plain = UniformIntegrator(problem, settings, "unused")
+    solve_report(plain, "no grid (K13)", card)
+    v, idx = gs.verts.cpu().numpy(), gs.indices.cpu().numpy()
+    nb = scene.neumann.gs
+    lo, hi = grid_bounds(v, scene.aabb_lo, scene.aabb_hi)
+    K, max_res = grid_size_for(len(idx))
+    ga = build_candidate_grid(v, idx, lo, hi, K=K, max_res=max_res)
+    problem.scene = scene_from_numpy(
+        aabb_lo=scene.aabb_lo, aabb_hi=scene.aabb_hi, device=device,
+        dirichlet=(v, idx, scene.dirichlet.colors.cpu().numpy()),
+        neumann=(nb.verts.cpu().numpy(), nb.indices.cpu().numpy(),
+                 scene.neumann.colors.cpu().numpy()), grid=vars(ga))
+    gridded = UniformIntegrator(problem, settings, "unused")
+    solve_report(gridded, f"candidate grid (K = {K})", card)
+    share = within_se(plain, gridded)
+    log(f"    no grid vs candidate grid: within 4 combined standard errors "
+        f"on {share:.5f} of the pixel channels (>= 0.99)")
+    if share < 0.99:
+        raise RuntimeError("the grid and no-grid routes disagree")
+    return launches
+
+
+def phase_bench_square(device, card: str) -> None:
+    """[4d] bench.py's own scene, as bench builds it."""
+    import torch
+
+    from elaina_tpu_torch.core.config import IntegratorSettings
+    from elaina_tpu_torch.core.evaluation_grid import EvaluationGrid
+    from elaina_tpu_torch.core.problem import Problem, scene_from_numpy
+    from elaina_tpu_torch.solver.integrator import UniformIntegrator
+    from elaina_tpu_torch.utils import scenes as S
+
+    verts, idx, colors = S.bench_square_scene()
+    problem = Problem(2, device, verbose=False)
+    problem.probe = EvaluationGrid.from_json(
+        {"mData": {"pos": list(S.CENTER), "scale": 250, "up": [-1.0, 0.0]}},
+        2)
+    problem.scene = scene_from_numpy(
+        aabb_lo=[-100, -100], aabb_hi=[600, 600], device=device,
+        dirichlet=(verts, idx, colors))
+    settings = IntegratorSettings(frameSize=(S.FRAME, S.FRAME),
+                                  samplesPerPixel=4, maxWalkingDepth=S.DEPTH,
+                                  epsilonShell=S.EPS)
+    log("[4d] bench.py's scene: 2,048 segments, no grid, no Neumann set")
+    reset_counts()
+    integ = UniformIntegrator(problem, settings, "unused")
+    solve_report(integ, "bench square", card)
+    torch.cuda.synchronize()
+    n_k13 = read_counts()["closest_point_dense"]
+    film = integ.films["SOLUTION"].pixels()
+    log(f"    K13 launches {n_k13} for {4 * S.DEPTH} depth steps; film mean "
+        f"{float(film.mean()):.5f}")
+    if n_k13 < 4 * S.DEPTH or not np.isfinite(film).all():
+        raise RuntimeError("bench.py's scene")
+
+
+def phase_neumann2d_chunked(root: str, device, card: str) -> None:
+    """[4e] The wavy box of 2,048 segments: the chunked sweeps through
+    run_expr, then against the 2D band grids."""
+    from dataclasses import replace
+
+    from elaina_tpu_torch.geometry.grid import (band_grid_from_numpy,
+                                                sil_grid_from_numpy)
+    from elaina_tpu_torch.solver.integrator import UniformIntegrator
+    from elaina_tpu_torch.utils import scenes as S
+
+    sub = os.path.join(root, "wavy2048")
+    os.makedirs(sub)
+    path = S.write_scene(sub, 4, frame=256, neumann_segments=2048)
+    with open(path) as f:
+        conf = json.load(f)
+    conf["exp_name"] = "wavy2048_u"
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    log("[4e] 2D Neumann set of 2,048 segments: the chunked sweeps")
+    _, _, integ = run_main(path, MAIN_2D, "wavy2048_u", card)
+    read_solution(path)
+    problem = integ.problem
+    scene = problem.scene
+    if scene.n_sgrid is not None or scene.n_bgrid is not None:
+        raise RuntimeError("a 2,048-segment Neumann set built band grids")
+    settings = solve_settings(integ, AGREE_SPP, S.DEPTH)
+    del integ
+    chunked = UniformIntegrator(problem, settings, "unused")
+    solve_report(chunked, "chunked sweeps", card)
+    gs = scene.neumann.gs
+    nv, ni = gs.verts.cpu().numpy(), gs.indices.cpu().numpy()
+    sgrid, bgrid = problem.neumann_grids(
+        nv, ni, np.asarray(conf["scene"]["aabb"]["min"], np.float32),
+        np.asarray(conf["scene"]["aabb"]["max"], np.float32),
+        os.environ["ELAINA_CACHE_DIR"], every=True)
+    problem.scene = replace(
+        scene, n_sgrid=sil_grid_from_numpy(sgrid, gs, device),
+        n_bgrid=band_grid_from_numpy(bgrid, nv, ni, device))
+    reset_counts()
+    banded = UniformIntegrator(problem, settings, "unused")
+    solve_report(banded, "2D band grids", card)
+    if not read_counts()["sil_band_2d"]:
+        raise RuntimeError("the band route did not launch K9-2D")
+    share = within_se(chunked, banded)
+    log(f"    chunked vs band grids: within 4 combined standard errors on "
+        f"{share:.5f} of the pixel channels (>= 0.99)")
+    if share < 0.99:
+        raise RuntimeError("the chunked and band routes disagree")
+
+
+def phase_neumann2d_band(path: str, card: str) -> dict:
+    """[4f] The wavy box of 8,192 segments through run_expr."""
+    import torch
+
+    from elaina_tpu_torch.geometry import queries as Q
+    from elaina_tpu_torch.utils import scenes as S
+
+    log("[4f] 2D Neumann set of 8,192 segments: the 2D band grids")
+    launches, _, integ = run_main(path, MAIN_2D + ("sil_band_2d",),
+                                  "wavy8192_u", card)
+    read_solution(path)
+    problem = integ.problem
+    for key in ("neumann_sil_grid", "neumann_band_grid"):
+        log(f"    build {key}: {problem.stats[key]}")
+    steps = WAVY_SPP * S.DEPTH
+    if launches["sil_band_2d"] < steps:
+        raise RuntimeError(f"K9-2D launched {launches['sil_band_2d']} times "
+                           f"in {steps} depth steps")
+    sg = problem.scene.n_sgrid
+    pos = warm_state(problem, integ, S.EPS).pos
+    r_grid = Q.grid_closest_silhouette(sg, pos)
+    dense = Q.closest_silhouette(problem.scene.neumann.gs, pos)
+    lin, outside = Q.band_cell(sg, pos)
+    tight = ~outside & (dense < sg.r_cap[lin])
+    lower = bool((r_grid <= dense * (1 + TOL) + TOL).all())
+    exact = bool(torch.isclose(r_grid[tight], dense[tight], rtol=TOL,
+                               atol=TOL).all())
+    log(f"    SilGrid R_N on {pos.shape[0]} warmed lanes: at most the dense "
+        f"distance {lower}; equal (1e-5) on the {int(tight.sum())} lanes "
+        f"below their cell's r_cap {exact}")
+    if not (lower and exact and tight.any()):
+        raise RuntimeError("the 2D SilGrid's R_N")
     return launches
 
 
@@ -1125,9 +1542,23 @@ def main() -> int:
         conf_2d = scenes.write_scene(root, SPP)
         phase_kernels(conf_2d, device, kernels)
         torch.cuda.empty_cache()
+        wavy = os.path.join(root, "wavy8192")
+        os.makedirs(wavy)
+        conf_wavy = scenes.write_scene(wavy, WAVY_SPP, neumann_segments=8192)
+        runs["bare_grid"] = phase_kernels_2c(conf_2d, conf_wavy, device,
+                                             kernels)
+        torch.cuda.empty_cache()
         phase_analytic(device, card)
         runs["lobed_u"] = phase_main(conf_2d, card)
         runs["channels_2d"] = phase_channels_2d(root, card)
+        torch.cuda.empty_cache()
+        runs["nogrid_u"] = phase_nogrid(root, device, card)
+        torch.cuda.empty_cache()
+        phase_bench_square(device, card)
+        torch.cuda.empty_cache()
+        phase_neumann2d_chunked(root, device, card)
+        torch.cuda.empty_cache()
+        runs["wavy8192_u"] = phase_neumann2d_band(conf_wavy, card)
         torch.cuda.empty_cache()
         conf_3d = scenes.write_config_copy(root, "neumann3d_u", SPP_3D)
         phase_kernels_3d(conf_3d, device, kernels)

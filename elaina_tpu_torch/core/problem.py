@@ -2,19 +2,23 @@
 
 Port of ``elaina_tpu/core/problem.py`` for uniform WoSt in 2D and 3D: OBJ
 Dirichlet and Neumann boundaries with two-sided vertex colors, the
-evaluation grid, the Dirichlet candidate grid (always built; the port has
-no BVH query), and for a 3D Neumann set its silhouette and prim-band
-grids (always built, on the reference's bounds: the port has no dense or
-BVH 3D query, and both grids give valid star radii at any set size), and
-the volumetric source (``source_path``: a dense ``.npy`` / ``.npz`` array
-or a NanoVDB ``.nvdb`` grid, sampled trilinearly).  A 2D Neumann set
-takes the dense sweeps.  The scene's tensors live on the device passed
-in; the solver works wherever they are.
+evaluation grid, the Dirichlet candidate grid with its coordinate table
+(built above ``GRID_ACCEL_MIN_PRIMS`` prims, as the reference builds it on
+an accelerator; a smaller set takes ``geometry/queries.closest_point``),
+the silhouette and prim-band grids of a Neumann set (on the reference's
+bounds: in 3D always, since the port has no dense or BVH 3D query and
+both grids give valid star radii at any set size; in 2D, as the
+reference, the silhouette grid above ``CHUNKED_DENSE_MAX`` entities and
+the prim-band grid above ``CHUNKED_DENSE_MAX`` prims, the dense and
+chunked sweeps below), and the volumetric source (``source_path``: a
+dense ``.npy`` / ``.npz`` array or a NanoVDB ``.nvdb`` grid, sampled
+trilinearly).  The scene's tensors live on the device passed in; the
+solver works wherever they are.
 
-Every set takes the same grid and resolve: a 512-cell level 0 in 2D (64
-in 3D), and the FinePack's need bit chooses the lanes that the kernels
-resolve exactly.  Rows are as wide as the set when it has fewer than
-K = 256 prims, since a row never holds more; the band grids' rows
+Every set with a grid takes the same grid and resolve: a 512-cell level 0
+in 2D (64 in 3D), and the FinePack's need bit chooses the lanes that the
+kernels resolve exactly.  Rows are as wide as the set when it has fewer
+than K = 256 prims, since a row never holds more; the band grids' rows
 likewise (K = 64 otherwise, the reference's).  In 2D a 64-cell level 0
 for small sets was tried and is wrong at depth 64: its one-level
 FinePack is as coarse as the cells, so its bound falls a cell diagonal
@@ -37,12 +41,13 @@ import numpy as np
 import torch
 
 from ..geometry.geomset import GeomSet, make_geom_set
-from ..geometry.grid import (BandGrid, CandidateGrid, band_grid_from_numpy,
-                             build_candidate_grid, build_prim_band_grid,
-                             build_silhouette_grid, fine_pack_from_numpy,
-                             grid_from_numpy, padded_k, sil_grid_from_numpy)
+from ..geometry.grid import (BandGrid, CandidateGrid, attach_coords,
+                             band_grid_from_numpy, build_candidate_grid,
+                             build_prim_band_grid, build_silhouette_grid,
+                             fine_pack_from_numpy, grid_from_numpy, padded_k,
+                             sil_grid_from_numpy)
 from ..geometry.native import load_obj_native, silhouette_entities_native
-from ..geometry.queries import check_dense
+from ..geometry.queries import CHUNKED_DENSE_MAX
 from .config import json_get_optional, json_get_or_throw, load_json_file
 from .evaluation_grid import EvaluationGrid
 from .logger import log_info, log_success, log_warning
@@ -51,6 +56,8 @@ from .nanovdb import read_nvdb
 GRID_K = 256
 BAND_K = 64
 GRID_MAX_RES = 2048
+GRID_ACCEL_MIN_PRIMS = 256   # a Dirichlet set of at most this many prims
+#                              has no candidate grid (the reference's)
 
 
 @dataclass
@@ -152,8 +159,8 @@ class Scene:
     dim: int = 2
     dirichlet_intensity: float = 1.0
     neumann_intensity: float = 1.0
-    n_sgrid: Optional[BandGrid] = None   # 3D Neumann: silhouette grid
-    n_bgrid: Optional[BandGrid] = None   # 3D Neumann: prim-band grid
+    n_sgrid: Optional[BandGrid] = None   # Neumann: silhouette grid
+    n_bgrid: Optional[BandGrid] = None   # Neumann: prim-band grid
     source: Optional[SourceGrid] = None  # volumetric source term
     source_intensity: float = 1.0
 
@@ -198,37 +205,37 @@ def scene_from_numpy(*, aabb_lo, aabb_hi, device: torch.device,
     """The port's Scene from numpy arrays.
 
     ``dirichlet`` / ``neumann``: (verts (V, D), indices (P, D), colors
-    (V, 2, 3)), segments in 2D and triangles in 3D.  ``grid``: a mapping
-    with the candidate-grid arrays (cand, meta, row_lbound, row_diag,
-    row_trunc, origin, inv_cell, res), required with a Dirichlet set.
-    ``fine`` (optional): the FinePack arrays (packed, origin, inv_cell, r0,
-    res, s, eps); without it the integrator bakes one for its eps.
-    ``sgrid`` / ``bgrid``: mappings with the fields of ``BandArrays`` for
-    the silhouette and prim-band grids, required with a 3D Neumann set.
-    ``source`` (optional): a ``SourceGrid``.
+    (V, 2, 3)), segments in 2D and triangles in 3D.  ``grid`` (optional):
+    a mapping with the candidate-grid arrays (cand, meta, row_lbound,
+    row_diag, row_trunc, origin, inv_cell, res); the scene's grid carries
+    its coordinate table.  Without it the Dirichlet set takes
+    ``closest_point``.  ``fine`` (optional): the FinePack arrays (packed,
+    origin, inv_cell, r0, res, s, eps); without it the integrator bakes
+    one for its eps.  ``sgrid`` / ``bgrid``: mappings with the fields of
+    ``BandArrays`` for the silhouette and prim-band grids, required with a
+    3D Neumann set and optional with a 2D one (each replaces its dense or
+    chunked sweeps).  ``source`` (optional): a ``SourceGrid``.
     """
     d_grid = None
-    if dirichlet is not None:
-        if grid is None:
-            raise ValueError("a Dirichlet set needs its candidate grid")
+    if dirichlet is not None and grid is not None:
         v, idx, col = dirichlet
         keys = ("cand", "meta", "row_lbound", "row_diag", "row_trunc",
                 "origin", "inv_cell", "res")
-        d_grid = grid_from_numpy(**{k: grid[k] for k in keys}, verts=v,
-                                 indices=idx, colors=col, device=device)
+        d_grid = attach_coords(grid_from_numpy(
+            **{k: grid[k] for k in keys}, verts=v, indices=idx, colors=col,
+            device=device))
         if fine is not None:
             d_grid.fine = fine_pack_from_numpy(**fine, device=device)
     n_bound = _boundary(*neumann, device) if neumann is not None else None
     aabb_lo = np.asarray(aabb_lo, np.float32)
-    n_sgrid = n_bgrid = None
-    if n_bound is not None and n_bound.gs.dim == 3:
-        if sgrid is None or bgrid is None:
-            raise ValueError("a 3D Neumann set needs its silhouette and "
-                             "prim-band grids")
-        n_sgrid = sil_grid_from_numpy(sgrid, n_bound.gs, device)
-        n_bgrid = band_grid_from_numpy(bgrid, neumann[0], neumann[1], device)
-    elif n_bound is not None:
-        check_dense(n_bound.gs)
+    if (n_bound is not None and n_bound.gs.dim == 3
+            and (sgrid is None or bgrid is None)):
+        raise ValueError("a 3D Neumann set needs its silhouette and "
+                         "prim-band grids")
+    n_sgrid = (sil_grid_from_numpy(sgrid, n_bound.gs, device)
+               if n_bound is not None and sgrid is not None else None)
+    n_bgrid = (band_grid_from_numpy(bgrid, neumann[0], neumann[1], device)
+               if n_bound is not None and bgrid is not None else None)
     return Scene(
         dirichlet=(_boundary(*dirichlet, device)
                    if dirichlet is not None else None),
@@ -306,19 +313,26 @@ class Problem:
             colors = load_colors(resolve(json_get_optional(
                 mesh, "vertex_color_dirichlet_path")), v.shape[0])
             dirichlet = (v, idx, colors)
-            K, max_res = grid_size_for(idx.shape[0])
-            lo, hi = grid_bounds(v, aabb_min, aabb_max)
-            t0 = time.time()
-            ga = build_candidate_grid(v, idx, lo, hi, K=K, max_res=max_res,
-                                      cache_dir=cache_dir)
-            grid = vars(ga)
             self.stats["dirichlet_vertices"] = v.shape[0]
             self.stats["dirichlet_primitives"] = idx.shape[0]
-            self.stats["dirichlet_grid"] = (
-                f"res={ga.res} levels={len(ga.meta)} rows={ga.cand.shape[0]} "
-                f"K={K} coverage={ga.coverage:.0%} "
-                f"truncated={int(ga.row_trunc.sum())} "
-                f"built_s={time.time() - t0:.1f}")
+            if idx.shape[0] > GRID_ACCEL_MIN_PRIMS:
+                K, max_res = grid_size_for(idx.shape[0])
+                lo, hi = grid_bounds(v, aabb_min, aabb_max)
+                t0 = time.time()
+                ga = build_candidate_grid(v, idx, lo, hi, K=K,
+                                          max_res=max_res,
+                                          cache_dir=cache_dir)
+                grid = vars(ga)
+                self.stats["dirichlet_grid"] = (
+                    f"res={ga.res} levels={len(ga.meta)} "
+                    f"rows={ga.cand.shape[0]} K={K} "
+                    f"coverage={ga.coverage:.0%} "
+                    f"truncated={int(ga.row_trunc.sum())} "
+                    f"built_s={time.time() - t0:.1f}")
+            else:
+                self.stats["dirichlet_grid"] = (
+                    f"none (at most {GRID_ACCEL_MIN_PRIMS} prims: the dense "
+                    f"sweep)")
         if json_get_optional(mesh, "neumann_path"):
             v, idx = load_obj_native(resolve(mesh["neumann_path"]), self.dim)
             colors = load_colors(resolve(json_get_optional(
@@ -326,9 +340,8 @@ class Problem:
             neumann = (v, idx, colors)
             self.stats["neumann_vertices"] = v.shape[0]
             self.stats["neumann_primitives"] = idx.shape[0]
-            if self.dim == 3:
-                sgrid, bgrid = self._neumann_grids(v, idx, aabb_min,
-                                                   aabb_max, cache_dir)
+            sgrid, bgrid = self.neumann_grids(v, idx, aabb_min, aabb_max,
+                                              cache_dir)
 
         source = None
         if json_get_optional(conf, "source_path"):
@@ -352,34 +365,45 @@ class Problem:
                 log_info("  %s = %s", k, v)
         return self
 
-    def _neumann_grids(self, v, idx, aabb_min, aabb_max, cache_dir):
-        """The silhouette and prim-band grids' arrays of a 3D Neumann set,
-        on the reference's bounds (elaina_tpu/core/problem.py:397-439)."""
+    def neumann_grids(self, v, idx, aabb_min, aabb_max, cache_dir,
+                      every: bool = False):
+        """The silhouette and prim-band grids' arrays of a Neumann set, on
+        the reference's bounds and keys (elaina_tpu/core/problem.py:
+        393-439): in 3D both; in 2D the silhouette grid above
+        CHUNKED_DENSE_MAX entities and the prim-band grid above
+        CHUNKED_DENSE_MAX prims (None where the sweeps serve), or both
+        with ``every``."""
         sil = silhouette_entities_native(v, idx)
         p0, p1 = sil["p0"], sil["p1"]
         margin = 0.05 * (aabb_max - aabb_min)
-        t0 = time.time()
-        K, max_res = band_size_for(p0.shape[0])
-        sgrid = build_silhouette_grid(
-            p0, p1, sil["n1"], sil["n2"], sil["always"],
-            np.minimum(np.minimum(aabb_min, p0.min(0)), p1.min(0)) - margin,
-            np.maximum(np.maximum(aabb_max, p0.max(0)), p1.max(0)) + margin,
-            K=K, max_res=max_res, cache_dir=cache_dir)
-        t1 = time.time()
-        K, max_res = band_size_for(idx.shape[0])
-        bgrid = build_prim_band_grid(v, idx, aabb_min - margin,
-                                     aabb_max + margin, K=K, max_res=max_res,
-                                     cache_dir=cache_dir)
-        t2 = time.time()
-        self.stats["neumann_sil_grid"] = (
-            f"res={sgrid.res} K={sgrid.rows.shape[1]} "
-            f"entities={p0.shape[0]} always={int(sil['always'].sum())} "
-            f"built_s={t1 - t0:.1f}")
-        self.stats["neumann_band_grid"] = (
-            f"res={bgrid.res} K={bgrid.rows.shape[1]} "
-            f"r_cap_min={float(bgrid.r_cap.min()):.4g} "
-            f"built_s={t2 - t1:.1f}")
-        return vars(sgrid), vars(bgrid)
+        sgrid = bgrid = None
+        if every or self.dim == 3 or p0.shape[0] > CHUNKED_DENSE_MAX:
+            t0 = time.time()
+            K, max_res = band_size_for(p0.shape[0])
+            sgrid = build_silhouette_grid(
+                p0, p1, sil["n1"], sil["n2"], sil["always"],
+                np.minimum(np.minimum(aabb_min, p0.min(0)), p1.min(0))
+                - margin,
+                np.maximum(np.maximum(aabb_max, p0.max(0)), p1.max(0))
+                + margin, K=K, max_res=max_res, cache_dir=cache_dir)
+            self.stats["neumann_sil_grid"] = (
+                f"res={sgrid.res} K={sgrid.rows.shape[1]} "
+                f"entities={p0.shape[0]} always={int(sil['always'].sum())} "
+                f"built_s={time.time() - t0:.1f}")
+            sgrid = vars(sgrid)
+        if every or self.dim == 3 or idx.shape[0] > CHUNKED_DENSE_MAX:
+            t0 = time.time()
+            K, max_res = band_size_for(idx.shape[0])
+            bgrid = build_prim_band_grid(v, idx, aabb_min - margin,
+                                         aabb_max + margin, K=K,
+                                         max_res=max_res,
+                                         cache_dir=cache_dir)
+            self.stats["neumann_band_grid"] = (
+                f"res={bgrid.res} K={bgrid.rows.shape[1]} "
+                f"r_cap_min={float(bgrid.r_cap.min()):.4g} "
+                f"built_s={time.time() - t0:.1f}")
+            bgrid = vars(bgrid)
+        return sgrid, bgrid
 
     def table_bytes(self) -> dict:
         """Bytes of the scene's grid tables on the device, by table."""
@@ -390,12 +414,13 @@ class Problem:
         if g is not None:
             out.update({name: t.numel() * t.element_size() for name, t in (
                 ("cand", g.cand), ("coords", g.coords),
-                ("color_rows", g.color_rows))})
+                ("color_rows", g.color_rows)) if t is not None})
             if g.fine is not None:
                 out["finepack"] = g.fine.packed.numel() * 4
         for prefix, bg in (("sil", self.scene.n_sgrid),
                            ("band", self.scene.n_bgrid)):
             if bg is not None:
                 out[f"{prefix}_rows"] = bg.rows.numel() * 4
-                out[f"{prefix}_coords"] = bg.coords.numel() * 4
+                if bg.coords is not None:
+                    out[f"{prefix}_coords"] = bg.coords.numel() * 4
         return out

@@ -5,33 +5,45 @@
 //
 //   K6 band_neumann_walk_dma_3d (pallas_queries.py:1043, kernel
 //      _make_band_neumann_walk_kernel_3d :862)   -> band_neumann_walk_kernel
-//   K9 sil_band_dma (pallas_queries.py:622, kernel :563; 3D)
-//                                                -> sil_band_kernel
+//   K9 sil_band_dma (pallas_queries.py:622, kernel :563; 3D and 2D)
+//                                                -> sil_band_kernel<3 | 2>
 //
-// and the two unfused prim-band queries, which the volumetric source term
-// and the unfused Neumann step run:
+// the two unfused prim-band queries, which the volumetric source term and
+// the unfused Neumann step run:
 //
 //   K7 band_ray_dma_3d (pallas_queries.py:792, kernel :734)
 //                                                -> band_ray_kernel
 //   K8 band_ball_dma_3d (pallas_queries.py:1189, kernel :1118)
 //                                                -> band_ball_kernel
 //
+// and the two 2D closest-segment sweeps that serve a Dirichlet set without
+// a candidate grid and the chain path of a grid without a coordinate table:
+//
+//   K13 closest_point_dense_pallas (pallas_queries.py:421, body :392)
+//                                                -> closest_point_dense_kernel
+//   K12 candidate_band_pallas (pallas_queries.py:499, body :469)
+//                                                -> candidate_band_kernel
+//
 // K7 is K6's walk ray and K8 its in-ball CDF sample: they call the same
 // device functions (closest_hit, ball_sample), so the fused and the
-// unfused step agree bit for bit wherever their inputs do.
+// unfused step agree bit for bit wherever their inputs do.  K12 and K13
+// take resolve.cu's segment distance (segment.cuh).
 //
 // The contracts are the TPU kernels'; the TPU shapes are not carried over:
 // no per-lane block DMAs, (BL, 128) tiles, one-hot winner picks or
 // triangular-matmul prefix sums.  One warp serves one lane and strides
 // over the Kp slots of the lane's cell, whose table is planes by slot, so
-// each load instruction of the warp reads 128 contiguous bytes.  Lanes
-// with cell < 0 (outside the grid) do no work.  Each launch function
-// enqueues on the caller's stream, allocates nothing and returns
-// cudaGetLastError().  Built with -fmad=false, as resolve.cu: the plain
-// PyTorch versions write the same products and sums in the same order.
+// each load instruction of the warp reads 128 contiguous bytes (K13, which
+// reads one shared set, is one thread a lane instead).  Lanes with cell < 0
+// (outside the grid) do no work.  Each launch function enqueues on the
+// caller's stream, allocates nothing and returns cudaGetLastError().
+// Built with -fmad=false, as resolve.cu: the plain PyTorch versions write
+// the same products and sums in the same order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "segment.cuh"
 
 namespace {
 
@@ -228,17 +240,21 @@ __device__ __forceinline__ void closest_hit(const float* base, int Kp,
 
 // --------------------------------------------------------------------------
 // K9: squared distance to the nearest silhouette entity of the lane's
-// SilGrid cell.  Entity planes (C, 12, Kp) = p0 | p1 | n1 | n2 (x, y, z
-// each): 48 bytes per slot, 3 KB per lane at K = 64, ~40 flops per slot;
-// bound by the loads.  An entity counts when s1 * s2 <= 0 (n1 = 0 for
-// "always" entities); padded slots pass with d^2 ~ 1e18, which the caller
-// maps to "none".  Lanes with cell < 0 get +inf.
+// SilGrid cell.  3D: entity planes (C, 12, Kp) = p0 | p1 | n1 | n2 (x, y,
+// z each), the edge distance: 48 bytes per slot, 3 KB per lane at K = 64,
+// ~40 flops per slot.  2D: (C, 6, Kp) = p0 | n1 | n2 (x, y each), the
+// vertex distance: 24 bytes per slot, 1.5 KB per lane, ~10 flops per slot.
+// Both bound by the loads.  An entity counts when s1 * s2 <= 0 (n1 = 0
+// for "always" entities); padded slots pass with d^2 ~ 1e18, which the
+// caller maps to "none".  Lanes with cell < 0 get +inf.
 // --------------------------------------------------------------------------
 
+template <int DIM>
 __global__ void sil_band_kernel(const int32_t* __restrict__ cell,
                                 const float* __restrict__ q,
                                 const float* __restrict__ coords, int64_t n,
                                 int32_t Kp, float* __restrict__ d2_out) {
+  constexpr int NP = DIM == 3 ? 12 : 6;
   const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (i >= n) return;
@@ -247,26 +263,37 @@ __global__ void sil_band_kernel(const int32_t* __restrict__ cell,
     if (lane == 0) d2_out[i] = inf_f();
     return;
   }
-  const float qv[3] = {q[3 * i], q[3 * i + 1], q[3 * i + 2]};
-  const float* base = coords + c * 12 * Kp;
+  float qv[DIM];
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) qv[d] = q[DIM * i + d];
+  const float* base = coords + c * NP * Kp;
   float best = inf_f();
   for (int k = lane; k < Kp; k += 32) {
-    float p0[3], e[3], w[3], v[3], n1[3], n2[3];
+    float d2, s1, s2;
+    if constexpr (DIM == 3) {
+      float p0[3], e[3], w[3], v[3], n1[3], n2[3];
 #pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      p0[d] = base[d * Kp + k];
-      e[d] = base[(3 + d) * Kp + k] - p0[d];
-      w[d] = qv[d] - p0[d];
-      n1[d] = base[(6 + d) * Kp + k];
-      n2[d] = base[(9 + d) * Kp + k];
+      for (int d = 0; d < 3; ++d) {
+        p0[d] = base[d * Kp + k];
+        e[d] = base[(3 + d) * Kp + k] - p0[d];
+        w[d] = qv[d] - p0[d];
+        n1[d] = base[(6 + d) * Kp + k];
+        n2[d] = base[(9 + d) * Kp + k];
+      }
+      const float den = fmaxf(dot3(e, e), 1e-30f);
+      const float t = fminf(fmaxf(dot3(w, e) / den, 0.f), 1.f);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) v[d] = w[d] - t * e[d];
+      d2 = dot3(v, v);
+      s1 = dot3(n1, v);
+      s2 = dot3(n2, v);
+    } else {
+      const float vx = qv[0] - base[k];
+      const float vy = qv[1] - base[Kp + k];
+      d2 = vx * vx + vy * vy;
+      s1 = base[2 * Kp + k] * vx + base[3 * Kp + k] * vy;
+      s2 = base[4 * Kp + k] * vx + base[5 * Kp + k] * vy;
     }
-    const float den = fmaxf(dot3(e, e), 1e-30f);
-    const float t = fminf(fmaxf(dot3(w, e) / den, 0.f), 1.f);
-#pragma unroll
-    for (int d = 0; d < 3; ++d) v[d] = w[d] - t * e[d];
-    const float d2 = dot3(v, v);
-    const float s1 = dot3(n1, v);
-    const float s2 = dot3(n2, v);
     if (s1 * s2 <= 0.f && d2 < best) best = d2;
   }
 #pragma unroll
@@ -472,17 +499,166 @@ __global__ void band_ball_kernel(const int32_t* __restrict__ cell,
   }
 }
 
+// --------------------------------------------------------------------------
+// K13: the closest of all P segments to each query point q (N, 2), with
+// segments a (P, 2) -> b (P, 2): dist = sqrt(min d^2) and the smallest
+// index attaining it (a strict < in index order, as the TPU kernel's
+// min(where(d2 <= best, cols, P))); when every d^2 overflows, index 0, as
+// there.  One thread a lane; a block stages the set through shared memory
+// DENSE_TILE segments (32 KB) at a time, and every thread of the block
+// reads the same slot (a broadcast).  ~14 flops and one division per
+// (lane, segment): bound by the operations (the set and the lanes are a
+// few MB, read once).
+// --------------------------------------------------------------------------
+
+constexpr int DENSE_TILE = 2048;
+
+__global__ void closest_point_dense_kernel(const float* __restrict__ q,
+                                           const float* __restrict__ seg_a,
+                                           const float* __restrict__ seg_b,
+                                           int64_t n, int32_t P,
+                                           float* __restrict__ dist_out,
+                                           int32_t* __restrict__ prim_out) {
+  __shared__ float4 tile[DENSE_TILE];
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < n;
+  const float qx = live ? q[2 * i] : 0.f;
+  const float qy = live ? q[2 * i + 1] : 0.f;
+  float best = inf_f();
+  int best_p = P;
+  for (int p0 = 0; p0 < P; p0 += DENSE_TILE) {
+    const int m = min(DENSE_TILE, P - p0);
+    __syncthreads();                     // the previous tile is consumed
+    for (int k = threadIdx.x; k < m; k += blockDim.x) {
+      const int64_t p = p0 + k;
+      tile[k] = make_float4(seg_a[2 * p], seg_a[2 * p + 1], seg_b[2 * p],
+                            seg_b[2 * p + 1]);
+    }
+    __syncthreads();
+    for (int k = 0; k < m; ++k) {
+      const float4 s = tile[k];
+      float t;
+      const float d2 = seg_d2(qx - s.x, qy - s.y, s.z - s.x, s.w - s.y, &t);
+      if (d2 < best) {
+        best = d2;
+        best_p = p0 + k;
+      }
+    }
+  }
+  if (live) {
+    dist_out[i] = sqrtf(best);
+    prim_out[i] = best_p < P ? best_p : 0;
+  }
+}
+
+// --------------------------------------------------------------------------
+// K12: the closest segment over each lane's own K gathered candidates:
+// q (N, 2), endpoint planes ax, ay, bx, by (N, K) and valid (N, K) ->
+// dist = sqrt(min d^2 over valid slots) (inf when none is) and the
+// smallest slot attaining it (0 when the min is inf, as the TPU kernel's
+// min(where(d2 <= best, cols, K))).  One warp a lane, K10's form: the lanes
+// stride the row, whose planes are contiguous, and the winner is the
+// lexicographic (d^2, slot) argmin by warp shuffle.  17 bytes and ~14
+// flops per (lane, slot): bound by the bytes.
+// --------------------------------------------------------------------------
+
+__global__ void candidate_band_kernel(const float* __restrict__ q,
+                                      const float* __restrict__ ax_p,
+                                      const float* __restrict__ ay_p,
+                                      const float* __restrict__ bx_p,
+                                      const float* __restrict__ by_p,
+                                      const uint8_t* __restrict__ valid,
+                                      int64_t n, int32_t K,
+                                      float* __restrict__ dist_out,
+                                      int32_t* __restrict__ slot_out) {
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (i >= n) return;
+  const float qx = q[2 * i];
+  const float qy = q[2 * i + 1];
+  const int64_t off = i * K;
+  float best_d2 = inf_f();
+  int best_slot = K;
+  for (int k = lane; k < K; k += 32) {
+    if (!valid[off + k]) continue;
+    const float ax = ax_p[off + k];
+    const float ay = ay_p[off + k];
+    float t;
+    const float d2 = seg_d2(qx - ax, qy - ay, bx_p[off + k] - ax,
+                            by_p[off + k] - ay, &t);
+    if (d2 < best_d2) {
+      best_d2 = d2;
+      best_slot = k;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float od2 = __shfl_down_sync(FULL, best_d2, o);
+    const int os = __shfl_down_sync(FULL, best_slot, o);
+    if (od2 < best_d2 || (od2 == best_d2 && os < best_slot)) {
+      best_d2 = od2;
+      best_slot = os;
+    }
+  }
+  if (lane == 0) {
+    dist_out[i] = sqrtf(best_d2);
+    slot_out[i] = best_slot < K ? best_slot : 0;
+  }
+}
+
+template <int DIM>
+int sil_band_dim(const void* cell, const void* q, const void* coords,
+                 int64_t n, int32_t Kp, void* d2, void* stream) {
+  if (n == 0) return 0;
+  const int64_t blocks = (n + THREADS / 32 - 1) / (THREADS / 32);
+  sil_band_kernel<DIM><<<(unsigned)blocks, THREADS, 0,
+                         (cudaStream_t)stream>>>(
+      (const int32_t*)cell, (const float*)q, (const float*)coords, n, Kp,
+      (float*)d2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
+// K9, 3D: coords (C, 12, Kp)
 int sil_band_launch(const void* cell, const void* q, const void* coords,
                     int64_t n, int32_t Kp, void* d2, void* stream) {
+  return sil_band_dim<3>(cell, q, coords, n, Kp, d2, stream);
+}
+
+// K9, 2D: coords (C, 6, Kp)
+int sil_band_2d_launch(const void* cell, const void* q, const void* coords,
+                       int64_t n, int32_t Kp, void* d2, void* stream) {
+  return sil_band_dim<2>(cell, q, coords, n, Kp, d2, stream);
+}
+
+int closest_point_dense_launch(const void* q, const void* seg_a,
+                               const void* seg_b, int64_t n, int32_t P,
+                               void* dist, void* prim, void* stream) {
   if (n == 0) return 0;
+  if (P <= 0) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (n + THREADS - 1) / THREADS;
+  closest_point_dense_kernel<<<(unsigned)blocks, THREADS, 0,
+                               (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)seg_a, (const float*)seg_b, n, P,
+      (float*)dist, (int32_t*)prim);
+  return (int)cudaGetLastError();
+}
+
+int candidate_band_launch(const void* q, const void* ax, const void* ay,
+                          const void* bx, const void* by, const void* valid,
+                          int64_t n, int32_t K, void* dist, void* slot,
+                          void* stream) {
+  if (n == 0) return 0;
+  if (K <= 0) return (int)cudaErrorInvalidValue;
   const int64_t blocks = (n + THREADS / 32 - 1) / (THREADS / 32);
-  sil_band_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)cell, (const float*)q, (const float*)coords, n, Kp,
-      (float*)d2);
+  candidate_band_kernel<<<(unsigned)blocks, THREADS, 0,
+                          (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)ax, (const float*)ay, (const float*)bx,
+      (const float*)by, (const uint8_t*)valid, n, K, (float*)dist,
+      (int32_t*)slot);
   return (int)cudaGetLastError();
 }
 

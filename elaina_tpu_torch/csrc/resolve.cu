@@ -35,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "segment.cuh"
+
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -155,18 +157,7 @@ __global__ void compact_write(const uint8_t* __restrict__ mask, int64_t n,
 
 constexpr int SWEEP_THREADS = 256;
 
-// Squared distance from q to the segment a + t e, t = clip((w . e) /
-// max(|e|^2, 1e-30), 0, 1) with w = q - a (pallas_queries.py:97-105);
-// writes t.  K2 and K10 share it.
-__device__ __forceinline__ float seg_d2(float wx, float wy, float ex,
-                                        float ey, float* t_out) {
-  const float den = fmaxf(ex * ex + ey * ey, 1e-30f);
-  const float t = fminf(fmaxf((wx * ex + wy * ey) / den, 0.f), 1.f);
-  const float dx = wx - t * ex;
-  const float dy = wy - t * ey;
-  *t_out = t;
-  return dx * dx + dy * dy;
-}
+// K2 and K10 take the segment distance of segment.cuh (seg_d2).
 
 __global__ void sweep_resolve_kernel(
     const uint8_t* __restrict__ mask, const int32_t* __restrict__ row,

@@ -7,8 +7,10 @@ solve duration, the walk steps, the exactly resolved lane-steps and the
 walks that met the depth cap, the scene tables' sizes, the solve's peak
 device memory on CUDA, and a timestamp.
 
-The device is CUDA when PyTorch sees a GPU and the CPU otherwise
-(``CUDA_VISIBLE_DEVICES`` picks the card).
+The device is the caller's: ``"cuda"`` (the default; ``CUDA_VISIBLE_DEVICES``
+picks the card) or ``"cpu"``, the counterpart of the JAX runner's platform
+switch.  With no visible card a CUDA run raises; it never falls back to
+the CPU.
 """
 
 from __future__ import annotations
@@ -33,7 +35,14 @@ def _cache_dir() -> str:
     return d
 
 
-def run_expr(conf_path: str) -> dict:
+def run_expr(conf_path: str, device: str = "cuda") -> dict:
+    dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device {device!r}: 'cuda' or 'cpu'")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r}: PyTorch sees no CUDA device "
+                           f"(run on the CPU with device='cpu', or "
+                           f"--device cpu)")
     conf_path = os.path.abspath(conf_path)
     if not os.path.exists(conf_path):
         log_error("Configuration file does not exist: %s", conf_path)
@@ -56,8 +65,7 @@ def run_expr(conf_path: str) -> dict:
     log_success("Configuration file copied to %s",
                 os.path.join(out_dir, "conf.json"))
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    problem = Problem(cfg.dimensionality, device).load_config(
+    problem = Problem(cfg.dimensionality, dev).load_config(
         cfg.scene, base_dir=os.getcwd(), cache_dir=_cache_dir())
     integrator = UniformIntegrator(problem, cfg.settings, out_dir)
 

@@ -1,4 +1,4 @@
-"""Candidate grid + FinePack (Dirichlet) and band grids (3D Neumann).
+"""Candidate grid + FinePack (Dirichlet) and band grids (Neumann).
 
 Port of the parts of ``elaina_tpu/geometry/grid.py`` that the port's
 uniform solve reads.  The candidate-grid build is the reference's, level
@@ -11,30 +11,38 @@ reference's file format.
 
 The chain path (``grid_row_index`` -> ``grid_closest_point_detail``)
 walks each query down the refinement levels to its candidate row and
-sweeps the row exactly with kernels K10 (2D) / K11 (3D); the
-DIRICHLET_SDF channel takes it.  The FinePack collapses the refinement chain into one int32 per finest
+sweeps the row exactly: with kernels K10 (2D) / K11 (3D) over the
+coordinate table that ``attach_coords`` adds (the scene's grids always
+carry it; the DIRICHLET_SDF channel takes this route), and on a bare grid
+over the row's gathered corners, as the reference's XLA branch does (K12
+for 2D rows of at most 128 slots, a planar chunked sweep otherwise).  The
+FinePack collapses the refinement chain into one int32 per finest
 cell: bit 31 the need flag (baked with the solve's eps), bits 30..20 a
 quantized lower bound of the boundary distance, bits 19..0 the candidate
 row.  ``fine_decode`` turns a query point into (row, need, bound) with one
 load.  The port builds it on the host by upsampling level by level, in
 place of the reference's TPU-tiled interleaves.
 
-The band grids of a 3D Neumann set are single-level grids of K-wide rows
+The band grids of a Neumann set are single-level grids of K-wide rows
 (the reference's PrimBandGrid and SilGrid, one ``BandGrid`` here): the
 prim-band grid keeps per cell the K prims of smallest lower bound and a
 completeness cap r_cap (the star radius is clamped to it, so one row holds
 every prim a step's ball or rays can touch); the silhouette grid keeps the
 K nearest entities that may be silhouettes and a validity cap.  Both are
-built by the native band passes and cached under the reference's keys.
+built by the native band passes (in 2D and 3D) and cached under the
+reference's keys.
 
 Device layouts are the port's own, planes by slot so the 32 threads of a
 warp read 32 neighbouring floats, with Kp = K rounded up to the warp
 width:
-  * candidate and prim-band coordinates (R, dim*D, Kp): plane k*D + d is
-    corner k, axis d (2D ax, ay, bx, by; 3D ax..cz); padded and -1 slots
-    hold PAD_COORD;
-  * silhouette entities (C, 12, Kp): p0.xyz, p1.xyz, n1.xyz, n2.xyz, with
-    n1 = 0 for "always" entities and pads at PAD_COORD with zero normals;
+  * candidate and 3D prim-band coordinates (R, dim*D, Kp): plane k*D + d
+    is corner k, axis d (2D ax, ay, bx, by; 3D ax..cz); padded and -1
+    slots hold PAD_COORD.  A 2D prim-band grid has no table: its queries
+    gather the rows' corners, as the reference's do;
+  * silhouette entities, 3D (C, 12, Kp): p0.xyz, p1.xyz, n1.xyz, n2.xyz;
+    2D (C, 6, Kp): p0.xy, n1.xy, n2.xy (the entities are vertices).
+    "Always" entities get n1 = 0 and pads PAD_COORD points with zero
+    normals;
   * colors (2P, 3*dim): row 2p + s holds the side-s colors of prim p's
     corners.
 """
@@ -44,12 +52,13 @@ from __future__ import annotations
 import hashlib
 import logging
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
-from ..ops.resolve import grid_band_2d, grid_band_3d
+from ..ops.resolve import grid_band_2d, grid_band_3d, seg_d2, tri_d2_planes
+from .primitives import prim_closest_point
 
 PAD_COORD = 1.0e9     # far-away coordinate for padded candidate slots
 FINE_BUCKETS = 2047
@@ -57,6 +66,8 @@ FINE_ROW_MASK = (1 << 20) - 1
 WARP = 32
 _FINE_CELL_CAP = 300_000_000   # dense finest-grid cap (1.2 GB int32)
 _COORD_CHUNK_ROWS = 1 << 16
+BARE_ROW_MAX = 128             # widest row the bare chain path sweeps whole
+_BARE_CHUNK_SLOTS = 1 << 22    # lanes x slots per chunk of the bare path
 
 
 @dataclass
@@ -99,8 +110,10 @@ class CandidateGrid:
     row_diag: torch.Tensor   # (R,) f32
     row_trunc: torch.Tensor  # (R,) bool
     trunc_min_rl: float      # min row_lbound over truncated rows (inf: none)
-    coords: torch.Tensor     # (R, dim*D, Kp) f32 corner planes
+    verts: torch.Tensor      # (V, D) f32 the set's vertices
+    indices: torch.Tensor    # (P, dim) int64 its prims
     color_rows: torch.Tensor  # (2P, 3*dim) f32 corner colors per (prim, side)
+    coords: torch.Tensor | None = None  # (R, dim*D, Kp) corner planes
     fine: FinePack | None = None
 
 
@@ -132,7 +145,8 @@ class BandGrid:
     lbound: torch.Tensor     # (C,) f32
     ent_lo: torch.Tensor     # (D,) f32
     ent_hi: torch.Tensor     # (D,) f32
-    coords: torch.Tensor     # (C, 9, Kp) prim corners or (C, 12, Kp) entities
+    coords: torch.Tensor | None  # prim corners (C, 9, Kp), 3D only; entities
+    #                              (C, 12, Kp) in 3D, (C, 6, Kp) in 2D
 
 
 # --------------------------------------------------------------------------- #
@@ -297,26 +311,29 @@ def coords_from_cand(cand: torch.Tensor, verts: torch.Tensor,
 
 def sil_coords_from_rows(rows: torch.Tensor, p0, p1, n1, n2,
                          always) -> torch.Tensor:
-    """(C, K) 3D entity ids -> (C, 12, Kp) planes p0, p1, n1, n2 (x, y, z
-    each).  "Always" entities get n1 = 0, so the kernel's s1 s2 <= 0 test
-    keeps them; -1 and pad slots get PAD_COORD points and zero normals
-    (they pass the test at a distance that never wins)."""
+    """(C, K) entity ids -> planes by slot: in 3D (C, 12, Kp) p0, p1, n1,
+    n2 (x, y, z each), in 2D (C, 6, Kp) p0, n1, n2 (x, y each; a 2D
+    entity is a vertex, p1 = p0).  "Always" entities get n1 = 0, so the
+    kernel's s1 s2 <= 0 test keeps them; -1 and pad slots get PAD_COORD
+    points and zero normals (they pass the test at a distance that never
+    wins)."""
     C, K = rows.shape
-    if p0.shape[1] != 3:
-        raise ValueError("the silhouette table is 3D only")
+    dim = p0.shape[1]
+    groups = ((p0, PAD_COORD), (p1, PAD_COORD)) if dim == 3 else (
+        (p0, PAD_COORD),)
     n1 = torch.where(always[:, None], torch.zeros_like(n1), n1)
-    out = torch.zeros((C, 12, padded_k(K)), dtype=torch.float32,
-                      device=rows.device)
-    out[:, :6] = PAD_COORD
+    groups += ((n1, 0.0), (n2, 0.0))
+    out = torch.zeros((C, len(groups) * dim, padded_k(K)),
+                      dtype=torch.float32, device=rows.device)
+    out[:, :(len(groups) - 2) * dim] = PAD_COORD
     for r0 in range(0, C, _COORD_CHUNK_ROWS):
         e = rows[r0:r0 + _COORD_CHUNK_ROWS].long()
         valid = e >= 0
         safe = e.clamp(min=0)
-        for g, (arr, pad) in enumerate(((p0, PAD_COORD), (p1, PAD_COORD),
-                                        (n1, 0.0), (n2, 0.0))):
-            for d in range(3):
+        for g, (arr, pad) in enumerate(groups):
+            for d in range(dim):
                 v = arr[safe, d]
-                out[r0:r0 + e.shape[0], 3 * g + d, :K] = torch.where(
+                out[r0:r0 + e.shape[0], dim * g + d, :K] = torch.where(
                     valid, v, torch.full_like(v, pad))
     return out
 
@@ -335,7 +352,8 @@ def grid_from_numpy(*, cand, meta, row_lbound, row_diag, row_trunc, origin,
                     device: torch.device) -> CandidateGrid:
     """The port's CandidateGrid from numpy arrays (the port's own build, or
     np.asarray of a reference grid) plus the boundary's verts (V, D),
-    indices (P, D) and colors (V, 2, 3)."""
+    indices (P, D) and colors (V, 2, 3): a bare grid, without the
+    coordinate table (``attach_coords`` adds it)."""
     def t(a, dtype):
         return torch.as_tensor(np.require(a, requirements=("C", "W")),
                                dtype=dtype, device=device)
@@ -355,13 +373,22 @@ def grid_from_numpy(*, cand, meta, row_lbound, row_diag, row_trunc, origin,
         row_diag=t(np.asarray(row_diag, np.float32), torch.float32),
         row_trunc=t(rt, torch.bool),
         trunc_min_rl=float(rlb[rt].min()) if rt.any() else float("inf"),
-        coords=coords_from_cand(cand_t, verts_t, idx_t),
+        verts=verts_t, indices=idx_t,
         color_rows=color_rows_from(t(np.asarray(colors, np.float32),
                                      torch.float32), idx_t))
 
 
+def attach_coords(grid: CandidateGrid) -> CandidateGrid:
+    """The grid with its coordinate table (the reference's
+    ``attach_coords``): the corner planes that K2-K5, K10 and K11 sweep."""
+    if grid.coords is not None:
+        return grid
+    return replace(grid, coords=coords_from_cand(grid.cand, grid.verts,
+                                                 grid.indices))
+
+
 # --------------------------------------------------------------------------- #
-# band grids (3D Neumann)
+# band grids (Neumann)
 # --------------------------------------------------------------------------- #
 
 
@@ -463,8 +490,11 @@ def band_grid_from_numpy(arrays: dict, verts, indices,
                          device: torch.device) -> BandGrid:
     """The prim-band grid on the device from the fields of ``BandArrays``
     (the port's build, or np.asarray of a reference grid) and the set's
-    verts (V, 3) and indices (P, 3)."""
+    verts (V, D) and indices (P, D); the corner table in 3D only (2D
+    queries gather, as the reference's)."""
     f = _band_tensors(arrays, device)
+    if np.asarray(indices).shape[1] == 2:
+        return BandGrid(**f, coords=None)
     v = torch.as_tensor(np.asarray(verts, np.float32), device=device)
     idx = torch.as_tensor(np.asarray(indices, np.int64), device=device)
     return BandGrid(**f, coords=coords_from_cand(f["rows"], v, idx))
@@ -643,16 +673,93 @@ def _trunc_fallback(grid: CandidateGrid, row: torch.Tensor, d: torch.Tensor):
     return torch.where(grid.row_trunc[r], grid.row_lbound[r], d)
 
 
+def _bare_rows(grid: CandidateGrid, q, cand):
+    """A whole row of at most BARE_ROW_MAX slots on gathered corners:
+    K12 in 2D, the reference's dense prim_closest_point sweep in 3D.
+    (distance, winning slot's prim id, -1 where the row holds none)."""
+    dim = len(grid.res)
+    safe = cand.clamp(min=0).long()
+    corner = [grid.verts[grid.indices[:, k][safe]] for k in range(dim)]
+    if dim == 2:
+        from ..ops.queries import candidate_band  # it imports this module
+
+        (ax, ay), (bx, by) = (c.unbind(-1) for c in corner)
+        d, slot = candidate_band(q.contiguous(), ax.contiguous(),
+                                 ay.contiguous(), bx.contiguous(),
+                                 by.contiguous(), cand >= 0)
+        return d, cand.gather(1, slot[:, None].long())[:, 0]
+    d, _ = prim_closest_point(dim, q[:, None, :], corner)
+    d = torch.where(cand >= 0, d, torch.full_like(d, float("inf")))
+    j = torch.argmin(d, dim=1, keepdim=True)                # first minimum
+    return d.gather(1, j)[:, 0], cand.gather(1, j)[:, 0]
+
+
+def _planar_rows(grid: CandidateGrid, q, cand):
+    """Wider rows: BARE_ROW_MAX slots at a time on coordinate planes,
+    keeping the running (d^2, prim) on a strict < (the reference's planar
+    sweep, but over every slot of the row: the reference sweeps K // 128
+    chunks and skips the tail of a row whose K is not a multiple)."""
+    kc = BARE_ROW_MAX
+    dim = len(grid.res)
+    n, K = cand.shape
+    qc = tuple(q[:, d:d + 1] for d in range(dim))
+    planes = [grid.verts[:, d] for d in range(dim)]
+    cols = [grid.indices[:, k] for k in range(dim)]
+    best_d2 = torch.full((n,), float("inf"), device=q.device)
+    best_i = torch.zeros((n,), dtype=torch.int32, device=q.device)
+    for k0 in range(0, K, kc):
+        c = cand[:, k0:k0 + kc]
+        safe = c.clamp(min=0).long()
+        corner = [planes[d][cols[k][safe]] for k in range(dim)
+                  for d in range(dim)]
+        if dim == 2:
+            ax, ay, bx, by = corner
+            d2 = seg_d2(qc[0] - ax, qc[1] - ay, bx - ax, by - ay)[0]
+        else:
+            d2 = tri_d2_planes(qc, corner)
+        d2 = torch.where(c >= 0, d2, torch.full_like(d2, float("inf")))
+        j = torch.argmin(d2, dim=1, keepdim=True)           # first minimum
+        d_c = d2.gather(1, j)[:, 0]
+        better = d_c < best_d2
+        best_d2 = torch.where(better, d_c, best_d2)
+        best_i = torch.where(better, c.gather(1, j)[:, 0], best_i)
+    return torch.sqrt(best_d2), best_i
+
+
+def _grid_closest_point_bare(grid: CandidateGrid, q, row):
+    """The chain path's sweep on a grid without a coordinate table (the
+    reference's ``_grid_closest_point_xla``): each lane's row of prim ids
+    and their corners gathered, in lane chunks of _BARE_CHUNK_SLOTS
+    slots.  (distance (N,), prim id (N,) int32)."""
+    n = q.shape[0]
+    K = grid.cand.shape[1]
+    sweep = _bare_rows if K <= BARE_ROW_MAX else _planar_rows
+    dist = torch.empty((n,), dtype=torch.float32, device=q.device)
+    pid = torch.empty((n,), dtype=torch.int32, device=q.device)
+    m = max(1, _BARE_CHUNK_SLOTS // K)
+    for c0 in range(0, n, m):
+        dist[c0:c0 + m], pid[c0:c0 + m] = sweep(
+            grid, q[c0:c0 + m], grid.cand[row[c0:c0 + m].long()])
+    return dist, pid
+
+
 def grid_closest_point_detail(grid: CandidateGrid, q: torch.Tensor,
                               row: torch.Tensor | None = None):
     """The exact closest prim through the chain path: (distance (N,),
     prim id (N,) int32, the winner's corners as a tuple of dim (N, D)
-    tensors).  The row is swept by K10 (2D) or K11 (3D); truncated rows
-    give their lower bound."""
+    tensors).  The row is swept by K10 (2D) or K11 (3D) over the
+    coordinate table; a bare grid takes ``_grid_closest_point_bare`` (its
+    prim id is -1 where a row holds none, as the reference's).  Truncated
+    rows give their lower bound."""
     dim = len(grid.res)
     K = grid.cand.shape[1]
     if row is None:
         row = grid_row_index(grid, q)
+    if grid.coords is None:
+        d, pid = _grid_closest_point_bare(grid, q, row)
+        safe = pid.clamp(min=0).long()
+        pv = tuple(grid.verts[grid.indices[safe, k]] for k in range(dim))
+        return _trunc_fallback(grid, row, d), pid, pv
     band = grid_band_2d if dim == 2 else grid_band_3d
     d2, slot, corners = band(row.contiguous(), q.contiguous(), grid.coords)
     pid = torch.clamp(grid.cand[row.long(), slot.long().clamp(max=K - 1)],

@@ -1,20 +1,29 @@
-"""Neumann-set queries: dense sweeps (2D) and band-grid queries (3D).
+"""Boundary-set queries: closest point, the Neumann sweeps and the
+band-grid queries.
 
 Port of ``elaina_tpu/geometry/queries.py``:
 
-* the dense branches that a 2D Neumann set of at most ``BRUTE_FORCE_MAX``
-  prims takes: closest silhouette, ray intersection and Green-weighted
-  in-ball sampling (the reference's ``small_gather`` one-hot matmuls are
-  plain indexing);
+* ``closest_point`` / ``closest_point_detail`` of a set without a
+  candidate grid: in 2D the dense sweep of kernel K13 over every segment
+  (exact at every P, so equal up to ties to the reference's dense, chunked
+  and BVH branches); in 3D the reference's dense (<= ``BRUTE_FORCE_MAX``)
+  and chunked (<= ``CHUNKED_DENSE_MAX``) sweeps in PyTorch;
+* the branches of a 2D Neumann set without band grids: closest
+  silhouette, ray intersection and Green-weighted in-ball sampling, dense
+  up to ``BRUTE_FORCE_MAX`` prims and chunked (64 prims a chunk, as the
+  reference) up to ``CHUNKED_DENSE_MAX`` (the reference's ``small_gather``
+  one-hot matmuls are plain indexing);
 * the exact silhouette distance of the NEUMANN_SDF channel, a dense
   sweep over the entities (chunked over lanes and, above
   ``CHUNKED_DENSE_MAX`` entities, over entities too), in 2D and 3D;
-* the band-grid queries of a 3D Neumann set: the silhouette distance over
-  the SilGrid (kernel K9), one depth step's in-ball sample, visibility
-  ray and walk ray over the prim-band grid fused (kernel K6), and the
-  unfused closest-hit ray (K7) and in-ball sample (K8) that the source
-  term and the unfused step take.  A 3D set always takes these in the
-  solve; there is no BVH 3D query.
+* the band-grid queries of a Neumann set: the silhouette distance over
+  the SilGrid (kernel K9, 3D and 2D), one depth step's in-ball sample,
+  visibility ray and walk ray over the 3D prim-band grid fused (kernel
+  K6), and the unfused closest-hit ray (K7) and in-ball sample (K8) that
+  the source term and the unfused step take; a 2D prim-band grid takes
+  the reference's gather forms of the last two.  A 3D set always takes
+  the band grids in the solve, a 2D one above ``CHUNKED_DENSE_MAX``;
+  there is no BVH query.
 """
 
 from __future__ import annotations
@@ -27,28 +36,75 @@ from ..ops import queries as K
 from ..solver.green import GREEN_R_CLAMP, green_eval
 from .geomset import GeomSet
 from .grid import BandGrid
-from .primitives import (prim_closest_point, prim_ray_intersect,
-                         seg_closest_point)
+from .primitives import (prim_closest_point, prim_project, prim_ray_intersect,
+                         prim_side, seg_closest_point)
 
 BRUTE_FORCE_MAX = 64
 CHUNKED_DENSE_MAX = 4096
 _SWEEP_ELEMS = 1 << 24     # lanes x entities per chunk of the dense sweep
+_CHUNK_LANES = 1 << 18     # lanes per chunk of the band gather forms
 _INF = float("inf")
 
 
-def check_dense(gs: GeomSet):
-    """A 2D Neumann set takes the dense sweeps: at most BRUTE_FORCE_MAX
-    prims (a 3D set takes the band grids instead)."""
-    if gs.n_prims > BRUTE_FORCE_MAX:
-        raise NotImplementedError(
-            f"2D Neumann set of {gs.n_prims} prims: sets above "
-            f"{BRUTE_FORCE_MAX} need the 2D band grids of ROADMAP Queue 1 "
-            f"item 12")
+def _no_bvh(gs: GeomSet, what: str):
+    raise NotImplementedError(
+        f"{what} over a {gs.dim}D set of {gs.n_prims} prims without a grid: "
+        f"above {CHUNKED_DENSE_MAX} prims the reference traverses its BVH, "
+        f"which the port has not (ROADMAP Queue 1 item 13)")
 
 
 def _prim_verts_all(gs: GeomSet):
     """Corner tuple of (1, P, D) tensors, broadcasting against (N, 1, D)."""
     return tuple(gs.verts[gs.indices[:, k]][None] for k in range(gs.dim))
+
+
+def _lane_chunks(n: int, width: int):
+    """Slices of at most _SWEEP_ELEMS // width of n lanes."""
+    m = max(1, _SWEEP_ELEMS // max(width, 1))
+    return [slice(n0, n0 + m) for n0 in range(0, n, m)]
+
+
+# --------------------------------------------------------------------------- #
+# closest point
+# --------------------------------------------------------------------------- #
+
+
+def _closest_point_3d(gs: GeomSet, q):
+    """The reference's 3D dense (<= BRUTE_FORCE_MAX prims) and chunked
+    sweeps: the exact distance over every prim and the first prim on a
+    tie (its running min over 64-prim chunks on a strict < gives the
+    same), in lane chunks."""
+    if gs.n_prims > CHUNKED_DENSE_MAX:
+        _no_bvh(gs, "closest_point")
+    n = q.shape[0]
+    pv = _prim_verts_all(gs)
+    best_d = torch.empty((n,), device=q.device)
+    best_i = torch.empty((n,), dtype=torch.int32, device=q.device)
+    for sl in _lane_chunks(n, gs.n_prims):
+        d, _ = prim_closest_point(3, q[sl, None, :], pv)
+        best_d[sl], i = torch.min(d, dim=-1)                # first minimum
+        best_i[sl] = i.to(torch.int32)
+    return best_d, best_i
+
+
+def closest_point(gs: GeomSet, q):
+    """q (N, D) -> (distance (N,), prim id (N,) int32): the exact closest
+    prim of a set without a candidate grid.  2D: kernel K13 over every
+    segment (the smallest id on equal distance); 3D: the dense and chunked
+    sweeps."""
+    if gs.dim == 3:
+        return _closest_point_3d(gs, q)
+    return K.closest_point_dense(q.contiguous(),
+                                 gs.verts[gs.indices[:, 0]].contiguous(),
+                                 gs.verts[gs.indices[:, 1]].contiguous())
+
+
+def closest_point_detail(gs: GeomSet, q):
+    """closest_point plus the unclamped projection (t in 2D, (u, v) in
+    3D) and the side of q against the winner: (d, pid, uv, side)."""
+    d, pid = closest_point(gs, q)
+    pv = gs.prim_verts(pid)
+    return d, pid, prim_project(gs.dim, q, pv), prim_side(gs.dim, q, pv)
 
 
 def _silhouette_sweep(gs: GeomSet, q, e0: int, e1: int):
@@ -90,20 +146,90 @@ def closest_silhouette(gs: GeomSet, q: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _ray_chunked(gs: GeomSet, o, d, tmax):
+    """The reference's ``_ray_dense_chunked``: the closest hit over every
+    prim and the first prim on equal t (its running min over 64-prim
+    chunks on a strict < gives the same), in lane chunks.  Misses give t
+    = inf and prim 0."""
+    n = o.shape[0]
+    pv = _prim_verts_all(gs)
+    best_t = torch.empty((n,), device=o.device)
+    best_i = torch.empty((n,), dtype=torch.int32, device=o.device)
+    for sl in _lane_chunks(n, gs.n_prims):
+        hit, t = prim_ray_intersect(gs.dim, o[sl, None, :], d[sl, None, :],
+                                    pv, tmax[sl, None])
+        best_t[sl], i = torch.min(torch.where(hit, t, _INF), dim=-1)
+        best_i[sl] = i.to(torch.int32)
+    hit = torch.isfinite(best_t) & (best_t <= tmax)
+    return hit, torch.where(hit, best_t, _INF), best_i
+
+
 def ray_intersect(gs: GeomSet, o, d, tmax):
-    """(N, D) rays -> (hit (N,), t (N,) inf on a miss, prim id (N,))."""
-    check_dense(gs)
+    """(N, D) rays -> (hit (N,), t (N,) inf on a miss, prim id (N,)):
+    the dense sweep up to BRUTE_FORCE_MAX prims, the chunked one up to
+    CHUNKED_DENSE_MAX."""
+    if gs.n_prims > CHUNKED_DENSE_MAX:
+        _no_bvh(gs, "ray_intersect")
+    if gs.n_prims > BRUTE_FORCE_MAX:
+        return _ray_chunked(gs, o, d, tmax)
     hit, t = prim_ray_intersect(gs.dim, o[:, None, :], d[:, None, :],
                                 _prim_verts_all(gs), tmax[:, None])
     t_best, i = torch.min(t, dim=-1)
     return hit.any(dim=-1), t_best, i
 
 
+def _sample_in_ball_chunked(gs: GeomSet, q, R, u):
+    """The reference's ``_sample_in_ball_chunked`` with its sums: the
+    weights of 64-prim chunks (the last one padded with zero weights),
+    the total accumulated chunk by chunk, and the CDF walk that takes the
+    first prim with target < cum + cumsum(chunk) and a positive weight (the
+    dense form counts target >= cdf instead).  All chunks at once, in lane
+    chunks."""
+    P = gs.n_prims
+    chunk = BRUTE_FORCE_MAX
+    Pp = -(-P // chunk) * chunk
+    pids = torch.arange(Pp, device=q.device).clamp(max=P - 1)
+    pv = tuple(gs.verts[gs.indices[pids, k]][None] for k in range(gs.dim))
+    valid = torch.arange(Pp, device=q.device) < P
+    meas = gs.prim_measure[pids]
+    n = q.shape[0]
+    idx = torch.empty((n,), dtype=torch.int32, device=q.device)
+    pdf = torch.empty((n,), device=q.device)
+    for sl in _lane_chunks(n, Pp):
+        Rc = R[sl, None]
+        dd, _ = prim_closest_point(gs.dim, q[sl, None, :], pv)   # (m, Pp)
+        gw = green_eval(torch.clamp(dd, min=GREEN_R_CLAMP), Rc, gs.dim)
+        w = torch.where((dd < Rc) & valid, meas * torch.clamp(gw, min=0.0),
+                        0.0)
+        m = w.shape[0]
+        w = w.view(m, Pp // chunk, chunk)
+        # the running sum over the chunks, in the reference's order
+        run = torch.cumsum(w.sum(dim=-1).t().contiguous(), dim=0).t()
+        total = run[:, -1]
+        cum = torch.cat([torch.zeros_like(run[:, :1]), run[:, :-1]], dim=1)
+        cdf = cum[:, :, None] + torch.cumsum(w, dim=-1)
+        hits = ((u[sl, None, None] * total[:, None, None] < cdf)
+                & (w > 0)).view(m, Pp)
+        j = torch.argmax(hits.to(torch.uint8), dim=-1)      # first hit
+        ok = (total > 0) & hits.any(dim=-1)
+        w_sel = w.view(m, Pp).gather(1, j[:, None])[:, 0]
+        m_sel = meas[j]
+        pdf[sl] = torch.where(
+            ok, w_sel / (torch.clamp(total, min=1e-30)
+                         * torch.clamp(m_sel, min=1e-30)), 0.0)
+        idx[sl] = torch.where(ok, j, -1).to(torch.int32)
+    return idx, pdf
+
+
 def sample_in_ball(gs: GeomSet, q, R, u):
     """Importance-sample a prim inside ball(q, R) with weights
     measure x G_R(distance); returns (prim id, pdf per unit boundary
-    measure), with id -1 and pdf 0 when nothing overlaps."""
-    check_dense(gs)
+    measure), with id -1 and pdf 0 when nothing overlaps.  Dense up to
+    BRUTE_FORCE_MAX prims, chunked up to CHUNKED_DENSE_MAX."""
+    if gs.n_prims > CHUNKED_DENSE_MAX:
+        _no_bvh(gs, "sample_in_ball")
+    if gs.n_prims > BRUTE_FORCE_MAX:
+        return _sample_in_ball_chunked(gs, q, R, u)
     d, _ = prim_closest_point(gs.dim, q[:, None, :], _prim_verts_all(gs))
     inside = d < R[:, None]
     gw = green_eval(torch.clamp(d, min=GREEN_R_CLAMP), R[:, None], gs.dim)
@@ -128,7 +254,7 @@ def sample_in_ball(gs: GeomSet, q, R, u):
 
 
 # --------------------------------------------------------------------------- #
-# band-grid queries (3D)
+# band-grid queries
 # --------------------------------------------------------------------------- #
 
 
@@ -170,9 +296,10 @@ def grid_closest_silhouette(sg: BandGrid, q):
     """Distance (N,) to the nearest silhouette through the SilGrid:
     min(nearest kept entity, the cell's r_cap), exact below r_cap and a
     lower bound above it, either way a valid star radius; the bbox
-    distance outside the grid."""
+    distance outside the grid.  Kernel K9 (``sil_band_2d`` in 2D)."""
     lin, outside, cell = _kernel_cell(sg, q)
-    d2 = K.sil_band(cell, q.contiguous(), sg.coords)
+    sweep = K.sil_band if q.shape[1] == 3 else K.sil_band_2d
+    d2 = sweep(cell, q.contiguous(), sg.coords)
     # padded slots pass the sign test at ~1e18: a cell whose kept
     # entities all fail it finds nothing
     found = torch.where(d2 >= 1e17, float("inf"), torch.sqrt(d2))
@@ -228,13 +355,44 @@ def band_neumann_walk(bg: BandGrid, gs: GeomSet, q, R, on_n, n_normal,
         wnormal=torch.where(outside[:, None], 0.0, out[:, 12:15]))
 
 
+def _band_rows(bg: BandGrid, q):
+    """(rows (N, K), valid (N, K)): the prim ids of each point's band
+    row; out-of-grid points get no valid slot."""
+    lin, outside = band_cell(bg, q)
+    rows = bg.rows[torch.where(outside, 0, lin)]
+    return rows, (rows >= 0) & ~outside[:, None]
+
+
+def _band_ray_gather(bg: BandGrid, gs: GeomSet, o, d, tmax, refp):
+    """band_ray_intersect on the rows' gathered corners (the reference's
+    form for a grid without a corner table), in lane chunks."""
+    n = o.shape[0]
+    t = torch.empty((n,), device=o.device)
+    pid = torch.empty((n,), dtype=torch.int32, device=o.device)
+    for n0 in range(0, n, _CHUNK_LANES):
+        sl = slice(n0, n0 + _CHUNK_LANES)
+        rows, valid = _band_rows(bg, refp[sl])
+        safe = rows.clamp(min=0)
+        pv = gs.prim_verts(safe)                           # (m, K, D) each
+        hit_k, t_k = prim_ray_intersect(gs.dim, o[sl, None, :],
+                                        d[sl, None, :], pv, tmax[sl, None])
+        t_k = torch.where(hit_k & valid, t_k, torch.full_like(t_k, _INF))
+        j = torch.argmin(t_k, dim=-1, keepdim=True)        # first minimum
+        t[sl] = t_k.gather(-1, j)[:, 0]
+        pid[sl] = safe.gather(-1, j)[:, 0]
+    hit = torch.isfinite(t) & (t <= tmax)
+    return hit, torch.where(hit, t, _INF), torch.where(hit, pid, 0)
+
+
 def band_ray_intersect(bg: BandGrid, gs: GeomSet, o, d, tmax, ref=None):
     """(hit, t, pid): the closest hit of the rays o + t d, t in (1e-6,
     tmax], over the prim band of ``ref``'s cell (default: the origin's),
-    kernel K7.  ``ref`` matters when the origin is an eps offset off a
-    boundary: the offset point can sit in a neighbouring cell, whose
-    r_cap the ray's length was not clamped to.  Misses give t = inf and
-    pid 0."""
+    kernel K7 in 3D and the gather form in 2D.  ``ref`` matters when the
+    origin is an eps offset off a boundary: the offset point can sit in a
+    neighbouring cell, whose r_cap the ray's length was not clamped to.
+    Misses give t = inf and pid 0."""
+    if bg.coords is None:
+        return _band_ray_gather(bg, gs, o, d, tmax, o if ref is None else ref)
     lin, outside, cell = _kernel_cell(bg, o if ref is None else ref)
     t, slot = K.band_ray(cell, o.contiguous(), d.contiguous(),
                          tmax.contiguous(), bg.coords)
@@ -245,11 +403,47 @@ def band_ray_intersect(bg: BandGrid, gs: GeomSet, o, d, tmax, ref=None):
             torch.where(hit, torch.clamp(pid, min=0), 0).to(torch.int32))
 
 
+def _band_ball_gather(bg: BandGrid, gs: GeomSet, q, R, u):
+    """band_sample_in_ball on the rows' gathered corners (the reference's
+    form for a grid without a corner table), in lane chunks."""
+    n = q.shape[0]
+    idx = torch.empty((n,), dtype=torch.int32, device=q.device)
+    pdf = torch.empty((n,), device=q.device)
+    for n0 in range(0, n, _CHUNK_LANES):
+        sl = slice(n0, n0 + _CHUNK_LANES)
+        rows, valid = _band_rows(bg, q[sl])
+        safe = rows.clamp(min=0)
+        dd, _ = prim_closest_point(gs.dim, q[sl, None, :],
+                                   gs.prim_verts(safe))      # (m, K)
+        Rc = R[sl, None]
+        inside = valid & (dd < Rc)
+        gw = green_eval(torch.clamp(dd, min=GREEN_R_CLAMP), Rc, gs.dim)
+        meas = gs.prim_measure[safe.long()]
+        w = torch.where(inside, meas * torch.clamp(gw, min=0.0),
+                        torch.zeros_like(dd))
+        total = w.sum(dim=-1)
+        # the short row axis scanned as the outer axis (see sample_in_ball)
+        cdf = torch.cumsum(w.t().contiguous(), dim=0).t()
+        target = u[sl] * total
+        k = (target[:, None] >= cdf).sum(dim=-1).clamp(max=w.shape[1] - 1)
+        w_sel = w.gather(-1, k[:, None])[:, 0]
+        m_sel = meas.gather(-1, k[:, None])[:, 0]
+        ok = (total > 0) & (w_sel > 0)
+        pdf[sl] = torch.where(ok, w_sel / (torch.clamp(total, min=1e-30)
+                                           * torch.clamp(m_sel, min=1e-30)),
+                              torch.zeros_like(total))
+        idx[sl] = torch.where(ok, safe.gather(-1, k[:, None])[:, 0], -1)
+    return idx, pdf
+
+
 def band_sample_in_ball(bg: BandGrid, gs: GeomSet, q, R, u):
     """(prim id, pdf per unit area): the Green-weighted in-ball prim
-    sample over the band row of q's cell, kernel K8; -1 and 0 when no prim
-    weighs.  The pdf takes the prim's measure (the sample is uniform on
-    the prim); the kernel's in-tile area only weights the CDF."""
+    sample over the band row of q's cell, kernel K8 in 3D and the gather
+    form in 2D; -1 and 0 when no prim weighs.  The pdf takes the prim's
+    measure (the sample is uniform on the prim); the kernel's in-tile
+    area only weights the CDF."""
+    if bg.coords is None:
+        return _band_ball_gather(bg, gs, q, R, u)
     lin, outside, cell = _kernel_cell(bg, q)
     slot, w_sel, total = K.band_ball(cell, q.contiguous(), R.contiguous(),
                                      u.contiguous(), bg.coords)

@@ -11,6 +11,7 @@ nvcc or a failed build raises.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 
@@ -42,9 +43,10 @@ def load_library(name: str, source: str, signatures: dict) -> ctypes.CDLL:
     each function's argtypes set from ``signatures`` and restype int."""
     lib = _LIBS.get(name)
     if lib is None:
+        csrc = os.path.join(PKG_DIR, "csrc")
         lib = ctypes.CDLL(build_shared(
-            name, [nvcc()], [os.path.join(PKG_DIR, "csrc", source)],
-            NVCC_FLAGS))
+            name, [nvcc()], [os.path.join(csrc, source)], NVCC_FLAGS,
+            headers=sorted(glob.glob(os.path.join(csrc, "*.cuh")))))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).restype = ctypes.c_int
             getattr(lib, fn).argtypes = argtypes

@@ -1,7 +1,9 @@
-"""Neumann band-grid kernels K6-K9: wrappers, plain versions, build.
+"""Neumann band-grid kernels K6-K9 and the 2D closest-segment sweeps K12,
+K13: wrappers, plain versions, build.
 
 Port of ``band_neumann_walk_dma_3d``, ``band_ray_dma_3d``,
-``band_ball_dma_3d`` and ``sil_band_dma`` (3D) of
+``band_ball_dma_3d``, ``sil_band_dma`` (3D and 2D),
+``closest_point_dense_pallas`` and ``candidate_band_pallas`` of
 ``elaina_tpu/ops/pallas_queries.py``.  The CUDA sources are in
 ``csrc/queries.cu`` (built and bound as ``ops/cuda.py`` says).  Each
 wrapper checks its inputs, allocates its outputs, launches on the current
@@ -14,7 +16,15 @@ Contracts (the TPU kernels', minus the per-lane DMAs):
 * ``sil_band(cell, q, coords) -> d2 (N,)``: the least squared distance
   from q to the entities of its SilGrid cell that pass s1 s2 <= 0 (point
   to segment, t clamped to [0, 1]); +inf where cell < 0.  Padded slots
-  give ~1e18, which the caller reads as "none".
+  give ~1e18, which the caller reads as "none".  ``sil_band_2d`` is the
+  same over a 2D cell table (C, 6, Kp), point to vertex.
+* ``closest_point_dense(q, seg_a, seg_b) -> (dist (N,), prim (N,))``: the
+  closest of all P segments, dist = sqrt(min d^2) and the smallest index
+  attaining it (0 when every d^2 overflows).
+* ``candidate_band(q, vax, vay, vbx, vby, valid) -> (dist, slot)``: the
+  closest of each lane's own K gathered segments among its valid slots,
+  dist = sqrt(min d^2) (inf when none is valid) and the smallest slot
+  attaining it (0 when the min is inf).
 * ``band_neumann_walk(cell, q, R, on, n_normal, u_sel, u_pt, d_walk, eps,
   coords) -> (out (N, 15), slot (N,))``: the Green-weighted in-ball CDF
   sample over the lane's prim-band cell, its sample point, plane side and
@@ -47,13 +57,17 @@ from .cuda import check as _check
 from .cuda import launch as _launch
 from .cuda import load_library
 from .cuda import ptr as _ptr
-from .resolve import tri_d2_planes
+from .resolve import seg_d2, tri_d2_planes
 
 INV_4PI = float(np.float32(1.0 / (4.0 * math.pi)))
 _PLAIN_CHUNK = 16384    # lanes per chunk of the plain versions
+_PLAIN_PAIRS = 1 << 24  # lanes x segments per chunk of K13's plain version
 
 _SIGNATURES = {
     "sil_band_launch": [VP, VP, VP, I64, I32, VP, VP],
+    "sil_band_2d_launch": [VP, VP, VP, I64, I32, VP, VP],
+    "closest_point_dense_launch": [VP, VP, VP, I64, I32, VP, VP, VP],
+    "candidate_band_launch": [VP, VP, VP, VP, VP, VP, I64, I32, VP, VP, VP],
     "band_neumann_walk_launch": [VP, VP, VP, VP, VP, VP, VP, VP, F32, VP,
                                  I64, I32, VP, VP, VP],
     "band_ray_launch": [VP, VP, VP, VP, VP, I64, I32, VP, VP, VP],
@@ -84,46 +98,151 @@ def _cross(u, v):
 # --------------------------------------------------------------------------- #
 
 
-def sil_band_plain(cell, q, coords):
+def _sil_band_plain(cell, q, coords, dim: int):
     n = cell.shape[0]
     d2 = torch.full((n,), float("inf"), dtype=torch.float32, device=q.device)
     sel = torch.nonzero(cell >= 0).flatten()
     for c0 in range(0, sel.numel(), _PLAIN_CHUNK):
         ids = sel[c0:c0 + _PLAIN_CHUNK]
-        pl = coords[cell[ids].long()].unbind(1)            # 12 x (m, Kp)
-        qk = [q[ids, k:k + 1] for k in range(3)]
-        e = [pl[3 + k] - pl[k] for k in range(3)]
-        w = [qk[k] - pl[k] for k in range(3)]
-        den = torch.clamp(_dot(e, e), min=1e-30)
-        t = torch.clamp(_dot(w, e) / den, 0.0, 1.0)
-        v = [w[k] - t * e[k] for k in range(3)]
-        s1 = _dot(pl[6:9], v)
-        s2 = _dot(pl[9:12], v)
-        d = torch.where(s1 * s2 <= 0.0, _dot(v, v),
-                        torch.full_like(t, float("inf")))
+        pl = coords[cell[ids].long()].unbind(1)       # 12 or 6 x (m, Kp)
+        qk = [q[ids, k:k + 1] for k in range(dim)]
+        if dim == 3:
+            e = [pl[3 + k] - pl[k] for k in range(3)]
+            w = [qk[k] - pl[k] for k in range(3)]
+            den = torch.clamp(_dot(e, e), min=1e-30)
+            t = torch.clamp(_dot(w, e) / den, 0.0, 1.0)
+            v = [w[k] - t * e[k] for k in range(3)]
+            s1 = _dot(pl[6:9], v)
+            s2 = _dot(pl[9:12], v)
+            dd = _dot(v, v)
+        else:
+            v = [qk[k] - pl[k] for k in range(2)]
+            s1 = pl[2] * v[0] + pl[3] * v[1]
+            s2 = pl[4] * v[0] + pl[5] * v[1]
+            dd = v[0] * v[0] + v[1] * v[1]
+        d = torch.where(s1 * s2 <= 0.0, dd, torch.full_like(dd, float("inf")))
         d2[ids] = d.min(dim=1).values
     return d2
 
 
-def sil_band(cell, q, coords):
+def sil_band_plain(cell, q, coords):
+    return _sil_band_plain(cell, q, coords, 3)
+
+
+def sil_band_2d_plain(cell, q, coords):
+    return _sil_band_plain(cell, q, coords, 2)
+
+
+def _sil_band(wrapper, fn: str, cell, q, coords, dim: int):
     n = cell.shape[0]
     dev = q.device
     C, _, Kp = coords.shape
     _check("cell", cell, torch.int32, (n,), dev)
-    _check("q", q, torch.float32, (n, 3), dev)
-    _check("coords", coords, torch.float32, (C, 12, Kp), dev)
+    _check("q", q, torch.float32, (n, dim), dev)
+    _check("coords", coords, torch.float32, (C, 12 if dim == 3 else 6, Kp),
+           dev)
     if Kp % 32:
         raise ValueError(f"coords has {Kp} slots per cell")
     if dev.type == "cpu":
-        return sil_band_plain(cell, q, coords)
+        return _sil_band_plain(cell, q, coords, dim)
     d2 = torch.empty((n,), dtype=torch.float32, device=dev)
-    _launch(library().sil_band_launch, _ptr(cell), _ptr(q), _ptr(coords), n,
+    _launch(getattr(library(), fn), _ptr(cell), _ptr(q), _ptr(coords), n,
             Kp, _ptr(d2), device=dev)
-    sil_band.launches += 1
+    wrapper.launches += 1
     return d2
 
 
+def sil_band(cell, q, coords):
+    return _sil_band(sil_band, "sil_band_launch", cell, q, coords, 3)
+
+
 sil_band.launches = 0
+
+
+def sil_band_2d(cell, q, coords):
+    return _sil_band(sil_band_2d, "sil_band_2d_launch", cell, q, coords, 2)
+
+
+sil_band_2d.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# K13 closest_point_dense
+# --------------------------------------------------------------------------- #
+
+
+def closest_point_dense_plain(q, seg_a, seg_b):
+    n = q.shape[0]
+    P = seg_a.shape[0]
+    dist = torch.empty((n,), dtype=torch.float32, device=q.device)
+    prim = torch.empty((n,), dtype=torch.int32, device=q.device)
+    ax, ay = seg_a[:, 0], seg_a[:, 1]
+    ex, ey = seg_b[:, 0] - ax, seg_b[:, 1] - ay
+    m = max(1, _PLAIN_PAIRS // P)
+    for c0 in range(0, n, m):
+        qc = q[c0:c0 + m]
+        d2 = seg_d2(qc[:, 0:1] - ax, qc[:, 1:2] - ay, ex, ey)[0]  # (m, P)
+        s = torch.argmin(d2, dim=1, keepdim=True)          # first minimum
+        dist[c0:c0 + m] = torch.sqrt(d2.gather(1, s)[:, 0])
+        prim[c0:c0 + m] = s[:, 0].to(torch.int32)
+    return dist, prim
+
+
+def closest_point_dense(q, seg_a, seg_b):
+    n = q.shape[0]
+    P = seg_a.shape[0]
+    dev = q.device
+    _check("q", q, torch.float32, (n, 2), dev)
+    _check("seg_a", seg_a, torch.float32, (P, 2), dev)
+    _check("seg_b", seg_b, torch.float32, (P, 2), dev)
+    if P == 0 or P > np.iinfo(np.int32).max:
+        raise ValueError(f"{P} segments")
+    if dev.type == "cpu":
+        return closest_point_dense_plain(q, seg_a, seg_b)
+    dist = torch.empty((n,), dtype=torch.float32, device=dev)
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    _launch(library().closest_point_dense_launch, _ptr(q), _ptr(seg_a),
+            _ptr(seg_b), n, P, _ptr(dist), _ptr(prim), device=dev)
+    closest_point_dense.launches += 1
+    return dist, prim
+
+
+closest_point_dense.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# K12 candidate_band
+# --------------------------------------------------------------------------- #
+
+
+def candidate_band_plain(q, vax, vay, vbx, vby, valid):
+    d2 = seg_d2(q[:, 0:1] - vax, q[:, 1:2] - vay, vbx - vax, vby - vay)[0]
+    d2 = torch.where(valid, d2, torch.full_like(d2, float("inf")))
+    s = torch.argmin(d2, dim=1, keepdim=True)              # first minimum
+    return torch.sqrt(d2.gather(1, s)[:, 0]), s[:, 0].to(torch.int32)
+
+
+def candidate_band(q, vax, vay, vbx, vby, valid):
+    n, K = vax.shape
+    dev = q.device
+    _check("q", q, torch.float32, (n, 2), dev)
+    for name, x in (("vax", vax), ("vay", vay), ("vbx", vbx), ("vby", vby)):
+        _check(name, x, torch.float32, (n, K), dev)
+    _check("valid", valid, torch.bool, (n, K), dev)
+    if K == 0:
+        raise ValueError("no candidate slots")
+    if dev.type == "cpu":
+        return candidate_band_plain(q, vax, vay, vbx, vby, valid)
+    dist = torch.empty((n,), dtype=torch.float32, device=dev)
+    slot = torch.empty((n,), dtype=torch.int32, device=dev)
+    _launch(library().candidate_band_launch, _ptr(q), _ptr(vax), _ptr(vay),
+            _ptr(vbx), _ptr(vby), _ptr(valid), n, K, _ptr(dist), _ptr(slot),
+            device=dev)
+    candidate_band.launches += 1
+    return dist, slot
+
+
+candidate_band.launches = 0
 
 
 # --------------------------------------------------------------------------- #
@@ -364,7 +483,8 @@ def band_ball(cell, q, R, u, coords):
 
 band_ball.launches = 0
 
-KERNELS = (band_neumann_walk, band_ray, band_ball, sil_band)
+KERNELS = (band_neumann_walk, band_ray, band_ball, sil_band, sil_band_2d,
+           closest_point_dense, candidate_band)
 
 
 def reset_launch_counts():

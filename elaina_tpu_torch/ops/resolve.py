@@ -116,7 +116,7 @@ compact_lanes.launches = 0
 # --------------------------------------------------------------------------- #
 
 
-def _seg_d2(wx, wy, ex, ey):
+def seg_d2(wx, wy, ex, ey):
     """(d^2, t): the squared distance from a + w to the segment a + t e,
     t = clip((w . e) / max(|e|^2, 1e-30), 0, 1) (csrc ``seg_d2``)."""
     den = torch.clamp(ex * ex + ey * ey, min=1e-30)
@@ -145,7 +145,7 @@ def sweep_resolve_plain(mask, row, q, coords, cand):
         ey = by - ay
         wx = qx - ax
         wy = qy - ay
-        d2, tt = _seg_d2(wx, wy, ex, ey)
+        d2, tt = seg_d2(wx, wy, ex, ey)
         slot = torch.argmin(d2, dim=1, keepdim=True)       # first minimum
         d[ids] = torch.sqrt(d2.gather(1, slot)[:, 0])
         t[ids] = tt.gather(1, slot)[:, 0]
@@ -336,7 +336,7 @@ sweep_resolve_3d.launches = 0
 def _segment_d2_planes(q, c):
     """K2's segment distance on (m, Kp) planes (ax, ay, bx, by)."""
     ax, ay, bx, by = c
-    return _seg_d2(q[0] - ax, q[1] - ay, bx - ax, by - ay)[0]
+    return seg_d2(q[0] - ax, q[1] - ay, bx - ax, by - ay)[0]
 
 
 def _grid_band_plain(row, q, coords, dim: int):

@@ -8,7 +8,8 @@ frames when the config asks.  The balanced persistent solve, which runs
 the same estimator with lanes restarting as their walks die, is a later
 port.  The one-shot channels fill their films from one query over the
 frame's points (integrator.py:96-131): DIRICHLET_SDF the distance to the
-Dirichlet boundary (the chain path, K10 / K11), NEUMANN_SDF the exact
+Dirichlet boundary (the chain path, K10 / K11; without a grid
+``closest_point``, K13 in 2D), NEUMANN_SDF the exact
 distance to the nearest Neumann silhouette, SOURCE the source's value;
 a scene without the boundary or the source gets inf or zeros there.
 """

@@ -6,16 +6,19 @@ is one walk; a depth step updates all lanes with masked tensor ops, in
 the stage order of the reference's solve loop:
 
   _separate       star radius + epsilon-shell test (Dirichlet resolve on
-                  kernels K1-K3 in 2D, K1, K4, K5 in 3D; the Neumann
-                  silhouette distance, in 3D over the SilGrid (K9) and
-                  clamped to the prim band's completeness cap)
+                  kernels K1-K3 in 2D, K1, K4, K5 in 3D; a set without a
+                  grid: the exact closest point on every lane, K13 in 2D;
+                  the Neumann silhouette distance, over the SilGrid (K9,
+                  3D and 2D) where the set has one, and clamped to the
+                  prim band's completeness cap where it has that)
   _boundary_term  Dirichlet shell contribution
   _source_term    volumetric source: one Green-sampled point in the star,
                   its radius clipped on the Neumann boundary (3D: K7)
-  _neumann_term   Neumann boundary integral, subtracted (2D dense; the
+  _neumann_term   Neumann boundary integral, subtracted (2D: the dense or
+                  chunked sweep, or the prim band's gather form; the
                   unfused 3D step: K8 and K7 over the prim band)
-  _walk           mean-value step, clipped on the Neumann boundary (2D
-                  dense; the unfused 3D step: K7)
+  _walk           mean-value step, clipped on the Neumann boundary (2D as
+                  _neumann_term; the unfused 3D step: K7)
   _neumann_walk_fused
                   3D: the Neumann term and the walk ray of one step over
                   the prim band of each lane's cell (K6); the default,
@@ -84,9 +87,32 @@ def _surface_color(dim, colors, gs, pid, side, uv):
 
 
 def dirichlet_distance(scene: Scene, q):
-    """(distance, prim id) to the Dirichlet boundary through the chain
-    path of its candidate grid (K10 in 2D, K11 in 3D)."""
+    """(distance, prim id) to the Dirichlet boundary: through the chain
+    path of its candidate grid (K10 in 2D, K11 in 3D), or without a grid
+    through ``closest_point`` (K13 in 2D)."""
+    if scene.d_grid is None:
+        return Q.closest_point(scene.dirichlet.gs, q)
     return grid_closest_point(scene.d_grid, q)
+
+
+def _dense_dirichlet(scene: Scene, q, active, eps: float):
+    """Dirichlet resolve of a set without a grid (the reference's
+    ``dirichlet_distance_masked`` without a grid, wost.py:129-138, and
+    ``_separate``'s shell test, :340-352): the exact distance on every
+    lane, need = active.  Returns (R_D, in_shell, color (N, 3), need); the
+    color is the winner's side-selected, interpolated color on every
+    lane."""
+    dim = scene.dim
+    gs = scene.dirichlet.gs
+    d, pid, uv, side = Q.closest_point_detail(gs, q)
+    if dim == 2:
+        interior = (uv > 0.0) & (uv < 1.0)
+    else:
+        interior = (uv[:, 0] > 0.0) & (uv[:, 1] > 0.0) & (uv[:, 0] + uv[:, 1]
+                                                          < 1.0)
+    in_shell = active & (d < eps) & interior
+    color = _surface_color(dim, scene.dirichlet.colors, gs, pid, side, uv)
+    return d, in_shell, color, active
 
 
 def _resolve_2d(g, valid, row_c, q_c, eps: float):
@@ -172,21 +198,27 @@ def _separate(scene: Scene, state: WalkState, eps: float, shrink: bool):
         in_shell = torch.zeros((n,), dtype=torch.bool, device=dev)
         bcolor = torch.zeros((n, 3), device=dev)
         need = in_shell
+    elif scene.d_grid is None:
+        R_D, in_shell, bcolor, need = _dense_dirichlet(scene, q,
+                                                       state.active, eps)
     else:
         R_D, in_shell, bcolor, need = _fast_dirichlet(scene, q,
                                                       state.active, eps)
     if scene.neumann is None:
         R_N = inf
-    elif scene.dim == 2:
-        R_N = Q.closest_silhouette(scene.neumann.gs, q)
     else:
-        R_N = Q.grid_closest_silhouette(scene.n_sgrid, q)
-        # clamp to the prim band's completeness cap, less 2 eps for the
-        # eps-offset ray origins: within it one band row holds every prim
-        # the step's ball and rays can touch (reference wost.py:354-373).
-        # Cells with r_cap ~ 0 drop R_N to 0 and R_B to the 1e-4 floor.
-        rcap = Q.band_r_cap(scene.n_bgrid, q)
-        R_N = torch.minimum(R_N, torch.clamp(rcap - 2.0 * eps, min=0.0))
+        if scene.n_sgrid is not None:
+            R_N = Q.grid_closest_silhouette(scene.n_sgrid, q)
+        else:
+            R_N = Q.closest_silhouette(scene.neumann.gs, q)
+        if scene.n_bgrid is not None:
+            # clamp to the prim band's completeness cap, less 2 eps for
+            # the eps-offset ray origins: within it one band row holds
+            # every prim the step's ball and rays can touch (reference
+            # wost.py:354-373).  Cells with r_cap ~ 0 drop R_N to 0 and
+            # R_B to the 1e-4 floor.
+            rcap = Q.band_r_cap(scene.n_bgrid, q)
+            R_N = torch.minimum(R_N, torch.clamp(rcap - 2.0 * eps, min=0.0))
     R_B = torch.clamp(torch.minimum(R_D, R_N), min=1e-4)
     if shrink:
         R_B = R_B * 0.99
@@ -223,7 +255,8 @@ def _source_term(scene: Scene, state: WalkState, live, R_B, gen,
     """Volumetric source contribution (integrator.cu:234-316): one point
     at a Green-sampled radius along a sampled direction, counted when the
     radius stays short of the first Neumann hit from ``pos + eps dir``
-    (3D: over the prim band of pos's cell, K7; 2D: the dense sweep)."""
+    (over the prim band of pos's cell where the set has one, K7 in 3D;
+    else the sweep)."""
     dim = scene.dim
     n = state.pos.shape[0]
     direction, dir_pdf, alpha = _sample_direction(
@@ -426,14 +459,17 @@ def wost_depth_step(scene: Scene, state: WalkState, gens: dict,
 
 
 def check_neumann(scene: Scene):
-    """A 2D Neumann set takes the dense sweeps, a 3D one its band grids."""
+    """A 3D Neumann set takes its band grids; a 2D one the sweeps or, above
+    CHUNKED_DENSE_MAX prims, its prim-band grid."""
     if scene.neumann is None:
         return
-    if scene.dim == 2:
-        Q.check_dense(scene.neumann.gs)
-    elif scene.n_sgrid is None or scene.n_bgrid is None:
+    if scene.dim == 3 and (scene.n_sgrid is None or scene.n_bgrid is None):
         raise ValueError("a 3D Neumann set needs its silhouette and "
                          "prim-band grids")
+    if (scene.n_bgrid is None
+            and scene.neumann.gs.n_prims > Q.CHUNKED_DENSE_MAX):
+        raise ValueError(f"a 2D Neumann set above {Q.CHUNKED_DENSE_MAX} "
+                         f"prims needs its prim-band grid")
 
 
 def run_one_sample(scene: Scene, eval_points, mask, gens: dict, *,

@@ -21,10 +21,11 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 
 def build_shared(name: str, compiler: list[str], sources: list[str],
-                 flags: list[str]) -> str:
-    """Compile ``sources`` into ``_build/lib<name>-<hash>.so``; return it."""
+                 flags: list[str], headers: tuple = ()) -> str:
+    """Compile ``sources`` into ``_build/lib<name>-<hash>.so``; return it.
+    ``headers`` are the files the sources include: they enter the hash."""
     h = hashlib.sha1(" ".join(compiler + flags).encode())
-    for src in sources:
+    for src in list(sources) + list(headers):
         with open(src, "rb") as f:
             h.update(f.read())
     out = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")

@@ -1,6 +1,8 @@
-"""The scenes of ``chip_smoke.py``: a full-scale synthetic 2D scene, the
-repository's 3D configs with their data in the checkout (as shipped, or
-neumann3d_u with a volumetric source), and the mixed Dirichlet/Neumann
+"""The scenes of ``chip_smoke.py``: a full-scale synthetic 2D scene (its
+Neumann box straight or traced as a wavy curve of many segments, its
+Dirichlet set cut down to bench.py's curve alone), bench.py's own scene,
+the repository's 3D configs with their data in the checkout (as shipped,
+or neumann3d_u with a volumetric source), and the mixed Dirichlet/Neumann
 cube (with or without a unit source).
 
 The reference's own ``u.json`` workload (configs/ladybug_u.json) runs on a
@@ -48,10 +50,50 @@ def outline_radius(theta: np.ndarray) -> np.ndarray:
     return 200.0 + 50.0 * np.sin(9 * theta)
 
 
+def bench_square_scene():
+    """``bench.py``'s own scene without the reference data
+    (``_build_square_problem``): the lobed curve at 2,048 segments, closed,
+    and its seed-0 two-sided vertex colors.  (verts (2048, 2), indices
+    (2048, 2) int32, colors (2048, 2, 3)) as numpy arrays."""
+    verts = lobed_curve(2048)
+    n = len(verts)
+    idx = np.stack([np.arange(n), (np.arange(n) + 1) % n],
+                   -1).astype(np.int32)
+    colors = np.random.default_rng(0).uniform(0, 1, (n, 2, 3))
+    return verts, idx, colors.astype(np.float32)
+
+
+def neumann_box(segments: int = 4, amp: float = 4.0,
+                periods: int = 32) -> np.ndarray:
+    """The Neumann box [-50, 550]^2 as one closed CCW loop of
+    ``segments`` vertices: its 4 corners, or above 4 each side cut into
+    segments / 4 pieces and displaced along its normal by amp sin(2 pi
+    periods s), s in [0, 1] along the side (zero at the corners)."""
+    corners = np.array([[-50, -50], [550, -50], [550, 550], [-50, 550]],
+                       np.float64)
+    if segments == 4:
+        return corners.astype(np.float32)
+    if segments % 4:
+        raise ValueError(f"{segments} segments: a multiple of 4")
+    s = np.arange(segments // 4) / (segments // 4)
+    sides = []
+    for k in range(4):
+        a, b = corners[k], corners[(k + 1) % 4]
+        e = (b - a) / np.linalg.norm(b - a)
+        normal = np.array([e[1], -e[0]])                  # outward
+        sides.append(a + s[:, None] * (b - a)
+                     + amp * np.sin(2 * np.pi * periods * s)[:, None]
+                     * normal)
+    return np.concatenate(sides).astype(np.float32)
+
+
 def dirichlet_loops(segments: int = SEGMENTS) -> list[np.ndarray]:
     """The outline and, to reach ``segments``, spots of 1,024 segments
     (r = 10 + 2.5 sin(9t)) on the 29-unit lattice points nearest the
-    centre, all inside the outline."""
+    centre, all inside the outline.  At most 2,048 segments: the outline
+    alone, cut into that many."""
+    if segments <= 2048:
+        return [lobed_curve(segments)]
     loops = [lobed_curve(2048)]
     n_spots = (segments - 2048) // 1024
     ij = np.stack(np.meshgrid(np.arange(-6, 7), np.arange(-6, 7)),
@@ -77,14 +119,13 @@ def write_obj(path: str, loops: list[np.ndarray]) -> None:
 
 
 def write_scene(root: str, spp: int, segments: int = SEGMENTS,
-                frame: int = FRAME) -> str:
+                frame: int = FRAME, neumann_segments: int = 4) -> str:
     """Scene files (curve and box OBJs, seeded two-sided vertex colors)
-    and a reference-schema config under ``root``; returns its path."""
+    and a reference-schema config under ``root``; returns its path.  The
+    box is ``neumann_box(neumann_segments)``."""
     loops = dirichlet_loops(segments)
     write_obj(os.path.join(root, "curve.obj"), loops)
-    box = np.array([[-50, -50], [550, -50], [550, 550], [-50, 550]],
-                   np.float32)
-    write_obj(os.path.join(root, "box.obj"), [box])
+    write_obj(os.path.join(root, "box.obj"), [neumann_box(neumann_segments)])
     n_verts = sum(len(v) for v in loops)
     colors = np.random.default_rng(0).uniform(0, 1, (n_verts, 2, 3))
     np.savez(os.path.join(root, "colors.npz"),

@@ -168,7 +168,6 @@ def test_fused_step_matches_unfused(tmp_path, monkeypatch):
     / atol 1e-6, ``active`` equal, ``on_neumann`` >= 99% equal
     (tests/test_fused_band.py:155-190)."""
     from elaina_tpu_torch.core import problem as P
-    from elaina_tpu_torch.geometry.grid import build_fine_pack
     from elaina_tpu_torch.solver import wost as W
     from elaina_tpu_torch.utils.rng import sample_generators
     from elaina_tpu_torch.utils.scenes import (cube_boundary,
@@ -184,7 +183,8 @@ def test_fused_step_matches_unfused(tmp_path, monkeypatch):
     problem = P.Problem(3, CPU, verbose=False).load_config(conf)
     scene = problem.scene
     eps = 0.02
-    scene.d_grid.fine = build_fine_pack(scene.d_grid, eps)
+    # 36 Dirichlet triangles: no candidate grid, the dense 3D sweep
+    assert scene.d_grid is None and scene.dirichlet is not None
     n = 512
     pts = torch.as_tensor(np.random.default_rng(5).uniform(
         -0.8, 0.8, (n, 3)).astype(np.float32))

@@ -43,11 +43,11 @@ def grids(request):
     gj = G.build_candidate_grid(verts, idx, lo, hi, K=K, max_res=max_res)
     ga = TG.build_candidate_grid(verts, idx, lo, hi, K=K, max_res=max_res)
     colors = np.zeros((n, 2, 3), np.float32)
-    gp = TG.grid_from_numpy(
+    gp = TG.attach_coords(TG.grid_from_numpy(
         cand=ga.cand, meta=ga.meta, row_lbound=ga.row_lbound,
         row_diag=ga.row_diag, row_trunc=ga.row_trunc, origin=ga.origin,
         inv_cell=ga.inv_cell, res=ga.res, verts=verts, indices=idx,
-        colors=colors, device=CPU)
+        colors=colors, device=CPU))
     return gj, ga, gp, verts, idx
 
 

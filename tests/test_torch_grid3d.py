@@ -178,8 +178,9 @@ def test_device_tables_3d_match_jax():
     colors = np.random.default_rng(2).uniform(
         0, 1, (len(verts), 2, 3)).astype(np.float32)
     gjc = GJ.attach_shading(GJ.attach_coords(gj, verts, idx), colors, idx)
-    gp = GT.grid_from_numpy(**_grid_numpy(gj), verts=verts, indices=idx,
-                            colors=colors, device=CPU)
+    gp = GT.attach_coords(GT.grid_from_numpy(
+        **_grid_numpy(gj), verts=verts, indices=idx, colors=colors,
+        device=CPU))
     Kp = GT.padded_k(K)
     assert tuple(gp.coords.shape) == (gj.cand.shape[0], 9, Kp)
     np.testing.assert_array_equal(gp.coords[:, :, :K].numpy(),

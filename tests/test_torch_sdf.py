@@ -65,13 +65,14 @@ def _soup(n_tri=150, seed=21):
 
 
 def _port_grid(g, verts, idx):
-    """The port's CandidateGrid holding the JAX grid's arrays."""
-    return GT.grid_from_numpy(
+    """The port's CandidateGrid holding the JAX grid's arrays, with its
+    coordinate table."""
+    return GT.attach_coords(GT.grid_from_numpy(
         cand=np.asarray(g.cand), meta=[np.asarray(m) for m in g.meta],
         row_lbound=np.asarray(g.row_lbound), row_diag=np.asarray(g.row_diag),
         row_trunc=np.asarray(g.row_trunc), origin=np.asarray(g.origin),
         inv_cell=np.asarray(g.inv_cell), res=g.res, verts=verts, indices=idx,
-        colors=np.zeros((len(verts), 2, 3), np.float32), device=CPU)
+        colors=np.zeros((len(verts), 2, 3), np.float32), device=CPU))
 
 
 @pytest.fixture(scope="module")
@@ -220,7 +221,7 @@ def test_dirichlet_sdf_film_matches_jax(name, tmp_path, monkeypatch):
     path = write_config_copy(str(tmp_path), name, 1)
     conf = json.loads(open(path).read())
     assert conf["integrator"]["channels"] == ["SOLUTION", "DIRICHLET_SDF"]
-    result = run_expr(path)
+    result = run_expr(path, device="cpu")
     assert result["walk_steps"] > 0
     sdf = films["DIRICHLET_SDF"]
     w, h = conf["integrator"]["setting"]["frameSize"]

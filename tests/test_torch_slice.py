@@ -7,13 +7,15 @@ u = (x + 1) / 2 within the same bound at the same three points.
 CLIs (``run_expr``); both write a frame after every sample, from which each
 side's per-pixel mean and standard error follow.  The two estimators are
 the same, their random numbers are not, so the images must agree within
-their combined Monte Carlo error.  The circle runs at 64 segments (rows as
-wide as the set) and at 512 (K = 256 rows that hold a subset of the set,
-on several levels); on both, the FinePack's lower bound is the star radius
-of every lane it leaves unresolved.
+their combined Monte Carlo error.  The circle runs at 64 segments (no
+candidate grid: the exact closest segment on every lane) and at 512
+(K = 256 rows that hold a subset of the set, on several levels), where the
+FinePack's lower bound is the star radius of every lane it leaves
+unresolved.
 """
 
 import json
+from functools import partial
 import math
 import os
 
@@ -24,8 +26,9 @@ torch = pytest.importorskip("torch")
 
 from elaina_tpu.output.image_io import read_exr  # noqa: E402
 from elaina_tpu_torch.core.config import IntegratorSettings  # noqa: E402
-from elaina_tpu_torch.core.problem import (Problem, grid_bounds,  # noqa: E402
-                                           grid_size_for, scene_from_numpy)
+from elaina_tpu_torch.core.problem import (  # noqa: E402
+    GRID_ACCEL_MIN_PRIMS, Problem, grid_bounds, grid_size_for,
+    scene_from_numpy)
 from elaina_tpu_torch.geometry.grid import build_candidate_grid  # noqa: E402
 from elaina_tpu_torch.solver.integrator import UniformIntegrator  # noqa: E402
 
@@ -131,7 +134,9 @@ def _samples(out_dir, spp):
 def _cli_parity(tmp_path, monkeypatch, n_segments, depth=64):
     """Both CLIs on an n-segment circle; returns the port's result.json."""
     from elaina_tpu.exec import run_expr as run_jax
-    from elaina_tpu_torch.exec import run_expr as run_port
+    from elaina_tpu_torch.exec import run_expr
+
+    run_port = partial(run_expr, device="cpu")
 
     monkeypatch.setenv("ELAINA_CACHE_DIR", str(tmp_path / "cache"))
     spp = 32
@@ -152,9 +157,14 @@ def _cli_parity(tmp_path, monkeypatch, n_segments, depth=64):
         np.testing.assert_allclose(runs[name].mean(0), final, atol=1e-4)
     rp = json.loads((tmp_path / "exp" / "port" / "result.json").read_text())
     assert rp["device"] == "cpu"
-    # the need bit leaves some live lane-steps to the FinePack's bound
-    assert 0 < rp["resolved_lanes"] < rp["walk_steps"]
-    assert rp["table_bytes"]["coords"] > 0
+    if n_segments > GRID_ACCEL_MIN_PRIMS:
+        # the need bit leaves some live lane-steps to the FinePack's bound
+        assert 0 < rp["resolved_lanes"] < rp["walk_steps"]
+        assert rp["table_bytes"]["coords"] > 0
+    else:
+        # no candidate grid: every live lane-step is resolved exactly
+        assert rp["resolved_lanes"] == rp["walk_steps"]
+        assert rp["table_bytes"] == {}
 
     mp, mj = runs["port"].mean(0), runs["jax"].mean(0)
     var = (runs["port"].var(0, ddof=1) + runs["jax"].var(0, ddof=1)) / spp
@@ -168,8 +178,10 @@ def _cli_parity(tmp_path, monkeypatch, n_segments, depth=64):
 
 
 def test_cli_matches_jax_within_standard_error(tmp_path, monkeypatch):
+    """64 segments: no candidate grid (at most GRID_ACCEL_MIN_PRIMS), the
+    exact closest point on every lane through K13's plain version."""
     rp = _cli_parity(tmp_path, monkeypatch, 64)
-    assert rp["table_bytes"]["cand"] == 512 * 512 * 64 * 4  # one level, K = 64
+    assert "cand" not in rp["table_bytes"]
 
 
 def test_cli_matches_jax_on_large_set_rows(tmp_path, monkeypatch):
@@ -208,7 +220,7 @@ def test_unsupported_config_raises(tmp_path):
         path.write_text(json.dumps(c))
         with pytest.raises(err, match="ROADMAP" if err is NotImplementedError
                            else "channel"):
-            run_expr(str(path))
+            run_expr(str(path), device="cpu")
 
 
 def test_full_scale_scene(tmp_path):
