@@ -16,7 +16,10 @@ and never prints its last line:
 2. 2D kernels K1-K3 and K10 against their plain PyTorch versions, on the
    card, at the 2D main path's shapes: 1024^2 lanes, the synthetic scene's
    candidate rows, lanes whose FinePack need bits fired after a few depth
-   steps (K10: every pixel's row through ``grid_row_index``).
+   steps (K10: every pixel's row through ``grid_row_index``).  K1 also
+   back to back on 1024^2, 65,536 and 1024^2 lanes, with its edge cases
+   (a cap below the count and of 1, N off its tile, a mask off 16 bytes,
+   all-clear and all-set masks), ids and count exact.
 2c. K13, K12 and K9's 2D form against their plain versions: K13 on the
    1024^2 frame points x bench.py's 2,048 segments, and on a point at a
    shared vertex (a tie at 0: the smaller index wins); K12 on the same
@@ -101,7 +104,12 @@ and never prints its last line:
 
 The lines before the last hold the card's name and power limit and one
 JSON object with each kernel's launches, error, times and bound; the last
-line is ``{"ok": true, "device": {...}}``.
+line is ``{"ok": true, "device": {...}}``.  Each kernel and library call
+has two times: call ms (``ms``, ``library_ms``: one call with the device
+idle, between two CUDA events, the host's enqueue inside) and device ms
+(``device_ms``, ``library_device_ms``: the median per call of 100 calls
+enqueued behind a device-side wait), with the host's enqueue us per call
+over those 100 (``host_us``, ``library_host_us``).
 """
 
 from __future__ import annotations
@@ -109,7 +117,6 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -131,7 +138,8 @@ ROUTE_DEPTH = 256            # depth of the grid / no-grid comparison (4c)
 AGREE_SPP = 16               # samples a side of the chunked / band check (4e)
 WAVY_SPP = 8                 # samples of the wavy box of 8,192 segments (4f)
 WARM_STEPS = 3               # depth steps before the kernel phases take lanes
-TIMED_RUNS = 20              # CUDA-event runs per timing (median kept)
+K1_SIZES = (1048576, 65536, 1048576)   # K1's back-to-back edge cases: the
+#                              2D main path's lanes, the 3D one's, the 2D again
 TOL = 1e-5                   # rtol and atol of distances; ids and colors exact
 HBM_BYTES_S = 3.35e12        # H100 SXM device memory rate
 F32_FLOPS_S = 67e12          # H100 SXM float32 rate outside the tensor cores
@@ -249,24 +257,6 @@ def frame_points(conf_path: str) -> np.ndarray:
 # --------------------------------------------------------------------------- #
 
 
-def cuda_ms(fn, runs: int = TIMED_RUNS) -> float:
-    """Median milliseconds of ``fn()`` over CUDA-event-timed runs."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def bound(n_bytes: float, flops: float) -> tuple[float, str]:
     """The least time the card could take (ms) and what bounds it: the
     bytes the function must move at the memory rate, or its float32
@@ -290,20 +280,41 @@ class Kernels:
         self.records: dict[str, dict] = {}
 
     def add(self, name, err, fn, plain, library, n_bytes, flops):
+        """Time a kernel, its plain version and its library call: call ms
+        (``cuda_ms``) for all three, device ms and host us (``device_ms``)
+        for the kernel and the library call."""
+        from elaina_tpu_torch.utils.timing import (DEVICE_LAUNCHES,
+                                                   TIMED_RUNS, cuda_ms,
+                                                   device_ms)
+
         ms = cuda_ms(fn)
+        dev_ms, host_us, hidden = device_ms(fn)
         plain_ms = cuda_ms(plain)
-        library_ms = cuda_ms(library) if library is not None else None
+        lib = {"library_ms": None, "library_device_ms": None,
+               "library_host_us": None, "library_hidden": None}
+        if library is not None:
+            lib["library_ms"] = cuda_ms(library)
+            (lib["library_device_ms"], lib["library_host_us"],
+             lib["library_hidden"]) = device_ms(library)
         bound_ms, bound_by = bound(n_bytes, flops)
         source, replaces = KERNELS[name]
         self.records[name] = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
-        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        log(f"    {name}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library {lib}, bound {bound_ms:.4f} ms "
-            f"({bound_by}; median of {TIMED_RUNS}; {self.card})")
+            "ms": ms, "device_ms": dev_ms, "host_us": host_us,
+            "hidden": hidden, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, **lib}
+        lib_s = "none" if library is None else (
+            f"{lib['library_ms']:.4f} ms (device "
+            f"{lib['library_device_ms']:.4f} ms, host "
+            f"{lib['library_host_us']:.1f} us"
+            f"{'' if lib['library_hidden'] else ', not hidden'})")
+        log(f"    {name}: max_abs_err {err:.3g}, kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f} ms, host {host_us:.1f} us"
+            f"{'' if hidden else ', not hidden'}), plain {plain_ms:.4f} ms, "
+            f"library {lib_s}, bound {bound_ms:.4f} ms ({bound_by}; call ms "
+            f"median of {TIMED_RUNS}, device ms of {DEVICE_LAUNCHES}; "
+            f"{self.card})")
 
 
 # --------------------------------------------------------------------------- #
@@ -374,6 +385,47 @@ def need_lanes(g, state, n: int):
     safe = torch.where(valid, lanes, 0).long()
     return need, n_need, valid, state.pos[safe].contiguous(), \
         row[safe].contiguous()
+
+
+def check_compact_cases(need) -> None:
+    """K1 back to back on N = 1,048,576, 65,536 and 1,048,576 lanes (the
+    2D main path's need mask, then a seeded mask at the 3D main path's
+    density of 3,876 in 65,536): each mask with cap = N, cap = cnt / 2
+    and cap = 1, cut to N - 13 lanes (off the 4,096-lane tile) and viewed
+    from lane 13 (off 16 bytes), and all-clear and all-set masks of N
+    lanes.  Every call is enqueued before any is read, so a status word
+    left by one call would show in the next; ids and cnt must equal the
+    plain version's exactly."""
+    import torch
+
+    from elaina_tpu_torch.ops import resolve as R
+
+    gen = torch.Generator(device=need.device)
+    gen.manual_seed(3)
+    calls = []
+    for n in K1_SIZES:
+        if n == need.shape[0]:
+            m = need
+        else:
+            m = torch.rand(n, generator=gen, device=need.device) < 3876 / n
+        cnt = int(m.sum())
+        for mask, cap in ((m, n), (m, max(cnt // 2, 1)), (m, 1),
+                          (m[:n - 13], n), (m[13:], n),
+                          (torch.zeros_like(m), n), (torch.ones_like(m), n),
+                          (torch.ones_like(m), n // 3)):
+            calls.append((mask, cap, R.compact_lanes(mask, cap)))
+    for mask, cap, (lanes, cnt) in calls:
+        lanes_p, cnt_p = R.compact_lanes_plain(mask, cap)
+        k = min(int(cnt_p), cap)
+        if not (torch.equal(cnt, cnt_p) and torch.equal(lanes[:k],
+                                                        lanes_p[:k])):
+            raise RuntimeError(f"compact_lanes differs on {mask.shape[0]} "
+                               f"lanes, {int(cnt_p)} set, cap {cap}: cnt "
+                               f"{int(cnt)}")
+    log(f"    compact_lanes: {len(calls)} calls back to back on "
+        f"{', '.join(str(n) for n in K1_SIZES)} lanes (cap N, cnt/2 and 1; "
+        f"N - 13 lanes; a view off 16 bytes; all clear; all set) equal the "
+        f"plain version")
 
 
 def check_sweep(d, d_p, pid, pid_p, v, label: str) -> float:
@@ -472,6 +524,7 @@ def phase_kernels(conf_path: str, device, kernels: Kernels) -> None:
     state = warm_state(problem, integ, S.EPS)
     n = state.pos.shape[0]
     need, n_need, valid, q_c, row_c = need_lanes(g, state, n)
+    check_compact_cases(need)
     kernels.add("compact_lanes", 0.0, lambda: R.compact_lanes(need, n),
                 lambda: R.compact_lanes_plain(need, n),
                 lambda: torch.nonzero(need), n + 4 * n_need + 4, 0.0)
@@ -640,6 +693,8 @@ def phase_kernels_2c(conf_2d: str, conf_wavy: str, device,
     err = check_exact("candidate_band", dk, dk_p, sk, sk_p)
     Kw = valid.shape[1]
     n_valid = int(valid.sum())
+    from elaina_tpu_torch.utils.timing import cuda_ms
+
     gather_ms = cuda_ms(gather, runs=5)
     path_ms = cuda_ms(lambda: grid_closest_point(bare, q), runs=5)
     log(f"    candidate_band: {n} lanes x K = {Kw}, {n_valid} valid slots; "

@@ -3,7 +3,7 @@
 // They replace the Pallas kernels of elaina_tpu/ops/pallas_resolve.py that
 // run on the Dirichlet resolve of every depth step, 2D and 3D:
 //
-//   K1 compact_lanes    (pallas_resolve.py:594) -> compact_count/scan/write
+//   K1 compact_lanes    (pallas_resolve.py:594) -> compact_lanes_kernel
 //   K2 sweep_resolve    (pallas_resolve.py:194, body _sweep_kernel :113)
 //                                              -> sweep_resolve_kernel
 //   K3 fetch_colors     (pallas_resolve.py:540, _fetch_colors_impl :481)
@@ -42,18 +42,40 @@ namespace {
 constexpr unsigned FULL = 0xffffffffu;
 
 // --------------------------------------------------------------------------
-// K1: lane compaction.  Bound by reading the mask (N bytes) and writing
-// the ids (4 bytes per set lane): three passes over ~1 MB at 1024^2 lanes.
-// Pass 1 counts set lanes per 1024-lane tile, pass 2 scans the tile counts
-// in one block (the total is the count, which keeps counting past cap),
-// pass 3 rescans each tile and writes the ids in ascending order; only
-// the first cap ids are written.
+// K1: lane compaction in one launch, a scan with decoupled look-back
+// (Merrill & Garland, "Single-pass Parallel Prefix Scan with Decoupled
+// Look-back", 2016).  Bound by reading the mask (N bytes) and writing the
+// ids (4 bytes per set lane, at most cap): ~1.8 MB at 1024^2 lanes, a few
+// microseconds of the card's time, so the design is about one launch and
+// no per-call scratch.
+//
+// Each CTA takes a tile of 4,096 lanes by an atomicAdd on a tile counter,
+// not by blockIdx, so it only ever waits on tiles whose CTAs already run.
+// A thread reads its 16 mask bytes as one uint4, the block scans the
+// per-thread counts, and the CTA stages its ids in shared memory.  It
+// publishes its count (flag AGG), looks back a warp of predecessors at a
+// time until the nearest inclusive prefix (flag INC), publishes its own
+// inclusive prefix, and copies its ids out contiguously, those below cap
+// only.  The CTA of the last tile writes cnt, the full count.
+//
+// The workspace (the wrapper's, one per device, zeroed once) is int64:
+// word 0 holds the tile counter (low 32 bits) and the call's epoch (high
+// 32), then one status word per tile, [epoch:30 | flag:2] << 32 | value,
+// read and written whole.  The CTA that draws the last ticket resets the
+// counter and advances the epoch in one store: every other CTA of the
+// call has drawn its ticket by then, and the next launch on the stream
+// starts after this one ends.  A status word of an earlier call carries
+// an older epoch and reads as not yet published, so no per-call reset or
+// host-side value is needed (a CUDA graph can capture the launch).  The
+// counter is shared: the workspace serialises calls on one stream, and
+// two calls must never run at once on two streams.
 // --------------------------------------------------------------------------
 
-constexpr int CT_THREADS = 256;
-constexpr int CT_PER_THREAD = 4;
-constexpr int CT_TILE = CT_THREADS * CT_PER_THREAD;
-constexpr int SCAN_THREADS = 1024;
+constexpr int CL_THREADS = 256;
+constexpr int CL_PER_THREAD = 16;                    // one uint4 of mask
+constexpr int CL_TILE = CL_THREADS * CL_PER_THREAD;  // 4,096 lanes
+constexpr unsigned ST_AGG = 1, ST_INC = 2;
+constexpr unsigned EPOCH_MASK = 0x3fffffffu;
 
 // Exclusive prefix sum of v over the block; *total gets the block sum.
 // smem holds 32 ints; the block size is a multiple of 32.
@@ -85,62 +107,103 @@ __device__ int block_exclusive_scan(int v, int* smem, int* total) {
   return warp_prefix + x - v;
 }
 
-__global__ void compact_count(const uint8_t* __restrict__ mask, int64_t n,
-                              int32_t* __restrict__ tile_counts) {
-  __shared__ int smem[32];
-  const int64_t base =
-      (int64_t)blockIdx.x * CT_TILE + (int64_t)threadIdx.x * CT_PER_THREAD;
-  int c = 0;
-#pragma unroll
-  for (int j = 0; j < CT_PER_THREAD; ++j) {
-    const int64_t i = base + j;
-    c += (i < n && mask[i]) ? 1 : 0;
-  }
-  int total;
-  block_exclusive_scan(c, smem, &total);
-  if (threadIdx.x == 0) tile_counts[blockIdx.x] = total;
+// The 4 mask bytes of w as 4 bits, bit k set where byte k is nonzero.
+__device__ __forceinline__ unsigned set_bytes(unsigned w) {
+  w |= w >> 4;  // fold each byte's bits onto its bit 0
+  w |= w >> 2;
+  w |= w >> 1;
+  w &= 0x01010101u;
+  return (w | (w >> 7) | (w >> 14) | (w >> 21)) & 0xfu;
 }
 
-__global__ void compact_scan(const int32_t* __restrict__ tile_counts,
-                             int64_t n_tiles,
-                             int32_t* __restrict__ tile_offsets,
-                             int32_t* __restrict__ cnt) {
-  __shared__ int smem[32];
-  int carry = 0;
-  for (int64_t base = 0; base < n_tiles; base += blockDim.x) {
-    const int64_t i = base + threadIdx.x;
-    const int v = i < n_tiles ? tile_counts[i] : 0;
-    int total;
-    const int ex = block_exclusive_scan(v, smem, &total);
-    if (i < n_tiles) tile_offsets[i] = carry + ex;
-    carry += total;
-  }
-  if (threadIdx.x == 0) cnt[0] = carry;
+__device__ __forceinline__ unsigned long long ld_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-__global__ void compact_write(const uint8_t* __restrict__ mask, int64_t n,
-                              const int32_t* __restrict__ tile_offsets,
-                              int32_t cap, int32_t* __restrict__ lanes) {
+__device__ __forceinline__ void st_status(unsigned long long* p,
+                                          unsigned epoch, unsigned flag,
+                                          int value) {
+  const unsigned long long v =
+      ((unsigned long long)((epoch << 2) | flag) << 32) | (unsigned)value;
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+__global__ void __launch_bounds__(CL_THREADS)
+compact_lanes_kernel(const uint8_t* __restrict__ mask, int64_t n,
+                     int32_t cap, int32_t* __restrict__ lanes,
+                     int32_t* __restrict__ cnt,
+                     unsigned long long* __restrict__ work) {
+  __shared__ int ids[CL_TILE];
   __shared__ int smem[32];
-  const int64_t base =
-      (int64_t)blockIdx.x * CT_TILE + (int64_t)threadIdx.x * CT_PER_THREAD;
-  bool m[CT_PER_THREAD];
-  int c = 0;
-#pragma unroll
-  for (int j = 0; j < CT_PER_THREAD; ++j) {
-    const int64_t i = base + j;
-    m[j] = i < n && mask[i];
-    c += m[j] ? 1 : 0;
+  __shared__ unsigned s_tile, s_epoch;
+  __shared__ int s_prefix;
+  if (threadIdx.x == 0) {
+    const unsigned long long t = atomicAdd(work, 1ull);
+    const unsigned epoch = (unsigned)(t >> 32) & EPOCH_MASK;
+    if ((unsigned)t == gridDim.x - 1)  // the last ticket: reset for the next
+      atomicExch(work, (unsigned long long)((epoch + 1) & EPOCH_MASK) << 32);
+    s_tile = (unsigned)t;
+    s_epoch = epoch;
+  }
+  __syncthreads();
+  const unsigned tile = s_tile, epoch = s_epoch;
+  const int64_t base = (int64_t)tile * CL_TILE;
+  const int64_t first = base + (int64_t)threadIdx.x * CL_PER_THREAD;
+  unsigned bits = 0;  // bit j: lane first + j is set
+  if (base + CL_TILE <= n && ((uintptr_t)mask & 15) == 0) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(mask + first));
+    bits = set_bytes(v.x) | set_bytes(v.y) << 4 | set_bytes(v.z) << 8 |
+           set_bytes(v.w) << 12;
+  } else {  // the ragged last tile, or a mask view off 16 bytes
+    for (int j = 0; j < CL_PER_THREAD; ++j)
+      if (first + j < n && mask[first + j]) bits |= 1u << j;
   }
   int total;
-  int pos = tile_offsets[blockIdx.x] + block_exclusive_scan(c, smem, &total);
-#pragma unroll
-  for (int j = 0; j < CT_PER_THREAD; ++j) {
-    if (m[j]) {
-      if (pos < cap) lanes[pos] = (int32_t)(base + j);
-      ++pos;
+  int pos = block_exclusive_scan(__popc(bits), smem, &total);
+  for (unsigned b = bits; b; b &= b - 1)
+    ids[pos++] = (int)(first + __ffs(b) - 1);
+
+  unsigned long long* status = work + 1;
+  if (threadIdx.x < 32) {  // warp 0: publish and look back
+    const int lane = threadIdx.x;
+    int prefix = 0;
+    if (tile == 0) {
+      if (lane == 0) st_status(status, epoch, ST_INC, total);
+    } else {
+      if (lane == 0) st_status(status + tile, epoch, ST_AGG, total);
+      // lane k reads tile - 1 - k: lane 0 the nearest predecessor
+      for (int64_t j = (int64_t)tile - 1 - lane;; j -= 32) {
+        unsigned flag = ST_INC;  // before tile 0: an inclusive 0
+        int value = 0;
+        if (j >= 0) {
+          unsigned long long s;
+          do {  // wait for this call's word (its CTA is running)
+            s = ld_status(status + j);
+            const unsigned hi = (unsigned)(s >> 32);
+            flag = (hi >> 2) == epoch ? (hi & 3u) : 0u;
+          } while (flag == 0);
+          value = (int)(unsigned)s;
+        }
+        const unsigned inc = __ballot_sync(FULL, flag == ST_INC);
+        // sum up to and including the nearest inclusive prefix
+        const int stop = inc ? __ffs(inc) - 1 : 31;
+        prefix += __reduce_add_sync(FULL, lane <= stop ? value : 0);
+        if (inc) break;
+      }
+      if (lane == 0) st_status(status + tile, epoch, ST_INC, prefix + total);
     }
+    if (lane == 0) s_prefix = prefix;
   }
+  __syncthreads();
+  const int prefix = s_prefix;
+  if (tile == gridDim.x - 1 && threadIdx.x == 0) cnt[0] = prefix + total;
+  for (int k = threadIdx.x; k < total && prefix + k < cap; k += CL_THREADS)
+    lanes[prefix + k] = ids[k];
 }
 
 // --------------------------------------------------------------------------
@@ -433,11 +496,16 @@ int grid_band_dim(const void* row, const void* q, const void* coords,
 
 // --------------------------------------------------------------------------
 // K3 / K5: the corner colors of color row cfi = 2 * pid + (side < 0), on
-// masked lanes: NC = 2 segment endpoints (K3) or 3 triangle corners (K5).
-// One thread per lane; bound by the 12 * NC-byte row load and write per
-// set lane (a random-access load: L2 serves the rows of boundary-hugging
-// lanes).  out is (NC, n, 3), corner-major, so each corner's colors are a
-// contiguous (n, 3) block.  Unmasked lanes, and rows out of range, get 0.
+// masked lanes: NC = 2 segment endpoints (K3) or 3 triangle corners (K5),
+// from the (2P, 3 * NC) table.  One thread per lane.  A masked-off lane
+// writes its zeros without reading cfi; a set lane reads its row (a
+// random-access load: L2 serves the rows of boundary-hugging lanes).  The
+// writes bound it: out is (NC, n, 3), corner-major, so each corner's
+// colors are a contiguous (n, 3) block and a warp's stores cover 384
+// contiguous bytes a corner; 24 MB at 1024^2 lanes for K3 (7 us at the
+// H100's 3.35 TB/s).  Rows padded to 16 bytes and read as float4s were
+// measured no faster (PERF.md), so the table keeps its 3 * NC floats a
+// row.  Rows out of range get 0.
 // --------------------------------------------------------------------------
 
 constexpr int COLOR_THREADS = 256;
@@ -450,15 +518,22 @@ __global__ void fetch_colors_kernel(const uint8_t* __restrict__ mask,
                                     float* __restrict__ out) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int64_t r = cfi[i];
-  const bool on = mask[i] && r >= 0 && r < n_rows;
-  const float* src = rows + (on ? r : 0) * (3 * NC);
+  float c[3 * NC];
+#pragma unroll
+  for (int k = 0; k < 3 * NC; ++k) c[k] = 0.f;
+  if (mask[i]) {
+    const int64_t r = cfi[i];
+    if (r >= 0 && r < n_rows) {
+#pragma unroll
+      for (int k = 0; k < 3 * NC; ++k) c[k] = __ldg(rows + r * (3 * NC) + k);
+    }
+  }
 #pragma unroll
   for (int k = 0; k < NC; ++k) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      out[(k * n + i) * 3 + c] = on ? src[3 * k + c] : 0.f;
-    }
+    float* o = out + (k * n + i) * 3;
+    o[0] = c[3 * k];
+    o[1] = c[3 * k + 1];
+    o[2] = c[3 * k + 2];
   }
 }
 
@@ -478,26 +553,17 @@ int fetch_colors_nc(const void* mask, const void* cfi, const void* rows,
 
 extern "C" {
 
-// Scratch: 2 * ceil(n / 1024) int32 (tile counts, tile offsets).
+// work: int64 (1 + work_tiles,), zeroed before its first call and then
+// left to the kernel (see K1 above).
 int compact_lanes_launch(const void* mask, int64_t n, int32_t cap,
-                         void* lanes, void* cnt, void* scratch,
-                         void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int64_t n_tiles = (n + CT_TILE - 1) / CT_TILE;
-  int32_t* tile_counts = (int32_t*)scratch;
-  int32_t* tile_offsets = tile_counts + n_tiles;
-  if (n_tiles > 0) {
-    compact_count<<<(unsigned)n_tiles, CT_THREADS, 0, s>>>(
-        (const uint8_t*)mask, n, tile_counts);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  compact_scan<<<1, SCAN_THREADS, 0, s>>>(tile_counts, n_tiles,
-                                          tile_offsets, (int32_t*)cnt);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || n_tiles == 0) return (int)e;
-  compact_write<<<(unsigned)n_tiles, CT_THREADS, 0, s>>>(
-      (const uint8_t*)mask, n, tile_offsets, cap, (int32_t*)lanes);
+                         void* lanes, void* cnt, void* work,
+                         int64_t work_tiles, void* stream) {
+  const int64_t n_tiles = n > 0 ? (n + CL_TILE - 1) / CL_TILE : 1;
+  if (n_tiles > work_tiles) return (int)cudaErrorInvalidValue;
+  compact_lanes_kernel<<<(unsigned)n_tiles, CL_THREADS, 0,
+                         (cudaStream_t)stream>>>(
+      (const uint8_t*)mask, n, cap, (int32_t*)lanes, (int32_t*)cnt,
+      (unsigned long long*)work);
   return (int)cudaGetLastError();
 }
 
@@ -532,13 +598,13 @@ int sweep_resolve_3d_launch(const void* mask, const void* row,
   return (int)cudaGetLastError();
 }
 
-// out: (2, n, 3) f32, endpoint-major
+// rows: (n_rows, 6) f32; out: (2, n, 3) f32, endpoint-major
 int fetch_colors_launch(const void* mask, const void* cfi, const void* rows,
                         int64_t n, int64_t n_rows, void* out, void* stream) {
   return fetch_colors_nc<2>(mask, cfi, rows, n, n_rows, out, stream);
 }
 
-// out: (3, n, 3) f32, corner-major
+// rows: (n_rows, 9) f32; out: (3, n, 3) f32, corner-major
 int fetch_colors3_launch(const void* mask, const void* cfi, const void* rows,
                          int64_t n, int64_t n_rows, void* out, void* stream) {
   return fetch_colors_nc<3>(mask, cfi, rows, n, n_rows, out, stream);

@@ -51,12 +51,11 @@ import numpy as np
 import torch
 
 from ..geometry.grid import PAD_COORD
+from . import cuda as _cuda
 from .cuda import F32, I32, I64, VP
 from .cuda import build_log as _lib_log
 from .cuda import check as _check
 from .cuda import launch as _launch
-from .cuda import load_library
-from .cuda import ptr as _ptr
 from .resolve import seg_d2, tri_d2_planes
 
 INV_4PI = float(np.float32(1.0 / (4.0 * math.pi)))
@@ -77,7 +76,7 @@ _SIGNATURES = {
 
 def library() -> ctypes.CDLL:
     """The kernel library, built from ``csrc/queries.cu`` on first call."""
-    return load_library("elaina_queries", "queries.cu", _SIGNATURES)
+    return _cuda.load_library("elaina_queries", "queries.cu", _SIGNATURES)
 
 
 def build_log() -> str:
@@ -146,8 +145,8 @@ def _sil_band(wrapper, fn: str, cell, q, coords, dim: int):
     if dev.type == "cpu":
         return _sil_band_plain(cell, q, coords, dim)
     d2 = torch.empty((n,), dtype=torch.float32, device=dev)
-    _launch(getattr(library(), fn), _ptr(cell), _ptr(q), _ptr(coords), n,
-            Kp, _ptr(d2), device=dev)
+    _launch(getattr(library(), fn), cell.data_ptr(), q.data_ptr(),
+            coords.data_ptr(), n, Kp, d2.data_ptr(), device=dev)
     wrapper.launches += 1
     return d2
 
@@ -201,8 +200,9 @@ def closest_point_dense(q, seg_a, seg_b):
         return closest_point_dense_plain(q, seg_a, seg_b)
     dist = torch.empty((n,), dtype=torch.float32, device=dev)
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
-    _launch(library().closest_point_dense_launch, _ptr(q), _ptr(seg_a),
-            _ptr(seg_b), n, P, _ptr(dist), _ptr(prim), device=dev)
+    _launch(library().closest_point_dense_launch, q.data_ptr(),
+            seg_a.data_ptr(), seg_b.data_ptr(), n, P, dist.data_ptr(),
+            prim.data_ptr(), device=dev)
     closest_point_dense.launches += 1
     return dist, prim
 
@@ -235,9 +235,9 @@ def candidate_band(q, vax, vay, vbx, vby, valid):
         return candidate_band_plain(q, vax, vay, vbx, vby, valid)
     dist = torch.empty((n,), dtype=torch.float32, device=dev)
     slot = torch.empty((n,), dtype=torch.int32, device=dev)
-    _launch(library().candidate_band_launch, _ptr(q), _ptr(vax), _ptr(vay),
-            _ptr(vbx), _ptr(vby), _ptr(valid), n, K, _ptr(dist), _ptr(slot),
-            device=dev)
+    _launch(library().candidate_band_launch, q.data_ptr(), vax.data_ptr(),
+            vay.data_ptr(), vbx.data_ptr(), vby.data_ptr(), valid.data_ptr(),
+            n, K, dist.data_ptr(), slot.data_ptr(), device=dev)
     candidate_band.launches += 1
     return dist, slot
 
@@ -376,10 +376,10 @@ def band_neumann_walk(cell, q, R, on, n_normal, u_sel, u_pt, d_walk,
                                        u_pt, d_walk, eps, coords)
     out = torch.empty((n, 15), dtype=torch.float32, device=dev)
     slot = torch.empty((n,), dtype=torch.int32, device=dev)
-    _launch(library().band_neumann_walk_launch, _ptr(cell), _ptr(q), _ptr(R),
-            _ptr(on), _ptr(n_normal), _ptr(u_sel), _ptr(u_pt), _ptr(d_walk),
-            float(eps), _ptr(coords), n, Kp, _ptr(out), _ptr(slot),
-            device=dev)
+    _launch(library().band_neumann_walk_launch, cell.data_ptr(), q.data_ptr(),
+            R.data_ptr(), on.data_ptr(), n_normal.data_ptr(), u_sel.data_ptr(),
+            u_pt.data_ptr(), d_walk.data_ptr(), float(eps), coords.data_ptr(),
+            n, Kp, out.data_ptr(), slot.data_ptr(), device=dev)
     band_neumann_walk.launches += 1
     return out, slot
 
@@ -426,8 +426,9 @@ def band_ray(cell, o, d, tmax, coords):
         return band_ray_plain(cell, o, d, tmax, coords)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     slot = torch.empty((n,), dtype=torch.int32, device=dev)
-    _launch(library().band_ray_launch, _ptr(cell), _ptr(o), _ptr(d),
-            _ptr(tmax), _ptr(coords), n, Kp, _ptr(t), _ptr(slot), device=dev)
+    _launch(library().band_ray_launch, cell.data_ptr(), o.data_ptr(),
+            d.data_ptr(), tmax.data_ptr(), coords.data_ptr(), n, Kp,
+            t.data_ptr(), slot.data_ptr(), device=dev)
     band_ray.launches += 1
     return t, slot
 
@@ -474,9 +475,9 @@ def band_ball(cell, q, R, u, coords):
     slot = torch.empty((n,), dtype=torch.int32, device=dev)
     w_sel = torch.empty((n,), dtype=torch.float32, device=dev)
     total = torch.empty((n,), dtype=torch.float32, device=dev)
-    _launch(library().band_ball_launch, _ptr(cell), _ptr(q), _ptr(R),
-            _ptr(u), _ptr(coords), n, Kp, _ptr(slot), _ptr(w_sel),
-            _ptr(total), device=dev)
+    _launch(library().band_ball_launch, cell.data_ptr(), q.data_ptr(),
+            R.data_ptr(), u.data_ptr(), coords.data_ptr(), n, Kp,
+            slot.data_ptr(), w_sel.data_ptr(), total.data_ptr(), device=dev)
     band_ball.launches += 1
     return slot, w_sel, total
 

@@ -16,7 +16,10 @@ Contracts (from the TPU kernels, minus the bitmask words):
 
 * ``compact_lanes(mask, cap) -> (lanes (cap,) i32, cnt (1,) i32)``: ids of
   the set lanes in ascending order; ``cnt`` counts every set lane, even
-  past ``cap``; entries past ``min(cnt, cap)`` are unspecified.
+  past ``cap``; entries past ``min(cnt, cap)`` are unspecified.  On the
+  card both are views of one (cap + 1,) tensor, and the kernel keeps its
+  tile counter and status words in a workspace made once per device
+  (``_compact_workspace``), which serialises calls on one stream.
 * ``sweep_resolve(mask, row, q, coords, cand) -> (d, t, side, pid)``: on
   masked lanes, the exact closest of the K candidates of row ``row``:
   distance, segment parameter t in [0, 1], the winner's cross product
@@ -46,18 +49,18 @@ import ctypes
 
 import torch
 
-from .cuda import I32, I64, VP
+from . import cuda as _cuda
+from .cuda import CPU, I32, I64, VP
 from .cuda import build_log as _lib_log
 from .cuda import check as _check
 from .cuda import launch as _launch
-from .cuda import load_library
-from .cuda import ptr as _ptr
 
-COMPACT_TILE = 1024     # lanes per tile of the compaction passes
+COMPACT_TILE = 4096     # lanes per tile of K1 (csrc CL_TILE)
+_COMPACT_MIN_TILES = 4096   # K1's first workspace: up to 16.7M lanes
 _PLAIN_CHUNK = 16384    # lanes per chunk of the plain sweep (bounds memory)
 
 _SIGNATURES = {
-    "compact_lanes_launch": [VP, I64, I32, VP, VP, VP, VP],
+    "compact_lanes_launch": [VP, I64, I32, VP, VP, VP, I64, VP],
     "sweep_resolve_launch": [VP, VP, VP, VP, VP, I64, I32, I32, VP, VP, VP,
                              VP, VP],
     "sweep_resolve_3d_launch": [VP, VP, VP, VP, VP, I64, I32, I32, VP, VP,
@@ -71,7 +74,7 @@ _SIGNATURES = {
 
 def library() -> ctypes.CDLL:
     """The kernel library, built from ``csrc/resolve.cu`` on first call."""
-    return load_library("elaina_resolve", "resolve.cu", _SIGNATURES)
+    return _cuda.load_library("elaina_resolve", "resolve.cu", _SIGNATURES)
 
 
 def build_log() -> str:
@@ -93,19 +96,34 @@ def compact_lanes_plain(mask: torch.Tensor, cap: int):
     return lanes, cnt
 
 
+_WORKSPACE: dict = {}    # device index -> K1's workspace
+
+
+def _compact_workspace(dev: torch.device, n_tiles: int) -> torch.Tensor:
+    """K1's int64 workspace on ``dev``: the tile counter and epoch, then a
+    status word a tile.  Zeroed when made, then left to the kernel, which
+    resets what it uses itself; made again, larger, only for more tiles."""
+    work = _WORKSPACE.get(dev.index)
+    if work is None or work.numel() - 1 < n_tiles:
+        work = torch.zeros((1 + max(n_tiles, _COMPACT_MIN_TILES),),
+                           dtype=torch.int64, device=dev)
+        _WORKSPACE[dev.index] = work
+    return work
+
+
 def compact_lanes(mask: torch.Tensor, cap: int):
+    dev = mask.device
     n = mask.shape[0]
-    _check("mask", mask, torch.bool, (n,), mask.device)
-    if mask.device.type == "cpu":
+    _check("mask", mask, torch.bool, (n,), dev)
+    if dev == CPU:
         return compact_lanes_plain(mask, cap)
-    lanes = torch.empty((cap,), dtype=torch.int32, device=mask.device)
-    cnt = torch.empty((1,), dtype=torch.int32, device=mask.device)
-    scratch = torch.empty((2 * (-(-n // COMPACT_TILE)) + 1,),
-                          dtype=torch.int32, device=mask.device)
-    _launch(library().compact_lanes_launch, _ptr(mask), n, cap, _ptr(lanes),
-            _ptr(cnt), _ptr(scratch), device=mask.device)
+    work = _compact_workspace(dev, -(-n // COMPACT_TILE))
+    out = torch.empty(cap + 1, dtype=torch.int32, device=dev)
+    p = out.data_ptr()
+    _launch(library().compact_lanes_launch, mask.data_ptr(), n, cap, p,
+            p + 4 * cap, work.data_ptr(), work.numel() - 1, device=dev)
     compact_lanes.launches += 1
-    return lanes, cnt
+    return out.split_with_sizes((cap, 1))
 
 
 compact_lanes.launches = 0
@@ -174,9 +192,10 @@ def sweep_resolve(mask, row, q, coords, cand):
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     side = torch.empty((n,), dtype=torch.float32, device=dev)
     pid = torch.empty((n,), dtype=torch.int32, device=dev)
-    _launch(library().sweep_resolve_launch, _ptr(mask), _ptr(row), _ptr(q),
-            _ptr(coords), _ptr(cand), n, K, Kp, _ptr(d), _ptr(t), _ptr(side),
-            _ptr(pid), device=dev)
+    _launch(library().sweep_resolve_launch, mask.data_ptr(), row.data_ptr(),
+            q.data_ptr(), coords.data_ptr(), cand.data_ptr(), n, K, Kp,
+            d.data_ptr(), t.data_ptr(), side.data_ptr(), pid.data_ptr(),
+            device=dev)
     sweep_resolve.launches += 1
     return d, t, side, pid
 
@@ -199,19 +218,19 @@ def _fetch_plain(mask, cfi, color_rows, nc: int):
 
 
 def _fetch(wrapper, fn: str, mask, cfi, color_rows, nc: int):
-    n = cfi.shape[0]
     dev = cfi.device
+    n = cfi.shape[0]
+    n_rows = color_rows.shape[0]
     _check("mask", mask, torch.bool, (n,), dev)
     _check("cfi", cfi, torch.int32, (n,), dev)
-    _check("color_rows", color_rows, torch.float32,
-           (color_rows.shape[0], 3 * nc), dev)
-    if dev.type == "cpu":
+    _check("color_rows", color_rows, torch.float32, (n_rows, 3 * nc), dev)
+    if dev == CPU:
         return _fetch_plain(mask, cfi, color_rows, nc)
-    out = torch.empty((nc, n, 3), dtype=torch.float32, device=dev)
-    _launch(getattr(library(), fn), _ptr(mask), _ptr(cfi), _ptr(color_rows),
-            n, color_rows.shape[0], _ptr(out), device=dev)
+    out = torch.empty(nc, n, 3, dtype=torch.float32, device=dev)
+    _launch(getattr(library(), fn), mask.data_ptr(), cfi.data_ptr(),
+            color_rows.data_ptr(), n, n_rows, out.data_ptr(), device=dev)
     wrapper.launches += 1
-    return tuple(out[k] for k in range(nc))
+    return out.unbind()
 
 
 def fetch_colors_plain(mask, cfi, color_rows):
@@ -318,9 +337,9 @@ def sweep_resolve_3d(mask, row, q, coords, cand):
     d = torch.empty((n,), dtype=torch.float32, device=dev)
     pid = torch.empty((n,), dtype=torch.int32, device=dev)
     corners = torch.empty((n, 9), dtype=torch.float32, device=dev)
-    _launch(library().sweep_resolve_3d_launch, _ptr(mask), _ptr(row), _ptr(q),
-            _ptr(coords), _ptr(cand), n, K, Kp, _ptr(d), _ptr(pid),
-            _ptr(corners), device=dev)
+    _launch(library().sweep_resolve_3d_launch, mask.data_ptr(), row.data_ptr(),
+            q.data_ptr(), coords.data_ptr(), cand.data_ptr(), n, K, Kp,
+            d.data_ptr(), pid.data_ptr(), corners.data_ptr(), device=dev)
     sweep_resolve_3d.launches += 1
     return d, pid, corners
 
@@ -382,8 +401,9 @@ def _grid_band(wrapper, fn: str, row, q, coords, dim: int):
     d2 = torch.empty((n,), dtype=torch.float32, device=dev)
     slot = torch.empty((n,), dtype=torch.int32, device=dev)
     corners = torch.empty((n, npl), dtype=torch.float32, device=dev)
-    _launch(getattr(library(), fn), _ptr(row), _ptr(q), _ptr(coords), n, Kp,
-            _ptr(d2), _ptr(slot), _ptr(corners), device=dev)
+    _launch(getattr(library(), fn), row.data_ptr(), q.data_ptr(),
+            coords.data_ptr(), n, Kp, d2.data_ptr(), slot.data_ptr(),
+            corners.data_ptr(), device=dev)
     wrapper.launches += 1
     return d2, slot, corners
 

@@ -133,6 +133,19 @@ class BaseIntegrator:
 
 
 class UniformIntegrator(BaseIntegrator):
+    def prepare(self) -> None:
+        """Load the CUDA kernel libraries before the solve's clock starts
+        (the JAX integrator's ``prepare`` compiles its programs there): on
+        a CUDA device both ``ops/resolve`` and ``ops/queries``, which
+        builds them if ``_build/`` holds no library of these sources.  On
+        the CPU there is nothing to load."""
+        if self.device.type != "cuda":
+            return
+        from ..ops import queries, resolve
+
+        resolve.library()
+        queries.library()
+
     def solve(self) -> int:
         """Run every sample; returns wall-clock milliseconds.  Leaves the
         mean in the SOLUTION film, the per-pixel sums in ``sum`` /

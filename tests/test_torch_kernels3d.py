@@ -381,6 +381,8 @@ def test_3d_wrappers_reject_bad_inputs(resolve_scenes, band_sets):
         KQ.sil_band(row.long(), q, sgp.coords)
     with pytest.raises(ValueError):
         KQ.sil_band(row, q, bgp.coords)          # 9 planes, not 12
+    with pytest.raises(ValueError):              # K3's (2P, 6) table
+        R.fetch_colors3(mask, row, gp.color_rows[:, :6].contiguous())
     before = [k.launches for k in R.KERNELS + KQ.KERNELS]
     R.sweep_resolve_3d(mask, row, q, gp.coords, gp.cand)
     R.fetch_colors3(mask, row, gp.color_rows)

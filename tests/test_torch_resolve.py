@@ -83,22 +83,53 @@ def _jax_sweep(n, scenes):
     return memo[n]
 
 
-@pytest.mark.parametrize("n", [1024, 4096])
-def test_compact_lanes_matches_pallas(n, scenes):
+def _k1_mask(n, case, scene_jax):
+    """The mask of a K1 case: the FinePack need mask, or a random one."""
+    if case in ("need", "cap1"):
+        return _lanes(n, scene_jax)[2]
+    if case == "clear":
+        return np.zeros(n, bool)
+    if case == "set":
+        return np.ones(n, bool)
+    return np.random.default_rng(n).uniform(size=n) < 0.3     # ragged
+
+
+# (n, case): the FinePack need mask (ids "1024", "4096"); n off K1's
+# 4,096-lane tile (5,000 a multiple of GROUP, 4,097 not); an all-clear and
+# an all-set mask; cap = 1
+K1_CASES = [pytest.param(1024, "need", id="1024"),
+            pytest.param(4096, "need", id="4096"),
+            pytest.param(5000, "ragged", id="ragged-5000"),
+            pytest.param(4097, "ragged", id="ragged-4097"),
+            pytest.param(4096, "clear", id="clear"),
+            pytest.param(4096, "set", id="set"),
+            pytest.param(1024, "cap1", id="cap1")]
+
+
+@pytest.mark.parametrize("n,case", K1_CASES)
+def test_compact_lanes_matches_pallas(n, case, scenes):
+    """K1 against the Pallas compact_lanes (interpret mode) where n is a
+    multiple of its GROUP, and against np.flatnonzero always."""
+    from elaina_tpu.ops.pallas_resolve import GROUP
+
     scene_jax, _, _ = scenes
-    _, _, mask = _lanes(n, scene_jax)
+    mask = _k1_mask(n, case, scene_jax)
     cnt_true = int(mask.sum())
     # a cap above the count, and one below it (cnt keeps counting past cap)
-    for cap in (n, max(8, cnt_true // 2)):
-        lj, cj = compact_lanes(pack_groups(jnp.asarray(mask)), cap=cap,
-                               interpret=True)
+    caps = (1,) if case == "cap1" else (n, max(8, cnt_true // 2))
+    for cap in caps:
         lp, cp = R.compact_lanes(torch.as_tensor(mask), cap)
         assert lp.dtype == torch.int32 and tuple(lp.shape) == (cap,)
-        assert int(cp[0]) == int(cj[0]) == cnt_true
+        assert cp.dtype == torch.int32 and tuple(cp.shape) == (1,)
+        assert int(cp[0]) == cnt_true
         k = min(cap, cnt_true)
-        np.testing.assert_array_equal(lp.numpy()[:k], np.asarray(lj)[:k])
         np.testing.assert_array_equal(lp.numpy()[:k],
                                       np.flatnonzero(mask)[:k])
+        if n % GROUP == 0:
+            lj, cj = compact_lanes(pack_groups(jnp.asarray(mask)), cap=cap,
+                                   interpret=True)
+            assert int(cj[0]) == cnt_true
+            np.testing.assert_array_equal(lp.numpy()[:k], np.asarray(lj)[:k])
 
 
 @pytest.mark.parametrize("n", [1024, 4096])
@@ -185,6 +216,9 @@ def test_wrappers_reject_bad_inputs(scenes):
                         gp.cand)
     with pytest.raises(ValueError):
         R.fetch_colors(mask[:-1], row, gp.color_rows)
+    # a color table of another row width: K5's (2P, 9)
+    with pytest.raises(ValueError):
+        R.fetch_colors(mask, row, torch.zeros((gp.color_rows.shape[0], 9)))
     # CPU tensors take the plain versions: no launch is counted
     before = [k.launches for k in R.KERNELS]
     R.compact_lanes(mask, n)
