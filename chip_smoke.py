@@ -22,7 +22,11 @@ and never prints its last line:
    all-clear and all-set masks), ids and count exact.
 2c. K13, K12 and K9's 2D form against their plain versions: K13 on the
    1024^2 frame points x bench.py's 2,048 segments, and on a point at a
-   shared vertex (a tie at 0: the smaller index wins); K12 on the same
+   shared vertex (a tie at 0: the smaller index wins), distances bit-equal
+   and ids exact; its lane-list form on the bench square's walks after
+   LANES_STEPS depth steps (~15% live, the lanes K1 compacts, as
+   ``_dense_dirichlet`` hands them over), on every lane and on none of
+   that state, the same way; K12 on the same
    points over a bare candidate grid of that curve (K = 64, no coordinate
    table) through ``grid_closest_point``, whose launches are K12's path,
    held to K13's distances (equal on untruncated rows, at most K13's on
@@ -67,10 +71,16 @@ and never prints its last line:
    (768-triangle Dirichlet cube, 20,480-triangle Neumann blob) loaded with
    its grids (each build's seconds printed), 65,536 lanes after a few
    depth steps (K11: the frame's 65,536 plane points through
-   ``grid_row_index``); K6-K8 also at radii 0.05-1, which reach the blob.
+   ``grid_row_index``); K6 on that step's live lanes and star radii from
+   ``_separate``, with its skip (the share of lanes it took printed) and
+   without; K6-K8 also at radii 0.05-1, which reach the blob, and K6 there
+   on the table padded to 128 slots (its instantiation for wide rows).
 5b. The fused depth step (K6) against the unfused one (K8 + K7) on
    neumann3d's lanes, 3 steps with the same generators, held to
    ``tests/test_fused_band.py``'s lane thresholds.
+5c. One depth step from those lanes with K6's skip and without it, the
+   same generators: contributions and next walk states equal on every
+   lane.
 6. The mixed cube, u = (x + 1) / 2 (Dirichlet x = +-1, zero Neumann on the
    other faces), through ``Problem.load_config`` and ``UniformIntegrator``:
    1,024 walks at each of three points, depth 256 (walks stall by the
@@ -102,10 +112,13 @@ and never prints its last line:
    and the two means agree within 4 combined standard errors on >= 99%
    of the pixels.
 
-The lines before the last hold the card's name and power limit and one
+Each phase ends with a line of its wall seconds (``[4d]: 3.2 s wall``),
+and ``[9]`` gives the whole run's.  The lines before the last hold the card's name and power limit and one
 JSON object with each kernel's launches, error, times and bound; the last
-line is ``{"ok": true, "device": {...}}``.  Each kernel and library call
-has two times: call ms (``ms``, ``library_ms``: one call with the device
+line is ``{"ok": true, "device": {...}}``.  Each record names the inputs
+its figures were taken at (``shape``; K13's lane-list form and K6 without
+its skip have their own keys).  Each kernel and library call has two
+times: call ms (``ms``, ``library_ms``: one call with the device
 idle, between two CUDA events, the host's enqueue inside) and device ms
 (``device_ms``, ``library_device_ms``: the median per call of 100 calls
 enqueued behind a device-side wait), with the host's enqueue us per call
@@ -138,6 +151,8 @@ ROUTE_DEPTH = 256            # depth of the grid / no-grid comparison (4c)
 AGREE_SPP = 16               # samples a side of the chunked / band check (4e)
 WAVY_SPP = 8                 # samples of the wavy box of 8,192 segments (4f)
 WARM_STEPS = 3               # depth steps before the kernel phases take lanes
+LANES_STEPS = 16             # bench-square steps before K13's lane-list
+#                              check: ~15% of the lanes live, as on average
 K1_SIZES = (1048576, 65536, 1048576)   # K1's back-to-back edge cases: the
 #                              2D main path's lanes, the 3D one's, the 2D again
 TOL = 1e-5                   # rtol and atol of distances; ids and colors exact
@@ -179,6 +194,15 @@ CDF_FLIPS = 0.005            # K6 / K8 CDF slot flips allowed, share of lanes
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def timed_phase(label: str, fn, *args):
+    """Run one phase and log its wall seconds, so that a slow run shows
+    where its time went."""
+    t0 = time.time()
+    out = fn(*args)
+    log(f"    {label}: {time.time() - t0:.1f} s wall")
+    return out
 
 
 def card_line() -> str:
@@ -279,10 +303,12 @@ class Kernels:
         self.card = card
         self.records: dict[str, dict] = {}
 
-    def add(self, name, err, fn, plain, library, n_bytes, flops):
+    def add(self, name, err, fn, plain, library, n_bytes, flops, shape,
+            **extra):
         """Time a kernel, its plain version and its library call: call ms
         (``cuda_ms``) for all three, device ms and host us (``device_ms``)
-        for the kernel and the library call."""
+        for the kernel and the library call, at the inputs that ``shape``
+        names; ``extra`` goes into the record as it is."""
         from elaina_tpu_torch.utils.timing import (DEVICE_LAUNCHES,
                                                    TIMED_RUNS, cuda_ms,
                                                    device_ms)
@@ -303,7 +329,7 @@ class Kernels:
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": ms, "device_ms": dev_ms, "host_us": host_us,
             "hidden": hidden, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, **lib}
+            "bound_by": bound_by, **lib, "shape": shape, **extra}
         lib_s = "none" if library is None else (
             f"{lib['library_ms']:.4f} ms (device "
             f"{lib['library_device_ms']:.4f} ms, host "
@@ -314,7 +340,7 @@ class Kernels:
             f"{'' if hidden else ', not hidden'}), plain {plain_ms:.4f} ms, "
             f"library {lib_s}, bound {bound_ms:.4f} ms ({bound_by}; call ms "
             f"median of {TIMED_RUNS}, device ms of {DEVICE_LAUNCHES}; "
-            f"{self.card})")
+            f"{shape}; {self.card})")
 
 
 # --------------------------------------------------------------------------- #
@@ -342,18 +368,6 @@ def phase_build() -> None:
         for line in lib.build_log().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    ptxas: {line.strip()}")
-
-
-def warm_state(problem, integ, eps: float):
-    """The walk state after WARM_STEPS depth steps of one sample."""
-    from elaina_tpu_torch.solver.wost import init_walk_state, wost_depth_step
-    from elaina_tpu_torch.utils.rng import sample_generators
-
-    state = init_walk_state(integ.eval_points, integ.mask)
-    gens = sample_generators(0, 0, problem.device)
-    for _ in range(WARM_STEPS):
-        state, _, _ = wost_depth_step(problem.scene, state, gens, eps)
-    return state
 
 
 def need_lanes(g, state, n: int):
@@ -481,7 +495,8 @@ def check_grid_band(name: str, row, q, g, kernels: Kernels | None,
     kernels.add(name, err, lambda: kern(*args), lambda: plain(*args), None,
                 n * (4 + 4 * dim + 4 + 4 + 4 * dim * dim)
                 + rows * dim * dim * Kp * 4,
-                (20.0 if dim == 2 else 120.0) * n * K)
+                (20.0 if dim == 2 else 120.0) * n * K,
+                f"{label}: {n} lanes over {rows} rows of K = {K}")
 
 
 def bilinear_np(data, origin, inv_voxel, p):
@@ -505,29 +520,26 @@ def phase_kernels(conf_path: str, device, kernels: Kernels) -> None:
     """K1-K3 against their plain versions on the 2D main path's lanes."""
     import torch
 
-    from elaina_tpu_torch.core.config import ExperimentConfig
-    from elaina_tpu_torch.core.problem import Problem
     from elaina_tpu_torch.ops import resolve as R
-    from elaina_tpu_torch.solver.integrator import UniformIntegrator
     from elaina_tpu_torch.utils import scenes as S
+    from elaina_tpu_torch.utils.ab import load_integrator, warm_state
 
-    cfg = ExperimentConfig.from_file(conf_path)
     t0 = time.time()
-    problem = Problem(2, device, verbose=False).load_config(
-        cfg.scene, cache_dir=os.environ["ELAINA_CACHE_DIR"])
-    integ = UniformIntegrator(problem, cfg.settings, "unused")
+    problem, integ = load_integrator(conf_path, device)
     torch.cuda.synchronize()
     g = problem.scene.d_grid
     log(f"[2] scene: {problem.stats['dirichlet_grid']}, fine res "
         f"{g.fine.res}, tables {problem.table_bytes()} bytes, built in "
         f"{time.time() - t0:.1f} s")
-    state = warm_state(problem, integ, S.EPS)
+    state = warm_state(problem, integ, WARM_STEPS)
     n = state.pos.shape[0]
     need, n_need, valid, q_c, row_c = need_lanes(g, state, n)
     check_compact_cases(need)
     kernels.add("compact_lanes", 0.0, lambda: R.compact_lanes(need, n),
                 lambda: R.compact_lanes_plain(need, n),
-                lambda: torch.nonzero(need), n + 4 * n_need + 4, 0.0)
+                lambda: torch.nonzero(need), n + 4 * n_need + 4, 0.0,
+                f"lobed_u's need mask after {WARM_STEPS} steps: {n} lanes, "
+                f"{n_need} set")
 
     # K2: the compacted lanes, as _fast_dirichlet hands them over
     args = (valid, row_c, q_c, g.coords, g.cand)
@@ -546,7 +558,9 @@ def phase_kernels(conf_path: str, device, kernels: Kernels) -> None:
     kernels.add("sweep_resolve", err, lambda: R.sweep_resolve(*args),
                 lambda: R.sweep_resolve_plain(*args), None,
                 n + n_need * (4 + 8 + 4 + 16) + rows * 4 * Kp * 4,
-                20.0 * n_need * g.cand.shape[1])
+                20.0 * n_need * g.cand.shape[1],
+                f"lobed_u's {n_need} need lanes of {n}, rows of K = "
+                f"{g.cand.shape[1]}")
 
     # K3: the in-shell lanes' colors, exact
     ins = v & (d < S.EPS) & (t > 0.0) & (t < 1.0)
@@ -562,7 +576,8 @@ def phase_kernels(conf_path: str, device, kernels: Kernels) -> None:
     kernels.add("fetch_colors", 0.0, lambda: R.fetch_colors(*cargs),
                 lambda: R.fetch_colors_plain(*cargs),
                 lambda: g.color_rows[cfi],
-                n * 5 + n_unique(cfi[ins]) * 24 + n_ins * 24, 0.0)
+                n * 5 + n_unique(cfi[ins]) * 24 + n_ins * 24, 0.0,
+                f"lobed_u: {n_ins} in-shell lanes of {n}")
 
     # K10: every pixel's row through the chain path, as the DIRICHLET_SDF
     # channel hands them over
@@ -571,6 +586,17 @@ def phase_kernels(conf_path: str, device, kernels: Kernels) -> None:
     q_pix = integ.eval_points
     check_grid_band("grid_band_2d", grid_row_index(g, q_pix), q_pix, g,
                     kernels, "the 1024^2 pixels")
+
+
+def check_bits(name: str, d, d_p, ids, ids_p) -> None:
+    """Distances bit-equal to the plain version's, ids exactly equal."""
+    import torch
+
+    if not torch.equal(d, d_p):
+        raise RuntimeError(f"{name}: {int((d != d_p).sum())} distances "
+                           f"differ in their bits")
+    if not torch.equal(ids, ids_p):
+        raise RuntimeError(f"{name}: {int((ids != ids_p).sum())} ids differ")
 
 
 def check_exact(name: str, d, d_p, ids, ids_p) -> float:
@@ -589,22 +615,6 @@ def check_exact(name: str, d, d_p, ids, ids_p) -> float:
     return err
 
 
-def load_scene(conf_path: str, device):
-    """Problem and UniformIntegrator of a config, through the loader."""
-    import torch
-
-    from elaina_tpu_torch.core.config import ExperimentConfig
-    from elaina_tpu_torch.core.problem import Problem
-    from elaina_tpu_torch.solver.integrator import UniformIntegrator
-
-    cfg = ExperimentConfig.from_file(conf_path)
-    problem = Problem(cfg.dimensionality, device, verbose=False).load_config(
-        cfg.scene, cache_dir=os.environ["ELAINA_CACHE_DIR"])
-    integ = UniformIntegrator(problem, cfg.settings, "unused")
-    torch.cuda.synchronize()
-    return problem, integ
-
-
 def phase_kernels_2c(conf_2d: str, conf_wavy: str, device,
                      kernels: Kernels) -> dict:
     """[2c] K13 and K12 on the frame points over bench.py's curve, K9-2D on
@@ -620,6 +630,8 @@ def phase_kernels_2c(conf_2d: str, conf_wavy: str, device,
                                                 grid_row_index)
     from elaina_tpu_torch.ops import queries as QK
     from elaina_tpu_torch.utils import scenes as S
+    from elaina_tpu_torch.utils.ab import (bench_square, load_integrator,
+                                           warm_state)
 
     log("[2c] K13, K12 and K9-2D")
     q = torch.as_tensor(frame_points(conf_2d), device=device).contiguous()
@@ -632,19 +644,58 @@ def phase_kernels_2c(conf_2d: str, conf_wavy: str, device,
     # K13: every frame point against every segment of bench.py's curve
     d13, pid = QK.closest_point_dense(q, a, b)
     d_p, pid_p = QK.closest_point_dense_plain(q, a, b)
-    err = check_exact("closest_point_dense", d13, d_p, pid, pid_p)
+    check_bits("closest_point_dense", d13, d_p, pid, pid_p)
     # vertex 5 ends segment 4 and starts segment 5: d = 0 for both
     dv, pv = QK.closest_point_dense(torch.as_tensor(verts[5:6], device=device),
                                     a, b)
-    log(f"    closest_point_dense: {n} points x {P} segments, ids equal to "
-        f"the plain version's; at the shared vertex 5: distance "
-        f"{float(dv[0])}, segment {int(pv[0])} (want 0, 4)")
+    log(f"    closest_point_dense: {n} points x {P} segments, distances "
+        f"bit-equal and ids equal to the plain version's; at the shared "
+        f"vertex 5: distance {float(dv[0])}, segment {int(pv[0])} (want 0, "
+        f"4)")
     if float(dv[0]) != 0.0 or int(pv[0]) != 4:
         raise RuntimeError("closest_point_dense broke the tie at a vertex")
-    kernels.add("closest_point_dense", err,
+    # its lane-list form on the bench square's walks a few steps in (K1
+    # compacts the live lanes, as _dense_dirichlet hands them over), and
+    # on every lane of that state
+    from elaina_tpu_torch.utils.timing import cuda_ms, device_ms
+
+    problem, integ = bench_square(device, 1)
+    walks = warm_state(problem, integ, LANES_STEPS)
+    qw = walks.pos.contiguous()
+    act = walks.active.contiguous()
+    cnt = int(act.sum())
+    for label, m in (("live lanes", act), ("every lane", torch.ones_like(act)),
+                     ("no lane", torch.zeros_like(act))):
+        dl, pl = QK.closest_point_dense(qw, a, b, m)
+        dl_p, pl_p = QK.closest_point_dense_plain(qw, a, b, m)
+        check_bits(f"closest_point_dense ({label})", dl, dl_p, pl, pl_p)
+        log(f"    closest_point_dense, lane list, {label} ({int(m.sum())} of "
+            f"{n}): bit-equal, ids equal")
+    del problem, integ
+
+    def listed():
+        return QK.closest_point_dense(qw, a, b, act)
+
+    l_dev, l_host, _ = device_ms(listed)
+    l_bound, l_by = bound(n + 4 * cnt + 4 + n + cnt * 12 + P * 16 + n * 8,
+                          14.0 * cnt * P)
+    lanes = {"lanes_shape": f"the bench square after {LANES_STEPS} steps: "
+                            f"{cnt} live of {n} lanes x {P} segments (K1 "
+                            f"and K13)",
+             "lanes_ms": cuda_ms(listed), "lanes_device_ms": l_dev,
+             "lanes_host_us": l_host,
+             "lanes_plain_ms": cuda_ms(
+                 lambda: QK.closest_point_dense_plain(qw, a, b, act)),
+             "lanes_bound_ms": l_bound, "lanes_bound_by": l_by}
+    log(f"    closest_point_dense, lane list: {lanes['lanes_ms']:.4f} ms "
+        f"(device {l_dev:.4f} ms, host {l_host:.1f} us), plain "
+        f"{lanes['lanes_plain_ms']:.4f} ms, bound {l_bound:.4f} ms ({l_by}; "
+        f"{lanes['lanes_shape']}; {kernels.card})")
+    kernels.add("closest_point_dense", 0.0,
                 lambda: QK.closest_point_dense(q, a, b),
                 lambda: QK.closest_point_dense_plain(q, a, b), None,
-                n * 8 + P * 16 + n * 8, 14.0 * n * P)
+                n * 8 + P * 16 + n * 8, 14.0 * n * P,
+                f"{n} frame points x {P} segments (every lane)", **lanes)
 
     # K12: a bare candidate grid of the same curve, through the chain path
     lo, hi = grid_bounds(verts, [-100, -100], [600, 600])
@@ -693,8 +744,6 @@ def phase_kernels_2c(conf_2d: str, conf_wavy: str, device,
     err = check_exact("candidate_band", dk, dk_p, sk, sk_p)
     Kw = valid.shape[1]
     n_valid = int(valid.sum())
-    from elaina_tpu_torch.utils.timing import cuda_ms
-
     gather_ms = cuda_ms(gather, runs=5)
     path_ms = cuda_ms(lambda: grid_closest_point(bare, q), runs=5)
     log(f"    candidate_band: {n} lanes x K = {Kw}, {n_valid} valid slots; "
@@ -703,17 +752,20 @@ def phase_kernels_2c(conf_2d: str, conf_wavy: str, device,
     kernels.add("candidate_band", err,
                 lambda: QK.candidate_band(q, *planes, valid),
                 lambda: QK.candidate_band_plain(q, *planes, valid), None,
-                n * 8 + n * Kw + n_valid * 16 + n * 8, 14.0 * n_valid)
+                n * 8 + n * Kw + n_valid * 16 + n * 8, 14.0 * n_valid,
+                f"{n} frame points' gathered rows of a bare grid, K = {Kw}, "
+                f"{n_valid} valid slots")
     del planes, valid
 
     # K9-2D on the wavy box's lanes after a few depth steps
     t0 = time.time()
-    problem, integ = load_scene(conf_wavy, device)
+    problem, integ = load_integrator(conf_wavy, device)
+    torch.cuda.synchronize()
     log(f"    wavy box of 8,192 segments loaded in {time.time() - t0:.1f} s: "
         f"{problem.stats['neumann_sil_grid']}; "
         f"{problem.stats['neumann_band_grid']}")
     sg = problem.scene.n_sgrid
-    state = warm_state(problem, integ, S.EPS)
+    state = warm_state(problem, integ, WARM_STEPS)
     lin, outside = Q.band_cell(sg, state.pos)
     cell = torch.where(outside, -1, lin).to(torch.int32)
     q2 = state.pos.contiguous()
@@ -734,7 +786,9 @@ def phase_kernels_2c(conf_2d: str, conf_wavy: str, device,
     kernels.add("sil_band_2d", err, lambda: QK.sil_band_2d(cell, q2, sg.coords),
                 lambda: QK.sil_band_2d_plain(cell, q2, sg.coords), None,
                 n2 * (4 + 8 + 4) + n_unique(cell[cell >= 0]) * 6 * sKp * 4,
-                12.0 * n_in * sKp)
+                12.0 * n_in * sKp,
+                f"wavy8192_u after {WARM_STEPS} steps: {n2} lanes, {n_in} in "
+                f"the grid, Kp = {sKp}")
     return launches
 
 
@@ -1041,31 +1095,18 @@ def phase_bench_square(device, card: str) -> None:
     """[4d] bench.py's own scene, as bench builds it."""
     import torch
 
-    from elaina_tpu_torch.core.config import IntegratorSettings
-    from elaina_tpu_torch.core.evaluation_grid import EvaluationGrid
-    from elaina_tpu_torch.core.problem import Problem, scene_from_numpy
-    from elaina_tpu_torch.solver.integrator import UniformIntegrator
     from elaina_tpu_torch.utils import scenes as S
+    from elaina_tpu_torch.utils.ab import bench_square
 
-    verts, idx, colors = S.bench_square_scene()
-    problem = Problem(2, device, verbose=False)
-    problem.probe = EvaluationGrid.from_json(
-        {"mData": {"pos": list(S.CENTER), "scale": 250, "up": [-1.0, 0.0]}},
-        2)
-    problem.scene = scene_from_numpy(
-        aabb_lo=[-100, -100], aabb_hi=[600, 600], device=device,
-        dirichlet=(verts, idx, colors))
-    settings = IntegratorSettings(frameSize=(S.FRAME, S.FRAME),
-                                  samplesPerPixel=4, maxWalkingDepth=S.DEPTH,
-                                  epsilonShell=S.EPS)
     log("[4d] bench.py's scene: 2,048 segments, no grid, no Neumann set")
     reset_counts()
-    integ = UniformIntegrator(problem, settings, "unused")
+    _, integ = bench_square(device, 4)
     solve_report(integ, "bench square", card)
     torch.cuda.synchronize()
     n_k13 = read_counts()["closest_point_dense"]
     film = integ.films["SOLUTION"].pixels()
-    log(f"    K13 launches {n_k13} for {4 * S.DEPTH} depth steps; film mean "
+    log(f"    K13 launches {n_k13} for {4 * S.DEPTH} depth steps, "
+        f"{integ.total_walk_steps} live lane-steps; film mean "
         f"{float(film.mean()):.5f}")
     if n_k13 < 4 * S.DEPTH or not np.isfinite(film).all():
         raise RuntimeError("bench.py's scene")
@@ -1127,6 +1168,7 @@ def phase_neumann2d_band(path: str, card: str) -> dict:
 
     from elaina_tpu_torch.geometry import queries as Q
     from elaina_tpu_torch.utils import scenes as S
+    from elaina_tpu_torch.utils.ab import warm_state
 
     log("[4f] 2D Neumann set of 8,192 segments: the 2D band grids")
     launches, _, integ = run_main(path, MAIN_2D + ("sil_band_2d",),
@@ -1140,7 +1182,7 @@ def phase_neumann2d_band(path: str, card: str) -> dict:
         raise RuntimeError(f"K9-2D launched {launches['sil_band_2d']} times "
                            f"in {steps} depth steps")
     sg = problem.scene.n_sgrid
-    pos = warm_state(problem, integ, S.EPS).pos
+    pos = warm_state(problem, integ, WARM_STEPS).pos
     r_grid = Q.grid_closest_silhouette(sg, pos)
     dense = Q.closest_silhouette(problem.scene.neumann.gs, pos)
     lin, outside = Q.band_cell(sg, pos)
@@ -1161,21 +1203,17 @@ def phase_kernels_3d(conf_path: str, device, kernels: Kernels) -> None:
     the blob's grids, against their plain versions."""
     import torch
 
-    from elaina_tpu_torch.core.config import ExperimentConfig
-    from elaina_tpu_torch.core.problem import Problem
     from elaina_tpu_torch.geometry import queries as Q
     from elaina_tpu_torch.geometry.primitives import prim_project, prim_side
     from elaina_tpu_torch.ops import queries as QK
     from elaina_tpu_torch.ops import resolve as R
-    from elaina_tpu_torch.solver.integrator import UniformIntegrator
     from elaina_tpu_torch.solver.wost import _sample_direction, _separate
+    from elaina_tpu_torch.utils.ab import load_integrator, warm_state
+    from elaina_tpu_torch.utils.timing import cuda_ms, device_ms
 
-    cfg = ExperimentConfig.from_file(conf_path)
-    eps = float(cfg.settings.epsilonShell)
     t0 = time.time()
-    problem = Problem(3, device, verbose=False).load_config(
-        cfg.scene, cache_dir=os.environ["ELAINA_CACHE_DIR"])
-    integ = UniformIntegrator(problem, cfg.settings, "unused")
+    problem, integ = load_integrator(conf_path, device)
+    eps = float(integ.settings.epsilonShell)
     torch.cuda.synchronize()
     log(f"[5] neumann3d scene loaded in {time.time() - t0:.1f} s")
     for key in ("dirichlet_grid", "neumann_sil_grid", "neumann_band_grid"):
@@ -1183,7 +1221,7 @@ def phase_kernels_3d(conf_path: str, device, kernels: Kernels) -> None:
     scene = problem.scene
     g = scene.d_grid
     log(f"    fine res {g.fine.res}, tables {problem.table_bytes()} bytes")
-    state = warm_state(problem, integ, eps)
+    state = warm_state(problem, integ, WARM_STEPS)
     n = state.pos.shape[0]
 
     # K4 on the need lanes, compacted by K1 as _fast_dirichlet does
@@ -1201,7 +1239,9 @@ def phase_kernels_3d(conf_path: str, device, kernels: Kernels) -> None:
                 lambda: R.sweep_resolve_3d_plain(*args), None,
                 n + n_need * (4 + 12 + 4 + 4 + 36)
                 + n_unique(row_c[v]) * 9 * Kp * 4,
-                120.0 * n_need * g.cand.shape[1])
+                120.0 * n_need * g.cand.shape[1],
+                f"neumann3d_u's {n_need} need lanes of {n} after "
+                f"{WARM_STEPS} steps")
 
     # K5 on the in-shell lanes
     pv = (corners[:, 0:3], corners[:, 3:6], corners[:, 6:9])
@@ -1219,7 +1259,8 @@ def phase_kernels_3d(conf_path: str, device, kernels: Kernels) -> None:
     kernels.add("fetch_colors3", 0.0, lambda: R.fetch_colors3(*cargs),
                 lambda: R.fetch_colors3_plain(*cargs),
                 lambda: g.color_rows[cfi],
-                n * 5 + n_unique(cfi[ins]) * 36 + n_ins * 36, 0.0)
+                n * 5 + n_unique(cfi[ins]) * 36 + n_ins * 36, 0.0,
+                f"neumann3d_u: {n_ins} in-shell lanes of {n}")
 
     # K9 on every lane, as _separate calls it
     sg, bg = scene.n_sgrid, scene.n_bgrid
@@ -1240,14 +1281,18 @@ def phase_kernels_3d(conf_path: str, device, kernels: Kernels) -> None:
     kernels.add("sil_band", err, lambda: QK.sil_band(cell, q, sg.coords),
                 lambda: QK.sil_band_plain(cell, q, sg.coords), None,
                 n * (4 + 12 + 4) + n_unique(cell[cell >= 0]) * 12 * sKp * 4,
-                40.0 * n_in * sKp)
+                40.0 * n_in * sKp,
+                f"neumann3d_u after {WARM_STEPS} steps: {n} lanes, {n_in} "
+                f"in the grid, Kp = {sKp}")
 
-    # K6 on every lane with this step's star radii, fresh uniforms and
-    # directions, as _neumann_walk_fused calls it; then on the same lanes
-    # with radii of 0.05 to 1, which reach the blob: the star radii stay
-    # below the distance to the blob (its band cells' r_cap clamps them),
-    # so at the main path's radii the sample and the rays find nothing
-    _, R_B, _, _, _ = _separate(scene, state, eps, shrink=True)
+    # K6 on every lane with this step's star radii and live lanes, fresh
+    # uniforms and directions, as _neumann_walk_fused calls it (with its
+    # skip, and without it); then on the same lanes with radii of 0.05 to
+    # 1, which reach the blob: the star radii stay below the distance to
+    # the blob (its band cells' r_cap clamps them), so at the main path's
+    # radii few lanes' samples and rays find anything
+    in_shell, R_B, _, _, _ = _separate(scene, state, eps, shrink=True)
+    live = (state.active & ~in_shell & torch.isfinite(R_B)).contiguous()
     rcap = Q.band_r_cap(bg, state.pos)
     log(f"    star radii: median {float(R_B.median()):.5f}, at the 1e-4 "
         f"floor {float((R_B < 1.0001e-4).float().mean()):.4f} of the "
@@ -1263,20 +1308,33 @@ def phase_kernels_3d(conf_path: str, device, kernels: Kernels) -> None:
     inn = cell >= 0
     n_in = int(inn.sum())
 
-    def band_args(radii):
+    def band_args(radii, skip=True, coords=bg.coords):
         return (cell, q, radii.contiguous(), state.on_neumann.contiguous(),
                 state.n_normal.contiguous(), u_sel, u_pt,
-                direction.contiguous(), eps, bg.coords)
+                direction.contiguous(), eps, coords,
+                bg.skip_r if skip else None, live if skip else None)
 
     err = 0.0
     wide = 0.05 + 0.95 * torch.rand(n, generator=gen, device=device)
-    for label, radii in (("star radii", R_B), ("radii 0.05-1", wide)):
-        kargs = band_args(radii)
+    # rows wider than 64 slots take K6's other instantiation: the same
+    # table padded to 128 slots with PAD_COORD ones, which never weigh or
+    # hit
+    from elaina_tpu_torch.geometry.grid import PAD_COORD
+
+    coords128 = torch.cat([bg.coords, torch.full_like(bg.coords, PAD_COORD)],
+                          dim=2).contiguous()
+    for label, radii, skip, coords in (
+            ("star radii", R_B, True, bg.coords),
+            ("star radii, no skip", R_B, False, bg.coords),
+            ("radii 0.05-1", wide, True, bg.coords),
+            ("radii 0.05-1, Kp = 128", wide, True, coords128)):
+        kargs = band_args(radii, skip, coords)
         out, slot = QK.band_neumann_walk(*kargs)
         out_p, slot_p = QK.band_neumann_walk_plain(*kargs)
         same = inn & (slot == slot_p)
         flips = int((inn & ~same).sum())
-        if flips > 0.005 * n_in:
+        if flips > CDF_FLIPS * n_in or not torch.equal(slot[~inn],
+                                                       slot_p[~inn]):
             raise RuntimeError(f"band_neumann_walk: {flips} CDF slots "
                                f"differ")
         a, b = out[same], out_p[same]
@@ -1287,20 +1345,49 @@ def phase_kernels_3d(conf_path: str, device, kernels: Kernels) -> None:
         if not torch.allclose(a[both], b[both], rtol=TOL, atol=1e-6):
             raise RuntimeError(f"band_neumann_walk differs: {e}")
         err = max(err, e)
+        work = (QK.band_work(cell, radii, state.on_neumann, eps, bg.skip_r,
+                             live) if skip else inn)
         log(f"    band_neumann_walk, {label}: {n_in} lanes in the grid, "
+            f"{int((inn & live).sum())} of them live, band work on "
+            f"{int(work.sum())} (the skip took "
+            f"{1.0 - float(work.sum()) / n:.4f} of all {n} lanes), "
             f"{int(((out[:, 0] > 0) & inn).sum())} with a sample, "
             f"{int((out[:, 9] > 0).sum())} occluded, "
             f"{int((out[:, 10] > 0).sum())} walk hits, {flips} CDF slots "
             f"flipped against the plain cumsum")
+    del coords128
     kargs = band_args(R_B)
     bKp = bg.coords.shape[2]
     cells = n_unique(cell[inn])
+    work = QK.band_work(cell, R_B, state.on_neumann, eps, bg.skip_r, live)
+    n_work = int(work.sum())
+    tested = inn & live
+    n_tested = int(tested.sum())
+    # every lane reads cell and writes out (15 floats) and slot; with the
+    # skip a lane in the grid reads live, a live one R, on and its cell's
+    # skip_r, and only a lane with band work q, n_normal, u_sel, u_pt,
+    # d_walk and its cell's corners
+    io_bytes = n * (4 + 60 + 4)
+    band_bytes = 12 + 12 + 4 + 8 + 12
+    all_bound, _ = bound(io_bytes + n_in * (4 + 1 + band_bytes)
+                         + cells * 9 * bKp * 4, 200.0 * n_in * bKp)
+    noskip = band_args(R_B, skip=False)
+    ns_ms = cuda_ms(lambda: QK.band_neumann_walk(*noskip))
+    ns_dev = device_ms(lambda: QK.band_neumann_walk(*noskip))[0]
+    log(f"    band_neumann_walk without the skip: {ns_ms:.4f} ms (device "
+        f"{ns_dev:.4f} ms); the bound of every lane in the grid "
+        f"{all_bound:.4f} ms ({kernels.card})")
     kernels.add("band_neumann_walk", err,
                 lambda: QK.band_neumann_walk(*kargs),
                 lambda: QK.band_neumann_walk_plain(*kargs), None,
-                n * (4 + 12 + 4 + 1 + 12 + 4 + 8 + 12 + 60 + 4)
-                + cells * 9 * bKp * 4,
-                200.0 * n_in * bKp)
+                io_bytes + n_in + n_tested * (4 + 1) + n_work * band_bytes
+                + n_unique(cell[tested]) * 4
+                + n_unique(cell[work]) * 9 * bKp * 4,
+                200.0 * n_work * bKp,
+                f"neumann3d_u after {WARM_STEPS} steps, star radii: {n} "
+                f"lanes, {n_in} in the grid, band work on {n_work}, Kp = "
+                f"{bKp}", noskip_ms=ns_ms, noskip_device_ms=ns_dev,
+                all_lanes_bound_ms=all_bound)
 
     # K7: the walk ray alone, from the eps-offset origin in pos's cell, as
     # the unfused step and the source term call it
@@ -1326,7 +1413,9 @@ def phase_kernels_3d(conf_path: str, device, kernels: Kernels) -> None:
     kernels.add("band_ray", err, lambda: QK.band_ray(*rargs),
                 lambda: QK.band_ray_plain(*rargs), None,
                 n * (4 + 12 + 12 + 4 + 4 + 4) + cells * 9 * bKp * 4,
-                45.0 * n_in * bKp)
+                45.0 * n_in * bKp,
+                f"neumann3d_u after {WARM_STEPS} steps, star radii: {n} "
+                f"lanes, {n_in} in the grid, Kp = {bKp}")
 
     # K8: the in-ball CDF sample alone, as the unfused step calls it
     err = 0.0
@@ -1352,7 +1441,9 @@ def phase_kernels_3d(conf_path: str, device, kernels: Kernels) -> None:
     kernels.add("band_ball", err, lambda: QK.band_ball(*bargs),
                 lambda: QK.band_ball_plain(*bargs), None,
                 n * (4 + 12 + 4 + 4 + 4 + 4 + 4) + cells * 9 * bKp * 4,
-                80.0 * n_in * bKp)
+                80.0 * n_in * bKp,
+                f"neumann3d_u after {WARM_STEPS} steps, star radii: {n} "
+                f"lanes, {n_in} in the grid, Kp = {bKp}")
 
     # K11: the frame's plane points through the chain path, as the
     # DIRICHLET_SDF channel hands them over
@@ -1362,6 +1453,42 @@ def phase_kernels_3d(conf_path: str, device, kernels: Kernels) -> None:
     check_grid_band("grid_band_3d", grid_row_index(g, q_pix), q_pix, g,
                     kernels, "neumann3d's 256^2 plane points")
     phase_fused_vs_unfused(scene, integ, eps)
+    phase_skip_step(scene, state, eps)
+
+
+def phase_skip_step(scene, state, eps: float) -> None:
+    """[5c] One depth step from the warmed lanes with the same generators,
+    with K6's skip and without it: contributions and next walk states
+    equal on every lane."""
+    import dataclasses
+
+    import torch
+
+    from elaina_tpu_torch.geometry import queries as Q
+    from elaina_tpu_torch.solver.wost import wost_depth_step
+    from elaina_tpu_torch.utils.rng import sample_generators
+
+    walk = Q.band_neumann_walk
+    dev = state.pos.device
+
+    def step():
+        return wost_depth_step(scene, state, sample_generators(0, 1, dev),
+                               eps)
+
+    st1, c1, _ = step()
+    Q.band_neumann_walk = (lambda bg, *args, live=None: walk(
+        dataclasses.replace(bg, skip_r=None), *args))
+    try:
+        st0, c0, _ = step()
+    finally:
+        Q.band_neumann_walk = walk
+    fields = ("pos", "thp", "active", "on_neumann", "n_normal")
+    same = {f: torch.equal(getattr(st1, f), getattr(st0, f)) for f in fields}
+    log(f"[5c] one step with and without K6's skip on "
+        f"{state.pos.shape[0]} lanes: contributions equal "
+        f"{torch.equal(c1, c0)}, next state equal {same}")
+    if not (torch.equal(c1, c0) and all(same.values())):
+        raise RuntimeError("K6's skip changed the depth step")
 
 
 def phase_fused_vs_unfused(scene, integ, eps: float) -> None:
@@ -1589,44 +1716,40 @@ def main() -> int:
     card = card_line()
     log(f"[0] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    phase_build()
+    timed_phase("[1]", phase_build)
     kernels = Kernels(card)
     runs = {}
     with tempfile.TemporaryDirectory() as root:
         os.environ["ELAINA_CACHE_DIR"] = os.path.join(root, "cache")
         conf_2d = scenes.write_scene(root, SPP)
-        phase_kernels(conf_2d, device, kernels)
-        torch.cuda.empty_cache()
         wavy = os.path.join(root, "wavy8192")
         os.makedirs(wavy)
         conf_wavy = scenes.write_scene(wavy, WAVY_SPP, neumann_segments=8192)
-        runs["bare_grid"] = phase_kernels_2c(conf_2d, conf_wavy, device,
-                                             kernels)
-        torch.cuda.empty_cache()
-        phase_analytic(device, card)
-        runs["lobed_u"] = phase_main(conf_2d, card)
-        runs["channels_2d"] = phase_channels_2d(root, card)
-        torch.cuda.empty_cache()
-        runs["nogrid_u"] = phase_nogrid(root, device, card)
-        torch.cuda.empty_cache()
-        phase_bench_square(device, card)
-        torch.cuda.empty_cache()
-        phase_neumann2d_chunked(root, device, card)
-        torch.cuda.empty_cache()
-        runs["wavy8192_u"] = phase_neumann2d_band(conf_wavy, card)
-        torch.cuda.empty_cache()
         conf_3d = scenes.write_config_copy(root, "neumann3d_u", SPP_3D)
-        phase_kernels_3d(conf_3d, device, kernels)
-        torch.cuda.empty_cache()
-        phase_analytic_3d(root, device, card)
-        phase_bumpy(scenes.write_config_copy(root, "bumpy3d_u", SPP_3D),
-                    card)
-        torch.cuda.empty_cache()
-        runs["neumann3d_u"] = phase_main_3d(conf_3d, card)
-        torch.cuda.empty_cache()
-        runs["neumann3d_source"] = phase_source_3d(root, card)
-        torch.cuda.empty_cache()
-        runs["neumann3d_unfused"] = phase_unfused_3d(conf_3d, card)
+        conf_bumpy = scenes.write_config_copy(root, "bumpy3d_u", SPP_3D)
+        for label, key, fn, args in (
+                ("[2]", None, phase_kernels, (conf_2d, device, kernels)),
+                ("[2c]", "bare_grid", phase_kernels_2c,
+                 (conf_2d, conf_wavy, device, kernels)),
+                ("[3]", None, phase_analytic, (device, card)),
+                ("[4]", "lobed_u", phase_main, (conf_2d, card)),
+                ("[4b]", "channels_2d", phase_channels_2d, (root, card)),
+                ("[4c]", "nogrid_u", phase_nogrid, (root, device, card)),
+                ("[4d]", None, phase_bench_square, (device, card)),
+                ("[4e]", None, phase_neumann2d_chunked, (root, device, card)),
+                ("[4f]", "wavy8192_u", phase_neumann2d_band,
+                 (conf_wavy, card)),
+                ("[5]", None, phase_kernels_3d, (conf_3d, device, kernels)),
+                ("[6]", None, phase_analytic_3d, (root, device, card)),
+                ("[7]", None, phase_bumpy, (conf_bumpy, card)),
+                ("[8]", "neumann3d_u", phase_main_3d, (conf_3d, card)),
+                ("[8b]", "neumann3d_source", phase_source_3d, (root, card)),
+                ("[8c]", "neumann3d_unfused", phase_unfused_3d,
+                 (conf_3d, card))):
+            out = timed_phase(label, fn, *args)
+            if key is not None:
+                runs[key] = out
+            torch.cuda.empty_cache()
     for name, rec in kernels.records.items():
         rec["launches"] = runs[PATH_OF[name]][name]
         if not rec["launches"]:

@@ -24,19 +24,21 @@
 //   K12 candidate_band_pallas (pallas_queries.py:499, body :469)
 //                                                -> candidate_band_kernel
 //
-// K7 is K6's walk ray and K8 its in-ball CDF sample: they call the same
-// device functions (closest_hit, ball_sample), so the fused and the
+// K7 is K6's walk ray and K8 its in-ball CDF sample: they take the same
+// per-slot and per-warp device functions (mt_hit and warp_closest;
+// ball_weight and cdf_select) in the same slot order, so the fused and the
 // unfused step agree bit for bit wherever their inputs do.  K12 and K13
 // take resolve.cu's segment distance (segment.cuh).
 //
 // The contracts are the TPU kernels'; the TPU shapes are not carried over:
 // no per-lane block DMAs, (BL, 128) tiles, one-hot winner picks or
-// triangular-matmul prefix sums.  One warp serves one lane and strides
-// over the Kp slots of the lane's cell, whose table is planes by slot, so
-// each load instruction of the warp reads 128 contiguous bytes (K13, which
-// reads one shared set, is one thread a lane instead).  Lanes with cell < 0
-// (outside the grid) do no work.  Each launch function enqueues on the
-// caller's stream, allocates nothing and returns cudaGetLastError().
+// triangular-matmul prefix sums.  One warp serves one lane at a time and
+// strides over the Kp slots of the lane's cell, whose table is planes by
+// slot, so each load instruction of the warp reads 128 contiguous bytes
+// (K13, which reads one shared set, is one thread for a few lanes
+// instead).  Lanes with cell < 0 (outside the grid) do no work.  Each
+// launch function enqueues on the caller's stream, allocates nothing and
+// returns cudaGetLastError().
 // Built with -fmad=false, as resolve.cu: the plain PyTorch versions write
 // the same products and sums in the same order.
 
@@ -138,41 +140,37 @@ __device__ __forceinline__ void load_corners(const float* base, int Kp,
   for (int p = 0; p < 9; ++p) c[p] = base[p * Kp + slot];
 }
 
-// The Green-weighted in-ball CDF sample over a cell's Kp slots (K6's step
-// 1 and K8): weights w = area * max((1/max(d, 1e-4) - 1/R) / 4pi, 0) for
-// d < R, total their sum, and the selected slot the count of CDF entries
-// <= u_sel * total (Kp: none).  The CDF is an fp32 warp scan (Kogge-Stone
-// shuffles) in slot order, one 32-slot round at a time; no tensor-core
-// product, so no TF32 rounding moves its boundaries.  Against the plain
-// version's cumsum the slot can flip at a boundary under reassociation.
-// Warp-uniform results; every lane of the warp calls it.
-__device__ __forceinline__ int ball_sample(const float* base, int Kp,
-                                           const float* qv, float R,
-                                           float u_sel, int lane,
-                                           float* w_sel_out,
-                                           float* total_out) {
-  const int rounds = Kp >> 5;
-  float w[MAX_ROUNDS];
-  float part = 0.f;
+// The Green-weighted in-ball weight of one slot (K6's step 1 and K8):
+// area * max((1/max(d, 1e-4) - 1/R) / 4pi, 0) for d < R, else 0.
+__device__ __forceinline__ float ball_weight(const float* qv, const float* cr,
+                                            float R) {
+  float e1[3], e2[3], x[3];
+  const float dd = sqrtf(tri_d2(qv, cr));
 #pragma unroll
-  for (int j = 0; j < MAX_ROUNDS; ++j) {
-    w[j] = 0.f;
-    if (j < rounds) {
-      float cr[9], e1[3], e2[3], x[3];
-      load_corners(base, Kp, j * 32 + lane, cr);
-      const float dd = sqrtf(tri_d2(qv, cr));
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        e1[k] = cr[3 + k] - cr[k];
-        e2[k] = cr[6 + k] - cr[k];
-      }
-      cross3(e1, e2, x);
-      const float area = 0.5f * sqrtf(dot3(x, x));
-      const float g = (1.f / fmaxf(dd, 1e-4f) - 1.f / R) * INV_4PI;
-      w[j] = dd < R ? area * fmaxf(g, 0.f) : 0.f;
-      part += w[j];
-    }
+  for (int k = 0; k < 3; ++k) {
+    e1[k] = cr[3 + k] - cr[k];
+    e2[k] = cr[6 + k] - cr[k];
   }
+  cross3(e1, e2, x);
+  const float area = 0.5f * sqrtf(dot3(x, x));
+  const float g = (1.f / fmaxf(dd, 1e-4f) - 1.f / R) * INV_4PI;
+  return dd < R ? area * fmaxf(g, 0.f) : 0.f;
+}
+
+// The in-ball CDF sample over a cell's Kp slots from each thread's
+// weights w[j] of slot j * 32 + lane (0 for j >= Kp / 32) and their
+// sum ``part`` in j order: total the weights' sum, and the selected slot
+// the count of CDF entries <= u_sel * total (Kp: none).  The CDF is an
+// fp32 warp scan (Kogge-Stone shuffles) in slot order, one 32-slot round
+// at a time; no tensor-core product, so no TF32 rounding moves its
+// boundaries.  Against the plain version's cumsum the slot can flip at a
+// boundary under reassociation.  Warp-uniform results; every lane of the
+// warp calls it.
+template <int MAXR>
+__device__ __forceinline__ int cdf_select(const float* w, float part,
+                                          int rounds, int Kp, float u_sel,
+                                          int lane, float* w_sel_out,
+                                          float* total_out) {
   float total = part;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) total += __shfl_xor_sync(FULL, total, o);
@@ -180,7 +178,7 @@ __device__ __forceinline__ int ball_sample(const float* base, int Kp,
   float off = 0.f;
   int cnt = 0;
 #pragma unroll
-  for (int j = 0; j < MAX_ROUNDS; ++j) {
+  for (int j = 0; j < MAXR; ++j) {
     if (j < rounds) {
       float x = w[j];
 #pragma unroll
@@ -198,7 +196,7 @@ __device__ __forceinline__ int ball_sample(const float* base, int Kp,
   const int sel = cnt;                       // warp-uniform, 0..Kp
   float w_own = 0.f;
 #pragma unroll
-  for (int j = 0; j < MAX_ROUNDS; ++j)
+  for (int j = 0; j < MAXR; ++j)
     if (j == (sel >> 5)) w_own = w[j];
   const float w_sel_all = __shfl_sync(FULL, w_own, sel & 31);
   *w_sel_out = sel < Kp ? w_sel_all : 0.f;
@@ -206,10 +204,52 @@ __device__ __forceinline__ int ball_sample(const float* base, int Kp,
   return sel;
 }
 
-// The closest ray hit over a cell's Kp slots (K6's walk ray and K7): the
-// lexicographic (t, slot) argmin of mt_hit by warp shuffle, so the smallest
-// slot wins equal t.  Warp-uniform t (+inf on a miss) and slot (Kp on a
-// miss); every lane of the warp calls it.
+// K8's in-ball CDF sample, each slot's corners read once from device
+// memory (K6 takes cdf_select over the corners it holds in registers).
+__device__ __forceinline__ int ball_sample(const float* base, int Kp,
+                                           const float* qv, float R,
+                                           float u_sel, int lane,
+                                           float* w_sel_out,
+                                           float* total_out) {
+  const int rounds = Kp >> 5;
+  float w[MAX_ROUNDS];
+  float part = 0.f;
+#pragma unroll
+  for (int j = 0; j < MAX_ROUNDS; ++j) {
+    w[j] = 0.f;
+    if (j < rounds) {
+      float cr[9];
+      load_corners(base, Kp, j * 32 + lane, cr);
+      w[j] = ball_weight(qv, cr, R);
+      part += w[j];
+    }
+  }
+  return cdf_select<MAX_ROUNDS>(w, part, rounds, Kp, u_sel, lane, w_sel_out,
+                                total_out);
+}
+
+// The lexicographic (t, slot) argmin of each thread's best hit by warp
+// shuffle, so the smallest slot wins equal t: warp-uniform t (+inf on a
+// miss) and slot (Kp on a miss).
+__device__ __forceinline__ void warp_closest(float best_t, int best_slot,
+                                             float* t_out, int* slot_out) {
+#pragma unroll
+  for (int off2 = 16; off2 > 0; off2 >>= 1) {
+    const float ot = __shfl_down_sync(FULL, best_t, off2);
+    const int os = __shfl_down_sync(FULL, best_slot, off2);
+    if (ot < best_t || (ot == best_t && os < best_slot)) {
+      best_t = ot;
+      best_slot = os;
+    }
+  }
+  *t_out = __shfl_sync(FULL, best_t, 0);
+  *slot_out = __shfl_sync(FULL, best_slot, 0);
+}
+
+// K7's closest ray hit over a cell's Kp slots, each slot's corners read
+// from device memory: mt_hit per slot in slot order with a strict <, then
+// warp_closest (K6 runs the same over the corners in its registers).
+// Every lane of the warp calls it.
 __device__ __forceinline__ void closest_hit(const float* base, int Kp,
                                             const float* o, const float* d,
                                             float tmax, int lane,
@@ -225,17 +265,7 @@ __device__ __forceinline__ void closest_hit(const float* base, int Kp,
       best_slot = k;
     }
   }
-#pragma unroll
-  for (int off2 = 16; off2 > 0; off2 >>= 1) {
-    const float ot = __shfl_down_sync(FULL, best_t, off2);
-    const int os = __shfl_down_sync(FULL, best_slot, off2);
-    if (ot < best_t || (ot == best_t && os < best_slot)) {
-      best_t = ot;
-      best_slot = os;
-    }
-  }
-  *t_out = __shfl_sync(FULL, best_t, 0);
-  *slot_out = __shfl_sync(FULL, best_slot, 0);
+  warp_closest(best_t, best_slot, t_out, slot_out);
 }
 
 // --------------------------------------------------------------------------
@@ -305,50 +335,102 @@ __global__ void sil_band_kernel(const int32_t* __restrict__ cell,
 // --------------------------------------------------------------------------
 // K6: one depth step's Neumann band work for a lane, over its prim-band
 // cell's corner planes (C, 9, Kp): 36 bytes per slot, 2.3 KB per lane at
-// K = 64, read once from device memory (the winners' reloads hit L1).
-//   1. the in-ball CDF sample of ball_sample (total, slot, w_sel);
+// K = 64.
+//   1. the in-ball CDF sample (ball_weight, cdf_select: total, slot,
+//      w_sel);
 //   2. the sample point from barycentrics (1 - sqrt(u1), u2 sqrt(u1)) on
 //      the selected triangle, its unnormalized plane normal, and
 //      side = sign((q - a) . n); no selection gives PAD_COORD corners.
 //   3. the visibility ray from o = q + on eps n to the sample point, any
 //      hit within dist - eps;
 //   4. the walk ray from o along d_walk, closest hit within R
-//      (closest_hit), and the hit triangle's unit normal.
+//      (warp_closest), and the hit triangle's unit normal.
 // out (n, 15): w_sel, total, sample_pt.xyz, side, plane_n.xyz, occluded,
-// walk_hit, walk_t, walk_n.xyz; slot (n,).  Lanes with cell < 0 get zeros,
-// walk_t = inf and slot = Kp.
+// walk_hit, walk_t, walk_n.xyz; slot (n,).
+//
+// Bound: at neumann3d_u's shapes most lanes need no band work (the walk
+// is dead, or its ball and rays cannot reach the cell's nearest kept
+// prim), and the rest ~200 flops and 36 bytes a slot.  So a lane first
+// takes the skip test: a lane that is not live (``live``, when given),
+// outside the grid (cell < 0), or whose reach R + oe (oe = eps on a
+// Neumann lane, else 0: the rays start at q + oe n, so a hit lies within
+// R + oe of q) lies below its cell's ``skip_r`` (the band grid's lbound
+// less a float margin, geometry/grid.py; when given) writes the outputs
+// of a lane without a selection or a hit -- zeros, walk_t = inf and slot
+// = Kp -- without reading a corner.  On a live lane every output the step
+// reads (slot, w_sel, total, walk_hit, walk_t, walk_n) is then what the
+// kernel without the skip gives; occluded, sample_pt, side and plane_n of
+// a lane without a selection differ (the visibility ray toward the PAD
+// corners is not traced), and the step masks them.  A warp tests G lanes
+// at once and runs the band work of those that need it one after the
+// other (G = 4 was chosen by trial on the card among 1, 4, 8 and 32):
+// each lane's Kp x 9 corners are read once, into registers
+// (MAXR rounds of 32 slots: 18 floats a thread at Kp = 64, 72 at Kp =
+// 256), and the CDF, the visibility ray and the walk ray run from there;
+// the selected and the hit triangle's corners come by shuffle from the
+// thread that holds them.
 // --------------------------------------------------------------------------
 
-__global__ void band_neumann_walk_kernel(
-    const int32_t* __restrict__ cell, const float* __restrict__ q,
-    const float* __restrict__ R_in, const uint8_t* __restrict__ on_in,
-    const float* __restrict__ nn, const float* __restrict__ u_sel_in,
-    const float* __restrict__ u_pt, const float* __restrict__ dw,
-    float eps, const float* __restrict__ coords, int64_t n, int32_t Kp,
-    float* __restrict__ out, int32_t* __restrict__ slot_out) {
-  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (i >= n) return;
-  float* o15 = out + 15 * i;
-  const int64_t c = cell[i];
-  if (c < 0) {
-    if (lane < 15) o15[lane] = lane == 11 ? inf_f() : 0.f;
-    if (lane == 0) slot_out[i] = Kp;
-    return;
+constexpr int K6_G = 4;                     // lanes a warp tests at once
+
+// The select-and-shuffle of slot ``slot``'s corners (slot < 32 * MAXR)
+// from the thread that holds them, to every thread of the warp.
+template <int MAXR>
+__device__ __forceinline__ void shfl_corners(const float (*cr)[9], int slot,
+                                             float* out) {
+#pragma unroll
+  for (int p = 0; p < 9; ++p) {
+    float v = cr[0][p];
+#pragma unroll
+    for (int j = 1; j < MAXR; ++j)
+      if (j == (slot >> 5)) v = cr[j][p];
+    out[p] = __shfl_sync(FULL, v, slot & 31);
   }
-  const float* base = coords + c * 9 * Kp;
+}
+
+template <int MAXR>
+__device__ __forceinline__ void band_walk_lane(
+    int64_t i, int lane, const int32_t* __restrict__ cell,
+    const float* __restrict__ q, const float* __restrict__ R_in,
+    const uint8_t* __restrict__ on_in, const float* __restrict__ nn,
+    const float* __restrict__ u_sel_in, const float* __restrict__ u_pt,
+    const float* __restrict__ dw, float eps,
+    const float* __restrict__ coords, int32_t Kp, float* __restrict__ out,
+    int32_t* __restrict__ slot_out) {
+  const int rounds = Kp >> 5;
+  const float* base = coords + (int64_t)cell[i] * 9 * Kp;
+  float cr[MAXR][9];
+#pragma unroll
+  for (int j = 0; j < MAXR; ++j) {
+    if (j < rounds) {
+      load_corners(base, Kp, j * 32 + lane, cr[j]);
+    } else {
+#pragma unroll
+      for (int p = 0; p < 9; ++p) cr[j][p] = 0.f;
+    }
+  }
   const float qv[3] = {q[3 * i], q[3 * i + 1], q[3 * i + 2]};
   const float R = R_in[i];
 
   // 1. the in-ball CDF sample
+  float w[MAXR];
+  float part = 0.f;
+#pragma unroll
+  for (int j = 0; j < MAXR; ++j) {
+    w[j] = 0.f;
+    if (j < rounds) {
+      w[j] = ball_weight(qv, cr[j], R);
+      part += w[j];
+    }
+  }
   float w_sel, total;
-  const int sel = ball_sample(base, Kp, qv, R, u_sel_in[i], lane, &w_sel,
-                              &total);
+  const int sel = cdf_select<MAXR>(w, part, rounds, Kp, u_sel_in[i], lane,
+                                   &w_sel, &total);
 
   // 2. the sample point on the selected triangle
   float s[9];
   if (sel < Kp) {
-    load_corners(base, Kp, sel, s);
+    shfl_corners<MAXR>(cr, sel, s);
   } else {
 #pragma unroll
     for (int p = 0; p < 9; ++p) s[p] = PAD_COORD;
@@ -382,30 +464,44 @@ __global__ void band_neumann_walk_kernel(
   for (int k = 0; k < 3; ++k) rd[k] = ray[k] / fmaxf(dist, 1e-20f);
   const float vis_tmax = dist - eps;
   bool any = false;
-  for (int k = lane; k < Kp; k += 32) {
-    float cr[9];
-    load_corners(base, Kp, k, cr);
-    any |= mt_hit(o, rd, cr, vis_tmax) < inf_f();
-  }
+#pragma unroll
+  for (int j = 0; j < MAXR; ++j)
+    if (j < rounds) any |= mt_hit(o, rd, cr[j], vis_tmax) < inf_f();
   const bool occluded = __any_sync(FULL, any);
 
   // 4. walk ray
   const float dwv[3] = {dw[3 * i], dw[3 * i + 1], dw[3 * i + 2]};
-  float best_t;
-  int best_slot;
-  closest_hit(base, Kp, o, dwv, R, lane, &best_t, &best_slot);
-  const bool whit = best_t < inf_f();
-  float wc[9], we1[3], we2[3], wcr[3];
-  load_corners(base, Kp, best_slot < Kp ? best_slot : Kp - 1, wc);
+  float best_t = inf_f();
+  int best_slot = Kp;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    we1[k] = wc[3 + k] - wc[k];
-    we2[k] = wc[6 + k] - wc[k];
+  for (int j = 0; j < MAXR; ++j) {
+    if (j < rounds) {
+      const float t = mt_hit(o, dwv, cr[j], R);
+      if (t < best_t) {
+        best_t = t;
+        best_slot = j * 32 + lane;
+      }
+    }
   }
-  cross3(we1, we2, wcr);
-  const float wlen = sqrtf(fmaxf(dot3(wcr, wcr), 1e-38f));
+  warp_closest(best_t, best_slot, &best_t, &best_slot);
+  const bool whit = best_t < inf_f();
+  float wn[3] = {0.f, 0.f, 0.f};
+  if (whit) {
+    float wc[9], we1[3], we2[3], wcr[3];
+    shfl_corners<MAXR>(cr, best_slot, wc);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      we1[k] = wc[3 + k] - wc[k];
+      we2[k] = wc[6 + k] - wc[k];
+    }
+    cross3(we1, we2, wcr);
+    const float wlen = sqrtf(fmaxf(dot3(wcr, wcr), 1e-38f));
+#pragma unroll
+    for (int k = 0; k < 3; ++k) wn[k] = wcr[k] / wlen;
+  }
 
   if (lane == 0) {
+    float* o15 = out + 15 * i;
     o15[0] = w_sel;
     o15[1] = total;
     o15[2] = sp[0];
@@ -417,11 +513,44 @@ __global__ void band_neumann_walk_kernel(
     o15[8] = nw[2];
     o15[9] = occluded ? 1.f : 0.f;
     o15[10] = whit ? 1.f : 0.f;
-    o15[11] = whit ? best_t : inf_f();
+    o15[11] = best_t;                    // +inf on a miss
 #pragma unroll
-    for (int k = 0; k < 3; ++k) o15[12 + k] = whit ? wcr[k] / wlen : 0.f;
+    for (int k = 0; k < 3; ++k) o15[12 + k] = wn[k];
     slot_out[i] = sel;
   }
+}
+
+template <int MAXR>
+__global__ void __launch_bounds__(THREADS) band_neumann_walk_kernel(
+    const int32_t* __restrict__ cell, const float* __restrict__ q,
+    const float* __restrict__ R_in, const uint8_t* __restrict__ on_in,
+    const float* __restrict__ nn, const float* __restrict__ u_sel_in,
+    const float* __restrict__ u_pt, const float* __restrict__ dw,
+    float eps, const float* __restrict__ coords,
+    const float* __restrict__ skip_r, const uint8_t* __restrict__ live,
+    int64_t n, int32_t Kp, float* __restrict__ out,
+    int32_t* __restrict__ slot_out) {
+  const int64_t first =
+      (((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5) * K6_G;
+  const int lane = threadIdx.x & 31;
+  bool work = false;
+  if (lane < K6_G && first + lane < n) {
+    const int64_t i = first + lane;
+    const int64_t c = cell[i];
+    work = c >= 0 && (live == nullptr || live[i]);
+    if (work && skip_r != nullptr)
+      work = !(R_in[i] + (on_in[i] ? eps : 0.f) < skip_r[c]);
+    if (!work) {
+      float* o15 = out + 15 * i;
+#pragma unroll
+      for (int k = 0; k < 15; ++k) o15[k] = k == 11 ? inf_f() : 0.f;
+      slot_out[i] = Kp;
+    }
+  }
+  for (unsigned todo = __ballot_sync(FULL, work); todo; todo &= todo - 1)
+    band_walk_lane<MAXR>(first + __ffs(todo) - 1, lane, cell, q, R_in, on_in,
+                         nn, u_sel_in, u_pt, dw, eps, coords, Kp, out,
+                         slot_out);
 }
 
 // --------------------------------------------------------------------------
@@ -504,50 +633,176 @@ __global__ void band_ball_kernel(const int32_t* __restrict__ cell,
 // segments a (P, 2) -> b (P, 2): dist = sqrt(min d^2) and the smallest
 // index attaining it (a strict < in index order, as the TPU kernel's
 // min(where(d2 <= best, cols, P))); when every d^2 overflows, index 0, as
-// there.  One thread a lane; a block stages the set through shared memory
-// DENSE_TILE segments (32 KB) at a time, and every thread of the block
-// reads the same slot (a broadcast).  ~14 flops and one division per
-// (lane, segment): bound by the operations (the set and the lanes are a
-// few MB, read once).
+// there.  In its lane-list form (``active`` given) it sweeps only the
+// lanes ``lanes[0, cnt)`` that K1 compacted from ``active``: list position
+// p sweeps lane lanes[p] and writes at that lane, and every lane that
+// ``active`` leaves out gets dist = +inf and prim = 0 from the same
+// launch.  The count is read on the device: the grid is sized by N, and
+// a block whose positions all lie past cnt only writes those.
+//
+// Bound: ~14 flops and one IEEE division per (lane, segment), so the
+// operations (the set and the lanes are a few MB, read once).  A block
+// takes 32 x DENSE_LPT lanes and stages the set in shared memory with
+// cp.async -- the whole set when it has at most DENSE_ONE_TILE segments,
+// else DENSE_TILE at a time, two tiles in flight -- turning each segment
+// into (ax, ay, ex, ey) and den = max(|e|^2, 1e-30) once (seg_den: the
+// plain version's operations on the same inputs, so the same bits).  Each
+// of its DENSE_WARPS warps sweeps its own share of each tile for all the
+// block's lanes, DENSE_LPT lanes a thread (each shared-memory read feeds
+// that many independent chains, which hide the division's latency), and
+// the shares meet in shared memory in a lexicographic (d^2, index) min:
+// the smallest index attaining the least d^2, as one sweep in index
+// order.  Splitting the set over warps keeps the card full when only a
+// few lanes are listed.  8 warps of 4 lanes a thread were chosen by trial
+// on the card on the bench square.
 // --------------------------------------------------------------------------
 
-constexpr int DENSE_TILE = 2048;
+constexpr int DENSE_LPT = 4;                // lanes a thread
+constexpr int DENSE_WARPS = 8;              // warps a block, each a share
+constexpr int DENSE_THREADS = 32 * DENSE_WARPS;
+constexpr int DENSE_LANES = 32 * DENSE_LPT;  // lanes a block
+constexpr int DENSE_ONE_TILE = 4096;        // staged at once up to 80 KB
+constexpr int DENSE_TILE = 2048;            // then two 40 KB tiles
+constexpr int DENSE_PART_BYTES = DENSE_WARPS * DENSE_LANES * 8;
+constexpr int DENSE_SMEM_MAX = 2 * DENSE_TILE * 20 + DENSE_PART_BYTES;
 
-__global__ void closest_point_dense_kernel(const float* __restrict__ q,
-                                           const float* __restrict__ seg_a,
-                                           const float* __restrict__ seg_b,
-                                           int64_t n, int32_t P,
-                                           float* __restrict__ dist_out,
-                                           int32_t* __restrict__ prim_out) {
-  __shared__ float4 tile[DENSE_TILE];
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
-  const float qx = live ? q[2 * i] : 0.f;
-  const float qy = live ? q[2 * i + 1] : 0.f;
-  float best = inf_f();
-  int best_p = P;
-  for (int p0 = 0; p0 < P; p0 += DENSE_TILE) {
-    const int m = min(DENSE_TILE, P - p0);
-    __syncthreads();                     // the previous tile is consumed
-    for (int k = threadIdx.x; k < m; k += blockDim.x) {
-      const int64_t p = p0 + k;
-      tile[k] = make_float4(seg_a[2 * p], seg_a[2 * p + 1], seg_b[2 * p],
-                            seg_b[2 * p + 1]);
-    }
-    __syncthreads();
-    for (int k = 0; k < m; ++k) {
-      const float4 s = tile[k];
-      float t;
-      const float d2 = seg_d2(qx - s.x, qy - s.y, s.z - s.x, s.w - s.y, &t);
-      if (d2 < best) {
-        best = d2;
-        best_p = p0 + k;
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start the copy of segments [p0, p0 + m) into seg[0, m): (ax, ay) into
+// .xy and (bx, by) into .zw.  Each thread copies the slots k = tid mod
+// DENSE_THREADS, which it later prepares itself.
+__device__ __forceinline__ void dense_stage(float4* seg,
+                                            const float* __restrict__ seg_a,
+                                            const float* __restrict__ seg_b,
+                                            int p0, int m) {
+  for (int k = threadIdx.x; k < m; k += DENSE_THREADS) {
+    cp_async8(&seg[k].x, seg_a + 2 * ((int64_t)p0 + k));
+    cp_async8(&seg[k].z, seg_b + 2 * ((int64_t)p0 + k));
+  }
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(DENSE_THREADS) closest_point_dense_kernel(
+    const float* __restrict__ q, const float* __restrict__ seg_a,
+    const float* __restrict__ seg_b, int64_t n, int32_t P, int32_t tile,
+    const uint8_t* __restrict__ active, const int32_t* __restrict__ lanes,
+    const int32_t* __restrict__ cnt_in, float* __restrict__ dist_out,
+    int32_t* __restrict__ prim_out) {
+  extern __shared__ float4 dense_smem[];
+  const int nbuf = tile < P ? 2 : 1;
+  const int warp = threadIdx.x >> 5;
+  const int lid = threadIdx.x & 31;
+  const int64_t first = (int64_t)blockIdx.x * DENSE_LANES;
+  if (active != nullptr) {
+    for (int c = threadIdx.x; c < DENSE_LANES; c += DENSE_THREADS) {
+      const int64_t p = first + c;
+      if (p < n && !active[p]) {
+        dist_out[p] = inf_f();
+        prim_out[p] = 0;
       }
     }
   }
-  if (live) {
-    dist_out[i] = sqrtf(best);
-    prim_out[i] = best_p < P ? best_p : 0;
+  const int64_t cnt = active != nullptr ? (int64_t)*cnt_in : n;
+  if (first >= cnt) return;                // block-uniform
+
+  // the lanes of the block: list position first + k * 32 + lid
+  float qx[DENSE_LPT], qy[DENSE_LPT], best[DENSE_LPT];
+  int best_p[DENSE_LPT];
+#pragma unroll
+  for (int k = 0; k < DENSE_LPT; ++k) {
+    const int64_t p = first + k * 32 + lid;
+    const int64_t lane =
+        p < cnt ? (active != nullptr ? (int64_t)lanes[p] : p) : -1;
+    qx[k] = lane >= 0 ? q[2 * lane] : 0.f;
+    qy[k] = lane >= 0 ? q[2 * lane + 1] : 0.f;
+    best[k] = inf_f();
+    best_p[k] = P;
+  }
+
+  float4* seg[2] = {dense_smem, dense_smem + tile};
+  float* den[2] = {reinterpret_cast<float*>(dense_smem + nbuf * tile),
+                   reinterpret_cast<float*>(dense_smem + nbuf * tile) + tile};
+  const int ntiles = (P + tile - 1) / tile;
+  dense_stage(seg[0], seg_a, seg_b, 0, min(tile, P));
+  for (int j = 0; j < ntiles; ++j) {
+    const int b = j & 1;
+    const int p0 = j * tile;
+    const int m = min(tile, P - p0);
+    if (j + 1 < ntiles) {      // the next tile's copy runs under this sweep
+      dense_stage(seg[b ^ 1], seg_a, seg_b, p0 + tile,
+                  min(tile, P - p0 - tile));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    for (int k = threadIdx.x; k < m; k += DENSE_THREADS) {  // own slots
+      float4 g = seg[b][k];
+      g.z -= g.x;
+      g.w -= g.y;
+      seg[b][k] = g;
+      den[b][k] = seg_den(g.z, g.w);
+    }
+    __syncthreads();
+    const float4* sg = seg[b];
+    const float* sd = den[b];
+    const int s1 = (int)((int64_t)(warp + 1) * m / DENSE_WARPS);
+#pragma unroll 2
+    for (int s = (int)((int64_t)warp * m / DENSE_WARPS); s < s1; ++s) {
+      const float4 g = sg[s];
+      const float dn = sd[s];
+#pragma unroll
+      for (int k = 0; k < DENSE_LPT; ++k) {
+        float t;
+        const float d2 = seg_d2_den(qx[k] - g.x, qy[k] - g.y, g.z, g.w, dn,
+                                    &t);
+        if (d2 < best[k]) {
+          best[k] = d2;
+          best_p[k] = p0 + s;
+        }
+      }
+    }
+    __syncthreads();           // the buffer is restaged two tiles on
+  }
+
+  // the warps' shares meet: (d^2, index) lexicographic, warp by warp
+  float* part_d2 = reinterpret_cast<float*>(dense_smem) + nbuf * tile * 5;
+  int* part_p = reinterpret_cast<int*>(part_d2 + DENSE_WARPS * DENSE_LANES);
+#pragma unroll
+  for (int k = 0; k < DENSE_LPT; ++k) {
+    part_d2[warp * DENSE_LANES + k * 32 + lid] = best[k];
+    part_p[warp * DENSE_LANES + k * 32 + lid] = best_p[k];
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < DENSE_LANES; c += DENSE_THREADS) {
+    const int64_t p = first + c;
+    if (p >= cnt) continue;
+    float bd = part_d2[c];
+    int bp = part_p[c];
+#pragma unroll
+    for (int w = 1; w < DENSE_WARPS; ++w) {
+      const float d = part_d2[w * DENSE_LANES + c];
+      const int i = part_p[w * DENSE_LANES + c];
+      if (d < bd || (d == bd && i < bp)) {
+        bd = d;
+        bp = i;
+      }
+    }
+    const int64_t lane = active != nullptr ? (int64_t)lanes[p] : p;
+    dist_out[lane] = sqrtf(bd);
+    prim_out[lane] = bp < P ? bp : 0;
   }
 }
 
@@ -634,15 +889,28 @@ int sil_band_2d_launch(const void* cell, const void* q, const void* coords,
   return sil_band_dim<2>(cell, q, coords, n, Kp, d2, stream);
 }
 
+// active, lanes and cnt are all null (every lane) or all given (the
+// lane-list form: lanes[0, cnt) lists the set lanes of active, ascending).
 int closest_point_dense_launch(const void* q, const void* seg_a,
                                const void* seg_b, int64_t n, int32_t P,
-                               void* dist, void* prim, void* stream) {
+                               const void* active, const void* lanes,
+                               const void* cnt, void* dist, void* prim,
+                               void* stream) {
   if (n == 0) return 0;
   if (P <= 0) return (int)cudaErrorInvalidValue;
-  const int64_t blocks = (n + THREADS - 1) / THREADS;
-  closest_point_dense_kernel<<<(unsigned)blocks, THREADS, 0,
+  const int tile = P <= DENSE_ONE_TILE ? P : DENSE_TILE;
+  const int smem = (tile < P ? 2 : 1) * tile * 20 + DENSE_PART_BYTES;
+  if (smem > 48 * 1024) {       // above the default cap of dynamic smem
+    const cudaError_t rc = cudaFuncSetAttribute(
+        closest_point_dense_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, DENSE_SMEM_MAX);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  const int64_t blocks = (n + DENSE_LANES - 1) / DENSE_LANES;
+  closest_point_dense_kernel<<<(unsigned)blocks, DENSE_THREADS, smem,
                                (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)seg_a, (const float*)seg_b, n, P,
+      (const float*)q, (const float*)seg_a, (const float*)seg_b, n, P, tile,
+      (const uint8_t*)active, (const int32_t*)lanes, (const int32_t*)cnt,
       (float*)dist, (int32_t*)prim);
   return (int)cudaGetLastError();
 }
@@ -662,21 +930,26 @@ int candidate_band_launch(const void* q, const void* ax, const void* ay,
   return (int)cudaGetLastError();
 }
 
+// skip_r (C,) and live (n,) may be null: no reach test, every lane live.
 int band_neumann_walk_launch(const void* cell, const void* q, const void* R,
                              const void* on, const void* nn,
                              const void* u_sel, const void* u_pt,
                              const void* dw, float eps, const void* coords,
-                             int64_t n, int32_t Kp, void* out, void* slot,
+                             const void* skip_r, const void* live, int64_t n,
+                             int32_t Kp, void* out, void* slot,
                              void* stream) {
   if (n == 0) return 0;
   if (Kp > 32 * MAX_ROUNDS || Kp % 32) return (int)cudaErrorInvalidValue;
-  const int64_t blocks = (n + THREADS / 32 - 1) / (THREADS / 32);
-  band_neumann_walk_kernel<<<(unsigned)blocks, THREADS, 0,
-                             (cudaStream_t)stream>>>(
+  const int64_t warps = (n + K6_G - 1) / K6_G;
+  const int64_t blocks = (warps + THREADS / 32 - 1) / (THREADS / 32);
+  auto kernel = Kp <= 64 ? band_neumann_walk_kernel<2>
+                         : band_neumann_walk_kernel<MAX_ROUNDS>;
+  kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)cell, (const float*)q, (const float*)R,
       (const uint8_t*)on, (const float*)nn, (const float*)u_sel,
-      (const float*)u_pt, (const float*)dw, eps, (const float*)coords, n, Kp,
-      (float*)out, (int32_t*)slot);
+      (const float*)u_pt, (const float*)dw, eps, (const float*)coords,
+      (const float*)skip_r, (const uint8_t*)live, n, Kp, (float*)out,
+      (int32_t*)slot);
   return (int)cudaGetLastError();
 }
 

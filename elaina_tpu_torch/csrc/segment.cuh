@@ -4,15 +4,26 @@
 
 #pragma once
 
-// Squared distance from q to the segment a + t e, t = clip((w . e) /
-// max(|e|^2, 1e-30), 0, 1) with w = q - a (pallas_queries.py:97-105,
-// :402-410); writes t.
-static __device__ __forceinline__ float seg_d2(float wx, float wy, float ex,
-                                               float ey, float* t_out) {
-  const float den = fmaxf(ex * ex + ey * ey, 1e-30f);
+// The segment's |e|^2 term, max(|e|^2, 1e-30): K13 computes it once per
+// segment and keeps it beside the segment in shared memory.
+static __device__ __forceinline__ float seg_den(float ex, float ey) {
+  return fmaxf(ex * ex + ey * ey, 1e-30f);
+}
+
+// Squared distance from q to the segment a + t e, t = clip((w . e) / den,
+// 0, 1) with w = q - a and den = seg_den(e); writes t.
+static __device__ __forceinline__ float seg_d2_den(float wx, float wy,
+                                                   float ex, float ey,
+                                                   float den, float* t_out) {
   const float t = fminf(fmaxf((wx * ex + wy * ey) / den, 0.f), 1.f);
   const float dx = wx - t * ex;
   const float dy = wy - t * ey;
   *t_out = t;
   return dx * dx + dy * dy;
+}
+
+// The same with den computed here (pallas_queries.py:97-105, :402-410).
+static __device__ __forceinline__ float seg_d2(float wx, float wy, float ex,
+                                               float ey, float* t_out) {
+  return seg_d2_den(wx, wy, ex, ey, seg_den(ex, ey), t_out);
 }

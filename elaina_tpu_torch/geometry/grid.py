@@ -67,6 +67,8 @@ WARP = 32
 _FINE_CELL_CAP = 300_000_000   # dense finest-grid cap (1.2 GB int32)
 _COORD_CHUNK_ROWS = 1 << 16
 BARE_ROW_MAX = 128             # widest row the bare chain path sweeps whole
+SKIP_REL = 2.0 ** -10          # band_skip_radius's margins: relative ...
+SKIP_ABS = 2.0 ** -16          # ... and of the scene's extent
 _BARE_CHUNK_SLOTS = 1 << 22    # lanes x slots per chunk of the bare path
 
 
@@ -143,6 +145,7 @@ class BandGrid:
     rows: torch.Tensor       # (C, K) int32
     r_cap: torch.Tensor      # (C,) f32
     lbound: torch.Tensor     # (C,) f32
+    skip_r: torch.Tensor     # (C,) f32 reach below which no kept id is near
     ent_lo: torch.Tensor     # (D,) f32
     ent_hi: torch.Tensor     # (D,) f32
     coords: torch.Tensor | None  # prim corners (C, 9, Kp), 3D only; entities
@@ -470,6 +473,33 @@ def build_silhouette_grid(p0, p1, n1, n2, always, lo, hi, K: int = 64,
         np.minimum(p0.min(0), p1.min(0)), np.maximum(p0.max(0), p1.max(0)))
 
 
+def band_skip_radius(arrays: dict) -> np.ndarray:
+    """(C,) f32: the reach below which a point of the cell is farther than
+    it from every kept id, ``lbound (1 - SKIP_REL) - SKIP_ABS * extent``.
+
+    The native band pass writes lbound = min over the kept ids of max(d(c,
+    id) - |h|, 0), with c the cell's center and |h| its half-diagonal, so
+    by the triangle inequality every point of the cell lies at least
+    lbound from each of them.  A depth step's ball (radius R) and rays
+    (from q + oe n, length <= R, with |n| = |d| = 1) stay within R + oe of
+    q, so a lane whose R + oe lies below skip_r finds no weight and no hit
+    in its row (K6 skips it).  The margin covers float rounding:
+    SKIP_ABS = 2^-16 of the scene's extent (the largest coordinate of the
+    grid's box and the set's) is ~2^8 float32 ulps of it, against the few
+    ulps by which the build's and the kernel's distances and a point's cell
+    index can be off; SKIP_REL = 2^-10 covers the relative rounding of R +
+    oe, of |n| and |d|, and of a ray's t.  ``tests/test_torch_band_skip.py``
+    holds it at the tight case (a plane across the cell's diagonal)."""
+    lo = np.asarray(arrays["origin"], np.float64)
+    hi = lo + (np.asarray(arrays["res"], np.float64)
+               / np.asarray(arrays["inv_cell"], np.float64))
+    extent = float(np.abs(np.concatenate([
+        lo, hi, np.asarray(arrays["ent_lo"], np.float64),
+        np.asarray(arrays["ent_hi"], np.float64)])).max())
+    lb = np.asarray(arrays["lbound"], np.float64)
+    return (lb * (1.0 - SKIP_REL) - SKIP_ABS * extent).astype(np.float32)
+
+
 def _band_tensors(arrays: dict, device) -> dict:
     def t(a):
         return torch.as_tensor(np.require(a, requirements=("C", "W")),
@@ -482,6 +512,7 @@ def _band_tensors(arrays: dict, device) -> dict:
         rows=t(np.asarray(arrays["rows"], np.int32)),
         r_cap=t(np.asarray(arrays["r_cap"], np.float32)),
         lbound=t(np.asarray(arrays["lbound"], np.float32)),
+        skip_r=t(band_skip_radius(arrays)),
         ent_lo=t(np.asarray(arrays["ent_lo"], np.float32)),
         ent_hi=t(np.asarray(arrays["ent_hi"], np.float32)))
 

@@ -87,22 +87,25 @@ def _closest_point_3d(gs: GeomSet, q):
     return best_d, best_i
 
 
-def closest_point(gs: GeomSet, q):
+def closest_point(gs: GeomSet, q, active=None):
     """q (N, D) -> (distance (N,), prim id (N,) int32): the exact closest
     prim of a set without a candidate grid.  2D: kernel K13 over every
     segment (the smallest id on equal distance); 3D: the dense and chunked
-    sweeps."""
+    sweeps.  ``active`` (N,) bool, where given, names the lanes the caller
+    reads: in 2D K13 sweeps only those (its lane-list form) and gives the
+    others distance +inf and prim 0; in 3D every lane is swept."""
     if gs.dim == 3:
         return _closest_point_3d(gs, q)
     return K.closest_point_dense(q.contiguous(),
                                  gs.verts[gs.indices[:, 0]].contiguous(),
-                                 gs.verts[gs.indices[:, 1]].contiguous())
+                                 gs.verts[gs.indices[:, 1]].contiguous(),
+                                 active)
 
 
-def closest_point_detail(gs: GeomSet, q):
+def closest_point_detail(gs: GeomSet, q, active=None):
     """closest_point plus the unclamped projection (t in 2D, (u, v) in
     3D) and the side of q against the winner: (d, pid, uv, side)."""
-    d, pid = closest_point(gs, q)
+    d, pid = closest_point(gs, q, active)
     pv = gs.prim_verts(pid)
     return d, pid, prim_project(gs.dim, q, pv), prim_side(gs.dim, q, pv)
 
@@ -324,16 +327,23 @@ class NeumannWalkOut:
 
 
 def band_neumann_walk(bg: BandGrid, gs: GeomSet, q, R, on_n, n_normal,
-                      u_sel, u_pt, d_walk, eps: float) -> NeumannWalkOut:
+                      u_sel, u_pt, d_walk, eps: float,
+                      live=None) -> NeumannWalkOut:
     """The in-ball sample, its visibility ray and the walk ray of one
     depth step over the prim band of q's cell (kernel K6).  Exact when R
     (and the eps offset of the ray origins) stays within the cell's
-    r_cap, which ``_separate`` guarantees."""
+    r_cap, which ``_separate`` guarantees.  A lane that ``live`` (N,)
+    bool leaves out, or whose ball and rays cannot reach its row (R + oe
+    below ``bg.skip_r``), gets no selection and no hit without a sweep;
+    on the live lanes every field but the masked ones of a lane without a
+    selection (sample_pt, side, plane_n, occluded) is then as without the
+    skip."""
     lin, outside, cell = _kernel_cell(bg, q)
     out, slot = K.band_neumann_walk(
         cell, q.contiguous(), R.contiguous(), on_n.contiguous(),
         n_normal.contiguous(), u_sel.contiguous(), u_pt.contiguous(),
-        d_walk.contiguous(), eps, bg.coords)
+        d_walk.contiguous(), eps, bg.coords, bg.skip_r,
+        None if live is None else live.contiguous())
     K_row = bg.rows.shape[1]
     w_sel, total = out[:, 0], out[:, 1]
     pid = torch.clamp(bg.rows[lin, slot.long().clamp(max=K_row - 1)], min=0)

@@ -18,22 +18,32 @@ Contracts (the TPU kernels', minus the per-lane DMAs):
   to segment, t clamped to [0, 1]); +inf where cell < 0.  Padded slots
   give ~1e18, which the caller reads as "none".  ``sil_band_2d`` is the
   same over a 2D cell table (C, 6, Kp), point to vertex.
-* ``closest_point_dense(q, seg_a, seg_b) -> (dist (N,), prim (N,))``: the
-  closest of all P segments, dist = sqrt(min d^2) and the smallest index
-  attaining it (0 when every d^2 overflows).
+* ``closest_point_dense(q, seg_a, seg_b, active=None) -> (dist (N,),
+  prim (N,))``: the closest of all P segments, dist = sqrt(min d^2) and
+  the smallest index attaining it (0 when every d^2 overflows).  With
+  ``active`` (N,) bool, the lane-list form: K1 compacts the set lanes and
+  only those are swept; every other lane gets dist = +inf and prim = 0.
 * ``candidate_band(q, vax, vay, vbx, vby, valid) -> (dist, slot)``: the
   closest of each lane's own K gathered segments among its valid slots,
   dist = sqrt(min d^2) (inf when none is valid) and the smallest slot
   attaining it (0 when the min is inf).
 * ``band_neumann_walk(cell, q, R, on, n_normal, u_sel, u_pt, d_walk, eps,
-  coords) -> (out (N, 15), slot (N,))``: the Green-weighted in-ball CDF
-  sample over the lane's prim-band cell, its sample point, plane side and
-  unnormalized plane normal, the visibility ray's any hit, and the walk
-  ray's closest hit with its unit normal; columns [w_sel, total, sp.xyz,
-  side, plane_n.xyz, occluded, walk_hit, walk_t, walk_n.xyz].  ``slot`` is
-  the count of CDF entries <= u_sel * total, Kp meaning none (then w_sel
-  = 0 and the selected corners are PAD_COORD).  Lanes with cell < 0 get
-  zeros, walk_t = inf and slot = Kp.
+  coords, skip_r=None, live=None) -> (out (N, 15), slot (N,))``: the
+  Green-weighted in-ball CDF sample over the lane's prim-band cell, its
+  sample point, plane side and unnormalized plane normal, the visibility
+  ray's any hit, and the walk ray's closest hit with its unit normal;
+  columns [w_sel, total, sp.xyz, side, plane_n.xyz, occluded, walk_hit,
+  walk_t, walk_n.xyz].  ``slot`` is the count of CDF entries <= u_sel *
+  total, Kp meaning none (then w_sel = 0 and the selected corners are
+  PAD_COORD).  Skipped lanes get zeros, walk_t = inf and slot = Kp: those
+  with cell < 0, those that ``live`` (N,) bool leaves out, and those whose
+  reach R + oe (oe = eps where ``on``, else 0) lies below ``skip_r`` (C,)
+  of their cell (``BandGrid.skip_r``: there the ball and the rays reach
+  no prim of the row).  On a live lane the skip changes none of slot,
+  w_sel, total, walk_hit, walk_t and walk_n; occluded, sample_pt, side
+  and plane_n of a skipped lane are zeros where the unskipped kernel
+  gives those of a lane without a selection (the visibility ray toward
+  PAD_COORD), which every caller masks by the selection.
 * ``band_ray(cell, o, d, tmax, coords) -> (t (N,), slot (N,))``: K6's
   walk ray alone, the closest hit with t in (1e-6, tmax] (the smallest
   slot on equal t); t = inf and slot = Kp on a miss and where cell < 0.
@@ -56,7 +66,8 @@ from .cuda import F32, I32, I64, VP
 from .cuda import build_log as _lib_log
 from .cuda import check as _check
 from .cuda import launch as _launch
-from .resolve import seg_d2, tri_d2_planes
+from .resolve import (compact_lanes, compact_lanes_plain, seg_d2,
+                      tri_d2_planes)
 
 INV_4PI = float(np.float32(1.0 / (4.0 * math.pi)))
 _PLAIN_CHUNK = 16384    # lanes per chunk of the plain versions
@@ -65,10 +76,11 @@ _PLAIN_PAIRS = 1 << 24  # lanes x segments per chunk of K13's plain version
 _SIGNATURES = {
     "sil_band_launch": [VP, VP, VP, I64, I32, VP, VP],
     "sil_band_2d_launch": [VP, VP, VP, I64, I32, VP, VP],
-    "closest_point_dense_launch": [VP, VP, VP, I64, I32, VP, VP, VP],
+    "closest_point_dense_launch": [VP, VP, VP, I64, I32, VP, VP, VP, VP,
+                                   VP, VP],
     "candidate_band_launch": [VP, VP, VP, VP, VP, VP, I64, I32, VP, VP, VP],
     "band_neumann_walk_launch": [VP, VP, VP, VP, VP, VP, VP, VP, F32, VP,
-                                 I64, I32, VP, VP, VP],
+                                 VP, VP, I64, I32, VP, VP, VP],
     "band_ray_launch": [VP, VP, VP, VP, VP, I64, I32, VP, VP, VP],
     "band_ball_launch": [VP, VP, VP, VP, VP, I64, I32, VP, VP, VP, VP],
 }
@@ -170,39 +182,55 @@ sil_band_2d.launches = 0
 # --------------------------------------------------------------------------- #
 
 
-def closest_point_dense_plain(q, seg_a, seg_b):
+def closest_point_dense_plain(q, seg_a, seg_b, active=None):
     n = q.shape[0]
     P = seg_a.shape[0]
-    dist = torch.empty((n,), dtype=torch.float32, device=q.device)
-    prim = torch.empty((n,), dtype=torch.int32, device=q.device)
+    dist = torch.full((n,), float("inf"), dtype=torch.float32,
+                      device=q.device)
+    prim = torch.zeros((n,), dtype=torch.int32, device=q.device)
     ax, ay = seg_a[:, 0], seg_a[:, 1]
     ex, ey = seg_b[:, 0] - ax, seg_b[:, 1] - ay
+    if active is None:
+        ids = torch.arange(n, device=q.device)
+    else:
+        lanes, cnt = compact_lanes_plain(active, n)
+        ids = lanes[:int(cnt)].long()
     m = max(1, _PLAIN_PAIRS // P)
-    for c0 in range(0, n, m):
-        qc = q[c0:c0 + m]
+    for c0 in range(0, ids.numel(), m):
+        sl = ids[c0:c0 + m]
+        qc = q[sl]
         d2 = seg_d2(qc[:, 0:1] - ax, qc[:, 1:2] - ay, ex, ey)[0]  # (m, P)
         s = torch.argmin(d2, dim=1, keepdim=True)          # first minimum
-        dist[c0:c0 + m] = torch.sqrt(d2.gather(1, s)[:, 0])
-        prim[c0:c0 + m] = s[:, 0].to(torch.int32)
+        dist[sl] = torch.sqrt(d2.gather(1, s)[:, 0])
+        prim[sl] = s[:, 0].to(torch.int32)
     return dist, prim
 
 
-def closest_point_dense(q, seg_a, seg_b):
+def closest_point_dense(q, seg_a, seg_b, active=None):
     n = q.shape[0]
     P = seg_a.shape[0]
     dev = q.device
     _check("q", q, torch.float32, (n, 2), dev)
     _check("seg_a", seg_a, torch.float32, (P, 2), dev)
     _check("seg_b", seg_b, torch.float32, (P, 2), dev)
+    if active is not None:
+        _check("active", active, torch.bool, (n,), dev)
     if P == 0 or P > np.iinfo(np.int32).max:
         raise ValueError(f"{P} segments")
     if dev.type == "cpu":
-        return closest_point_dense_plain(q, seg_a, seg_b)
+        return closest_point_dense_plain(q, seg_a, seg_b, active)
+    if seg_a.data_ptr() % 8 or seg_b.data_ptr() % 8:
+        raise ValueError("seg_a and seg_b must start on 8 bytes (the "
+                         "kernel stages them with 8-byte cp.async)")
+    lists = (0, 0, 0)
+    if active is not None:
+        lanes, cnt = compact_lanes(active, n)
+        lists = (active.data_ptr(), lanes.data_ptr(), cnt.data_ptr())
     dist = torch.empty((n,), dtype=torch.float32, device=dev)
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
     _launch(library().closest_point_dense_launch, q.data_ptr(),
-            seg_a.data_ptr(), seg_b.data_ptr(), n, P, dist.data_ptr(),
-            prim.data_ptr(), device=dev)
+            seg_a.data_ptr(), seg_b.data_ptr(), n, P, *lists,
+            dist.data_ptr(), prim.data_ptr(), device=dev)
     closest_point_dense.launches += 1
     return dist, prim
 
@@ -298,8 +326,20 @@ def _closest_hit_plain(o, d, c, tmax):
     return torch.min(_mt_planes(o, d, c, tmax), dim=1)
 
 
+def band_work(cell, R, on, eps: float, skip_r=None, live=None):
+    """The lanes K6 does band work for: in the grid, live, and with a
+    reach R + oe at or above their cell's ``skip_r``."""
+    work = cell >= 0
+    if live is not None:
+        work &= live
+    if skip_r is not None:
+        reach = R + torch.where(on, eps, 0.0)
+        work &= ~(reach < skip_r[cell.clamp(min=0).long()])
+    return work
+
+
 def band_neumann_walk_plain(cell, q, R, on, n_normal, u_sel, u_pt, d_walk,
-                            eps: float, coords):
+                            eps: float, coords, skip_r=None, live=None):
     n = cell.shape[0]
     Kp = coords.shape[2]
     dev = q.device
@@ -307,7 +347,7 @@ def band_neumann_walk_plain(cell, q, R, on, n_normal, u_sel, u_pt, d_walk,
     out = torch.zeros((n, 15), dtype=torch.float32, device=dev)
     out[:, 11] = inf
     slot = torch.full((n,), Kp, dtype=torch.int32, device=dev)
-    sel = torch.nonzero(cell >= 0).flatten()
+    sel = torch.nonzero(band_work(cell, R, on, eps, skip_r, live)).flatten()
     for c0 in range(0, sel.numel(), _PLAIN_CHUNK):
         ids = sel[c0:c0 + _PLAIN_CHUNK]
         c = coords[cell[ids].long()].unbind(1)             # 9 x (m, Kp)
@@ -356,7 +396,7 @@ def band_neumann_walk_plain(cell, q, R, on, n_normal, u_sel, u_pt, d_walk,
 
 
 def band_neumann_walk(cell, q, R, on, n_normal, u_sel, u_pt, d_walk,
-                      eps: float, coords):
+                      eps: float, coords, skip_r=None, live=None):
     n = cell.shape[0]
     dev = q.device
     C, _, Kp = coords.shape
@@ -368,17 +408,24 @@ def band_neumann_walk(cell, q, R, on, n_normal, u_sel, u_pt, d_walk,
     _check("on", on, torch.bool, (n,), dev)
     _check("u_pt", u_pt, torch.float32, (n, 2), dev)
     _check("coords", coords, torch.float32, (C, 9, Kp), dev)
+    if skip_r is not None:
+        _check("skip_r", skip_r, torch.float32, (C,), dev)
+    if live is not None:
+        _check("live", live, torch.bool, (n,), dev)
     if Kp % 32 or Kp > 256:
         raise ValueError(f"coords has {Kp} slots per cell (a multiple of "
                          f"32, at most 256)")
     if dev.type == "cpu":
         return band_neumann_walk_plain(cell, q, R, on, n_normal, u_sel,
-                                       u_pt, d_walk, eps, coords)
+                                       u_pt, d_walk, eps, coords, skip_r,
+                                       live)
     out = torch.empty((n, 15), dtype=torch.float32, device=dev)
     slot = torch.empty((n,), dtype=torch.int32, device=dev)
     _launch(library().band_neumann_walk_launch, cell.data_ptr(), q.data_ptr(),
             R.data_ptr(), on.data_ptr(), n_normal.data_ptr(), u_sel.data_ptr(),
             u_pt.data_ptr(), d_walk.data_ptr(), float(eps), coords.data_ptr(),
+            0 if skip_r is None else skip_r.data_ptr(),
+            0 if live is None else live.data_ptr(),
             n, Kp, out.data_ptr(), slot.data_ptr(), device=dev)
     band_neumann_walk.launches += 1
     return out, slot

@@ -99,12 +99,13 @@ def _dense_dirichlet(scene: Scene, q, active, eps: float):
     """Dirichlet resolve of a set without a grid (the reference's
     ``dirichlet_distance_masked`` without a grid, wost.py:129-138, and
     ``_separate``'s shell test, :340-352): the exact distance on every
-    lane, need = active.  Returns (R_D, in_shell, color (N, 3), need); the
-    color is the winner's side-selected, interpolated color on every
-    lane."""
+    active lane, need = active; in 2D K13 sweeps only those (K1 compacts
+    them), and the others get R_D = +inf, which nothing downstream reads
+    (their walks are dead).  Returns (R_D, in_shell, color (N, 3), need);
+    the color is the winner's side-selected, interpolated color."""
     dim = scene.dim
     gs = scene.dirichlet.gs
-    d, pid, uv, side = Q.closest_point_detail(gs, q)
+    d, pid, uv, side = Q.closest_point_detail(gs, q, active)
     if dim == 2:
         interior = (uv > 0.0) & (uv < 1.0)
     else:
@@ -385,7 +386,7 @@ def _neumann_walk_fused(scene: Scene, state: WalkState, live, R_B, gens,
     direction, pdf, alpha = _sample_direction(gens["walk"], state, dim, True)
     o = Q.band_neumann_walk(scene.n_bgrid, gs, state.pos, R_B,
                             state.on_neumann, state.n_normal, u_sel, u_pt,
-                            direction, eps)
+                            direction, eps, live=live)
 
     # Neumann boundary-integral contribution, subtracted
     valid = (o.pid >= 0) & (o.pdf_area > 0)

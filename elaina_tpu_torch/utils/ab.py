@@ -8,16 +8,31 @@ Each tree is a checkout of the repository, for example ``git archive`` of
 a commit unpacked into a directory that ``.gitignore`` lists.  At every
 turn of ``--order`` the named tree runs, each in a process of its own:
 
-1. lobed_u (``utils/scenes.write_scene``, 32 spp) and neumann3d_u
-   (``configs/neumann3d_u.json`` as shipped, 64 spp) through
-   ``python -m elaina_tpu_torch run``: walk_steps / duration of
-   ``result.json``.  A tree's first turn starts on a cold ``_build/``;
-2. its K1 ``compact_lanes``, K3 ``fetch_colors`` and K5 ``fetch_colors3``
+1. lobed_u (``utils/scenes.write_scene``, 32 spp), neumann3d_u
+   (``configs/neumann3d_u.json`` as shipped, 64 spp) and nogrid_u
+   (``chip_smoke.py``'s: bench.py's curve at 256 segments, no grid, in
+   the 4-segment box, 8 spp) through ``python -m elaina_tpu_torch run``:
+   walk_steps / duration of ``result.json``.  A tree's first turn starts
+   on a cold ``_build/``;
+2. bench.py's own scene (``bench_square``: 2,048 segments, no grid,
+   1024^2, depth 64, 4 spp) and nogrid_u through the tree's
+   ``UniformIntegrator`` in a process of their own, each solved twice:
+   the first solve (``walk_steps_s``, what a fresh process pays, as the
+   CLI's) and the second (``warm_walk_steps_s``, as ``chip_smoke.py``'s
+   solves after its earlier phases);
+3. its K1 ``compact_lanes``, K3 ``fetch_colors`` and K5 ``fetch_colors3``
    on the same seeded inputs at the main paths' shapes (K1 and K3 on
    1024^2 lanes with lobed_u's 187,567 set and 72,062 in-shell, K1 and K5
    on 65,536 lanes with neumann3d_u's 3,876 and 304), each color table
-   made by the tree's own ``color_rows_from``: call ms and device ms as
-   ``utils/timing.py`` takes them.
+   made by the tree's own ``color_rows_from``; K13 on the 1024^2 frame
+   points (every lane) and on the walks after 16 depth steps
+   (``*_lanes``: the lane-list form, K1 included, where the tree has one,
+   else what its path runs there, the full form), over the bench square's
+   2,048 segments and over nogrid_u's 256 (``*_nogrid*``), with K1 alone
+   on nogrid_u's walks; K6 on neumann3d_u's lanes after 3 depth steps
+   with their star radii (with the tree's skip where it has one): call ms
+   and device ms as ``utils/timing.py`` takes them, with the live lanes
+   the lane-list form swept.
 
 The trees share one grid cache, so only the first run of a scene builds
 its grids (before the solve's clock in both trees).  One JSON line per
@@ -39,12 +54,158 @@ import time
 # the main paths' shapes (PERF.md): lanes, set lanes, in-shell lanes, prims
 LOBED = (1048576, 187567, 72062, 65536)
 NEUMANN3D = (65536, 3876, 304, 768)
-SPP_2D, SPP_3D = 32, 64
+SPP_2D, SPP_3D, SPP_SQUARE, SPP_NOGRID = 32, 64, 4, 8
 
 
-def _kernel_times() -> dict:
+def bench_square(dev, spp: int):
+    """bench.py's own scene as bench builds it (2,048 segments, no grid,
+    no Neumann set) and a UniformIntegrator over its 1024^2 frame; also
+    ``chip_smoke.py``'s."""
+    from elaina_tpu_torch.core.config import IntegratorSettings
+    from elaina_tpu_torch.core.evaluation_grid import EvaluationGrid
+    from elaina_tpu_torch.core.problem import Problem, scene_from_numpy
+    from elaina_tpu_torch.solver.integrator import UniformIntegrator
+    from elaina_tpu_torch.utils import scenes as S
+
+    verts, idx, colors = S.bench_square_scene()
+    problem = Problem(2, dev, verbose=False)
+    problem.probe = EvaluationGrid.from_json(
+        {"mData": {"pos": list(S.CENTER), "scale": 250, "up": [-1.0, 0.0]}},
+        2)
+    problem.scene = scene_from_numpy(
+        aabb_lo=[-100, -100], aabb_hi=[600, 600], device=dev,
+        dirichlet=(verts, idx, colors))
+    settings = IntegratorSettings(frameSize=(S.FRAME, S.FRAME),
+                                  samplesPerPixel=spp, maxWalkingDepth=S.DEPTH,
+                                  epsilonShell=S.EPS)
+    return problem, UniformIntegrator(problem, settings, "unused")
+
+
+def load_integrator(conf: str, dev, spp: int | None = None):
+    """The problem and a UniformIntegrator of a config, as ``run_expr``
+    makes them (``spp`` overrides its samples per pixel)."""
+    import dataclasses
+
+    from elaina_tpu_torch.core.config import ExperimentConfig
+    from elaina_tpu_torch.core.problem import Problem
+    from elaina_tpu_torch.solver.integrator import UniformIntegrator
+
+    cfg = ExperimentConfig.from_file(conf)
+    settings = cfg.settings if spp is None else dataclasses.replace(
+        cfg.settings, samplesPerPixel=spp)
+    problem = Problem(cfg.dimensionality, dev, verbose=False).load_config(
+        cfg.scene, cache_dir=os.environ["ELAINA_CACHE_DIR"])
+    return problem, UniformIntegrator(problem, settings, "unused")
+
+
+def warm_state(problem, integ, steps: int):
+    """The walk state after ``steps`` depth steps of one sample; also
+    ``chip_smoke.py``'s."""
+    from elaina_tpu_torch.solver.wost import init_walk_state, wost_depth_step
+    from elaina_tpu_torch.utils.rng import sample_generators
+
+    state = init_walk_state(integ.eval_points, integ.mask)
+    gens = sample_generators(0, 0, problem.device)
+    eps = float(integ.settings.epsilonShell)
+    for _ in range(steps):
+        state, _, _ = wost_depth_step(problem.scene, state, gens, eps)
+    return state
+
+
+def _solve_twice(conf: str | None) -> dict:
+    """The bench square (no ``conf``) or a config, solved twice in the
+    tree in the working directory."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _, integ = (bench_square(dev, SPP_SQUARE) if conf is None
+                else load_integrator(conf, dev))
+    integ.prepare()
+    ms = integ.solve()
+    warm_ms = integ.solve()
+    steps = integ.total_walk_steps
+    return {"walk_steps": steps, "duration_ms": ms,
+            "walk_steps_s": steps / (ms / 1e3), "warm_duration_ms": warm_ms,
+            "warm_walk_steps_s": steps / (warm_ms / 1e3)}
+
+
+def _k13_kernels(problem, integ, a, b, tag: str, timed) -> dict:
+    """K13 over the frame points (every lane) and, as the tree's path
+    calls it, on the walks after 16 depth steps."""
+    import inspect
+
+    from elaina_tpu_torch.ops import queries as QK
+
+    q = integ.eval_points.contiguous()
+    walks = warm_state(problem, integ, 16)
+    qw, act = walks.pos.contiguous(), walks.active.contiguous()
+    listed = "active" in inspect.signature(QK.closest_point_dense).parameters
+    full = timed(lambda: QK.closest_point_dense(q, a, b))
+    path = timed((lambda: QK.closest_point_dense(qw, a, b, act)) if listed
+                 else (lambda: QK.closest_point_dense(qw, a, b)))
+    path["live"] = int(act.sum())
+    return {f"closest_point_dense{tag}": full,
+            f"closest_point_dense_lanes{tag}": path}
+
+
+def _band_kernels(conf_3d: str, conf_ng: str, dev, timed) -> dict:
+    """K13 on the bench square and on nogrid_u, K1 on nogrid_u's walks,
+    and K6 on neumann3d_u's lanes, each as the tree's path calls it."""
+    import inspect
+
+    import torch
+
+    from elaina_tpu_torch.geometry import queries as Q
+    from elaina_tpu_torch.ops import queries as QK
+    from elaina_tpu_torch.ops import resolve as R
+    from elaina_tpu_torch.solver.wost import _sample_direction, _separate
+    from elaina_tpu_torch.utils import scenes as S
+
+    problem, integ = bench_square(dev, 1)
+    verts, idx, _ = S.bench_square_scene()
+    a = torch.as_tensor(verts[idx[:, 0]], device=dev)
+    b = torch.as_tensor(verts[idx[:, 1]], device=dev)
+    out = _k13_kernels(problem, integ, a, b, "", timed)
+    problem, integ = load_integrator(conf_ng, dev, 1)
+    gs = problem.scene.dirichlet.gs
+    a = gs.verts[gs.indices[:, 0]].contiguous()
+    b = gs.verts[gs.indices[:, 1]].contiguous()
+    out.update(_k13_kernels(problem, integ, a, b, "_nogrid", timed))
+    act = warm_state(problem, integ, 16).active.contiguous()
+    out["compact_lanes_nogrid"] = timed(
+        lambda: R.compact_lanes(act, act.shape[0]))
+    del problem, integ, act
+
+    problem, integ = load_integrator(conf_3d, dev)
+    eps = float(integ.settings.epsilonShell)
+    scene = problem.scene
+    state = warm_state(problem, integ, 3)
+    in_shell, R_B, _, _, _ = _separate(scene, state, eps, shrink=True)
+    live = (state.active & ~in_shell & torch.isfinite(R_B)).contiguous()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    n = state.pos.shape[0]
+    u_sel = torch.rand(n, generator=gen, device=dev)
+    u_pt = torch.rand((n, 2), generator=gen, device=dev)
+    direction, _, _ = _sample_direction(gen, state, 3, True)
+    bg = scene.n_bgrid
+    lin, outside = Q.band_cell(bg, state.pos)
+    cell = torch.where(outside, -1, lin).to(torch.int32)
+    args = (cell, state.pos.contiguous(), R_B.contiguous(),
+            state.on_neumann.contiguous(), state.n_normal.contiguous(), u_sel,
+            u_pt, direction.contiguous(), eps, bg.coords)
+    if "skip_r" in inspect.signature(QK.band_neumann_walk).parameters:
+        args += (bg.skip_r, live)
+    out["band_neumann_walk"] = timed(lambda: QK.band_neumann_walk(*args))
+    return out
+
+
+def _kernel_times(conf_3d: str, conf_ng: str) -> dict:
     """K1, K3 and K5 of the tree in the working directory, on seeded
-    inputs (run as a file there: ``timing`` is this file's neighbour)."""
+    inputs, then K13 and K6 (``_band_kernels``); run as a file there:
+    ``timing`` is this file's neighbour."""
     sys.path.insert(0, os.getcwd())
     import torch
     from timing import cuda_ms, device_ms
@@ -56,6 +217,11 @@ def _kernel_times() -> dict:
     torch.cuda.set_device(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+
+    def timed(fn):
+        d_ms, host_us, hidden = device_ms(fn)
+        return {"ms": cuda_ms(fn), "device_ms": d_ms, "host_us": host_us,
+                "hidden": hidden}
 
     def pick(n, k):
         """A mask of n lanes with exactly k set, at seeded places."""
@@ -80,10 +246,8 @@ def _kernel_times() -> dict:
                           lambda m=mask, n=n: R.compact_lanes(m, n)),
                          (fetch.__name__,
                           lambda i=ins, c=cfi, r=rows, f=fetch: f(i, c, r))):
-            d_ms, host_us, hidden = device_ms(fn)
-            out[name] = {"ms": cuda_ms(fn), "device_ms": d_ms,
-                         "host_us": host_us, "hidden": hidden}
-    return out
+            out[name] = timed(fn)
+    return {**out, **_band_kernels(conf_3d, conf_ng, dev, timed)}
 
 
 def _card() -> str:
@@ -134,16 +298,31 @@ def main(argv=None) -> int:
     turns = []
     with tempfile.TemporaryDirectory() as root:
         env = dict(os.environ, ELAINA_CACHE_DIR=os.path.join(root, "cache"))
+        nogrid = os.path.join(root, "nogrid")
+        os.makedirs(nogrid)
+        conf_ng = scenes.write_scene(nogrid, SPP_NOGRID, segments=256)
+        with open(conf_ng) as f:
+            c = json.load(f)
+        c["exp_name"] = "nogrid_u"
+        with open(conf_ng, "w") as f:
+            json.dump(c, f)
         confs = {"lobed_u": scenes.write_scene(root, SPP_2D),
                  "neumann3d_u": scenes.write_config_copy(root, "neumann3d_u",
-                                                         SPP_3D)}
+                                                         SPP_3D),
+                 "nogrid_u": conf_ng}
         for i, name in enumerate(order):
             t0 = time.time()
             turn = {"turn": i, "tree": name}
             for scene, conf in confs.items():   # first: a cold _build/
                 turn[scene] = _run_scene(trees[name], conf, env)
+            for scene, extra in (("bench_square", []),
+                                 ("nogrid_u_twice", [conf_ng])):
+                out = _run([sys.executable, os.path.join(here, "ab.py"),
+                            "--solve-twice", *extra], trees[name], env)
+                turn[scene] = json.loads(out.strip().splitlines()[-1])
             out = _run([sys.executable, os.path.join(here, "ab.py"),
-                        "--kernels"], trees[name], env)
+                        "--kernels", confs["neumann3d_u"], conf_ng],
+                       trees[name], env)
             turn["kernels"] = json.loads(out.strip().splitlines()[-1])
             turn["seconds"] = time.time() - t0
             turns.append(turn)
@@ -154,7 +333,10 @@ def main(argv=None) -> int:
         mine = [t for t in turns if t["tree"] == name]
         summary[name] = {
             scene: statistics.median(t[scene]["walk_steps_s"] for t in mine)
-            for scene in confs}
+            for scene in (*confs, "bench_square", "nogrid_u_twice")}
+        for scene in ("bench_square", "nogrid_u_twice"):
+            summary[name][f"{scene}_warm"] = statistics.median(
+                t[scene]["warm_walk_steps_s"] for t in mine)
         for k in mine[0]["kernels"]:
             for key in ("ms", "device_ms", "host_us"):
                 summary[name][f"{k}_{key}"] = statistics.median(
@@ -169,7 +351,9 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--kernels"]:
-        print(json.dumps(_kernel_times()))
+    if sys.argv[1:2] == ["--kernels"]:
+        print(json.dumps(_kernel_times(sys.argv[2], sys.argv[3])))
+    elif sys.argv[1:2] == ["--solve-twice"]:
+        print(json.dumps(_solve_twice(sys.argv[2] if sys.argv[2:] else None)))
     else:
         sys.exit(main())

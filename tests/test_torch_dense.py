@@ -178,7 +178,9 @@ def _bench_scene_arrays(segments=256):
 def test_separate_without_grid_matches_jax():
     """``_separate`` on a 256-segment Dirichlet set without a grid, lane
     for lane against the JAX package's (its ``dirichlet_distance_masked``
-    without a grid): in-shell lanes, R_D, R_B and the in-shell colors."""
+    without a grid): in-shell lanes, R_D, R_B and the in-shell colors on
+    the active lanes.  K13 sweeps only those; the port's R_D is +inf on
+    the others (dead walks: the step reads nothing there)."""
     from elaina_tpu.core.problem import Boundary, Scene
     from elaina_tpu.solver import wost as WJ
     from elaina_tpu_torch.solver import wost as WT
@@ -213,8 +215,9 @@ def test_separate_without_grid_matches_jax():
     np.testing.assert_array_equal(need, act)
     assert (in_p & act).sum() > 100
     np.testing.assert_array_equal(in_p & act, in_j & act)
-    np.testing.assert_allclose(RD_p, RD_j, rtol=TOL, atol=1e-6)
-    np.testing.assert_allclose(RB_p, RB_j, rtol=TOL, atol=1e-6)
+    np.testing.assert_allclose(RD_p[act], RD_j[act], rtol=TOL, atol=1e-6)
+    np.testing.assert_allclose(RB_p[act], RB_j[act], rtol=TOL, atol=1e-6)
+    assert np.isinf(RD_p[~act]).all()
     np.testing.assert_allclose(col_p[in_p & act], col_j[in_p & act],
                                rtol=TOL, atol=1e-6)
 
