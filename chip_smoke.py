@@ -19,7 +19,12 @@ and never prints its last line:
    steps (K10: every pixel's row through ``grid_row_index``).  K1 also
    back to back on 1024^2, 65,536 and 1024^2 lanes, with its edge cases
    (a cap below the count and of 1, N off its tile, a mask off 16 bytes,
-   all-clear and all-set masks), ids and count exact.
+   all-clear and all-set masks), ids and count exact.  K2 as
+   ``_fast_dirichlet`` calls it (the N-wide need mask, rows and points,
+   K1 inside the wrapper), and on an empty mask, every lane set and lane
+   N - 1 alone: ids exact, distances and t within TOL, the lanes off the
+   mask 0 / -1; then the wrapper's two launches apart (K1, and K2 alone
+   over its list: device ms and host us of each).
 2c. K13, K12 and K9's 2D form against their plain versions: K13 on the
    1024^2 frame points x bench.py's 2,048 segments, and on a point at a
    shared vertex (a tie at 0: the smaller index wins), distances bit-equal
@@ -70,7 +75,8 @@ and never prints its last line:
    versions, at the 3D main path's shapes: the neumann3d scene
    (768-triangle Dirichlet cube, 20,480-triangle Neumann blob) loaded with
    its grids (each build's seconds printed), 65,536 lanes after a few
-   depth steps (K11: the frame's 65,536 plane points through
+   depth steps (K4 with K2's cases and its launches apart, its corners
+   exact; K11: the frame's 65,536 plane points through
    ``grid_row_index``); K6 on that step's live lanes and star radii from
    ``_separate``, with its skip (the share of lanes it took printed) and
    without; K6-K8 also at radii 0.05-1, which reach the blob, and K6 there
@@ -371,7 +377,7 @@ def phase_build() -> None:
 
 
 def need_lanes(g, state, n: int):
-    """The FinePack need mask of a state and its compacted lanes (K1)."""
+    """The FinePack need mask and rows of a state, with K1 checked on it."""
     import torch
 
     from elaina_tpu_torch.geometry.grid import fine_decode
@@ -395,10 +401,7 @@ def need_lanes(g, state, n: int):
     l2, c2 = R.compact_lanes(need, cap)
     if int(c2) != n_need or not torch.equal(l2, lanes_p[:cap]):
         raise RuntimeError("compact_lanes past cap differs")
-    valid = torch.arange(n, device=need.device) < cnt
-    safe = torch.where(valid, lanes, 0).long()
-    return need, n_need, valid, state.pos[safe].contiguous(), \
-        row[safe].contiguous()
+    return need, n_need, row
 
 
 def check_compact_cases(need) -> None:
@@ -442,19 +445,99 @@ def check_compact_cases(need) -> None:
         f"plain version")
 
 
-def check_sweep(d, d_p, pid, pid_p, v, label: str) -> float:
-    """Distances within TOL; the same prim except at an exact tie."""
+def check_resolve(name: str, mask, row, q, g, label: str) -> float:
+    """K2 or K4 as the path calls it (the N-wide mask, K1 inside the
+    wrapper) against its plain version on ``mask``: ids exact, K4's
+    corners exact, distances within TOL (the count of those that differ in
+    their bits logged), K2's t within TOL and its side's sign where |side|
+    > TOL, and the lanes off the mask exactly 0 (pid -1); returns the
+    largest distance difference."""
     import torch
 
-    err = float((d[v] - d_p[v]).abs().max())
+    from elaina_tpu_torch.ops import resolve as R
+
+    args = (mask, row, q, g.coords, g.cand)
+    out = getattr(R, name)(*args)
+    out_p = getattr(R, name + "_plain")(*args)
+    d, d_p = out[0], out_p[0]
+    pid, pid_p = (out[3], out_p[3]) if name == "sweep_resolve" else \
+        (out[1], out_p[1])
+    v = mask
+    err = float((d[v] - d_p[v]).abs().max()) if bool(v.any()) else 0.0
     if not torch.allclose(d[v], d_p[v], rtol=TOL, atol=TOL):
-        raise RuntimeError(f"{label} distances differ: {err}")
-    differ = v & (pid != pid_p)
-    if bool((differ & (d != d_p)).any()):
-        raise RuntimeError(f"{label} picked another prim")
-    log(f"    {label}: {int(differ.sum())} exact ties picked another prim "
-        f"of {int(v.sum())}")
+        raise RuntimeError(f"{name} distances differ on {label}: {err}")
+    if not torch.equal(pid, pid_p):
+        raise RuntimeError(f"{name} picked another prim on "
+                           f"{int((pid != pid_p).sum())} lanes of {label}")
+    off = ~mask
+    if name == "sweep_resolve":
+        t, t_p, side, side_p = out[1], out_p[1], out[2], out_p[2]
+        err = max(err, float((t[v] - t_p[v]).abs().max()) if bool(v.any())
+                  else 0.0)
+        if not torch.allclose(t[v], t_p[v], rtol=TOL, atol=TOL):
+            raise RuntimeError(f"sweep_resolve t differs on {label}: {err}")
+        big = v & (side_p.abs() > TOL)
+        if bool((torch.sign(side[big]) != torch.sign(side_p[big])).any()):
+            raise RuntimeError(f"sweep_resolve side differs on {label}")
+        zero = (d[off] == 0).all() & (t[off] == 0).all() & \
+            (side[off] == 0).all()
+    else:
+        if not torch.equal(out[2], out_p[2]):
+            raise RuntimeError(f"sweep_resolve_3d corners differ on {label}")
+        zero = (d[off] == 0).all() & (out[2][off] == 0).all()
+    if not bool(zero & (pid[off] == -1).all()):
+        raise RuntimeError(f"{name}: a lane off the mask of {label} is not "
+                           f"0 / -1")
+    log(f"    {name} on {label}: {int(v.sum())} of {v.shape[0]} lanes "
+        f"listed, ids exact, {int((d[v] != d_p[v]).sum())} distances "
+        f"differ in their bits, the other lanes 0 / -1")
     return err
+
+
+def check_resolve_cases(name: str, need, row, q, g, label: str) -> float:
+    """check_resolve on the path's need mask, then on an empty mask, every
+    lane set, and lane N - 1 alone."""
+    import torch
+
+    last = torch.zeros_like(need)
+    last[-1] = True
+    err = check_resolve(name, need, row, q, g, f"{label}'s need lanes")
+    for mask, case in ((torch.zeros_like(need), "an empty mask"),
+                       (torch.ones_like(need), "every lane"),
+                       (last, "lane N - 1 alone")):
+        err = max(err, check_resolve(name, mask, row, q, g,
+                                     f"{label}, {case}"))
+    return err
+
+
+def resolve_split(dim: int, need, row, q, g) -> dict:
+    """The wrapper's two launches apart: K1 alone on ``need`` and K2 / K4
+    alone over K1's list (``ops.resolve._sweep_lanes``), each equal to the
+    wrapper's output; device ms and host us of each (``device_ms``)."""
+    import torch
+
+    from elaina_tpu_torch.ops import resolve as R
+    from elaina_tpu_torch.utils.timing import device_ms
+
+    n = need.shape[0]
+    lanes, cnt = R.compact_lanes(need, n)
+    args = (dim, need, lanes.data_ptr(), cnt.data_ptr(), row, q, g.coords,
+            g.cand)
+    wrapper = R.sweep_resolve if dim == 2 else R.sweep_resolve_3d
+    want = wrapper(need, row, q, g.coords, g.cand)
+    if not all(torch.equal(a, b) for a, b in zip(R._sweep_lanes(*args),
+                                                 want)):
+        raise RuntimeError(f"{wrapper.__name__} alone over K1's list "
+                           f"differs from the wrapper")
+    out = {}
+    for key, fn in (("k1", lambda: R.compact_lanes(need, n)),
+                    ("sweep", lambda: R._sweep_lanes(*args))):
+        out[f"{key}_device_ms"], out[f"{key}_host_us"], _ = device_ms(fn)
+    log(f"    {wrapper.__name__}'s launches apart: K1 {out['k1_device_ms']:.4f}"
+        f" ms device, {out['k1_host_us']:.1f} us host; the sweep alone over "
+        f"its list {out['sweep_device_ms']:.4f} ms device, "
+        f"{out['sweep_host_us']:.1f} us host; equal to the wrapper's")
+    return out
 
 
 def check_grid_band(name: str, row, q, g, kernels: Kernels | None,
@@ -533,7 +616,7 @@ def phase_kernels(conf_path: str, device, kernels: Kernels) -> None:
         f"{time.time() - t0:.1f} s")
     state = warm_state(problem, integ, WARM_STEPS)
     n = state.pos.shape[0]
-    need, n_need, valid, q_c, row_c = need_lanes(g, state, n)
+    need, n_need, row = need_lanes(g, state, n)
     check_compact_cases(need)
     kernels.add("compact_lanes", 0.0, lambda: R.compact_lanes(need, n),
                 lambda: R.compact_lanes_plain(need, n),
@@ -541,29 +624,28 @@ def phase_kernels(conf_path: str, device, kernels: Kernels) -> None:
                 f"lobed_u's need mask after {WARM_STEPS} steps: {n} lanes, "
                 f"{n_need} set")
 
-    # K2: the compacted lanes, as _fast_dirichlet hands them over
-    args = (valid, row_c, q_c, g.coords, g.cand)
+    # K2 as _fast_dirichlet calls it: the N-wide need mask, K1 inside
+    q = state.pos
+    err = check_resolve_cases("sweep_resolve", need, row, q, g, "lobed_u")
+    args = (need, row, q, g.coords, g.cand)
     d, t, side, pid = R.sweep_resolve(*args)
-    d_p, t_p, side_p, pid_p = R.sweep_resolve_plain(*args)
-    v = valid
-    err = max(check_sweep(d, d_p, pid, pid_p, v, "sweep_resolve"),
-              float((t[v] - t_p[v]).abs().max()))
-    if not torch.allclose(t[v], t_p[v], rtol=TOL, atol=TOL):
-        raise RuntimeError(f"sweep_resolve t differs: {err}")
-    big = v & (side_p.abs() > TOL) & (pid == pid_p)
-    if bool((torch.sign(side[big]) != torch.sign(side_p[big])).any()):
-        raise RuntimeError("sweep_resolve side differs")
     Kp = g.coords.shape[2]
-    rows = n_unique(row_c[v])
+    rows = n_unique(row[need])
+    split = resolve_split(2, need, row, q, g)
+    reread = n_need * 4 * Kp * 4
+    log(f"    sweep_resolve: {n_need} lanes over {rows} rows read "
+        f"{reread / 1e6:.1f} MB of rows, {reread / rows / Kp / 16:.1f} "
+        f"reads a row; alone that is "
+        f"{reread / split['sweep_device_ms'] / 1e9:.2f} TB/s")
     kernels.add("sweep_resolve", err, lambda: R.sweep_resolve(*args),
                 lambda: R.sweep_resolve_plain(*args), None,
                 n + n_need * (4 + 8 + 4 + 16) + rows * 4 * Kp * 4,
                 20.0 * n_need * g.cand.shape[1],
                 f"lobed_u's {n_need} need lanes of {n}, rows of K = "
-                f"{g.cand.shape[1]}")
+                f"{g.cand.shape[1]} (K1 inside)", rows=rows, **split)
 
     # K3: the in-shell lanes' colors, exact
-    ins = v & (d < S.EPS) & (t > 0.0) & (t < 1.0)
+    ins = need & (d < S.EPS) & (t > 0.0) & (t < 1.0)
     cfi = torch.where(ins, 2 * torch.clamp(pid, min=0) + (side < 0).int(),
                       0).to(torch.int32)
     cargs = (ins, cfi, g.color_rows)
@@ -1224,30 +1306,28 @@ def phase_kernels_3d(conf_path: str, device, kernels: Kernels) -> None:
     state = warm_state(problem, integ, WARM_STEPS)
     n = state.pos.shape[0]
 
-    # K4 on the need lanes, compacted by K1 as _fast_dirichlet does
-    need, n_need, valid, q_c, row_c = need_lanes(g, state, n)
-    args = (valid, row_c, q_c, g.coords, g.cand)
+    # K4 as _fast_dirichlet calls it: the N-wide need mask, K1 inside
+    need, n_need, row = need_lanes(g, state, n)
+    q = state.pos
+    err = check_resolve_cases("sweep_resolve_3d", need, row, q, g,
+                              "neumann3d_u")
+    args = (need, row, q, g.coords, g.cand)
     d, pid, corners = R.sweep_resolve_3d(*args)
-    d_p, pid_p, corners_p = R.sweep_resolve_3d_plain(*args)
-    v = valid
-    err = check_sweep(d, d_p, pid, pid_p, v, "sweep_resolve_3d")
-    same = v & (pid == pid_p)
-    if not torch.equal(corners[same], corners_p[same]):
-        raise RuntimeError("sweep_resolve_3d corners differ")
     Kp = g.coords.shape[2]
+    rows = n_unique(row[need])
+    split = resolve_split(3, need, row, q, g)
     kernels.add("sweep_resolve_3d", err, lambda: R.sweep_resolve_3d(*args),
                 lambda: R.sweep_resolve_3d_plain(*args), None,
-                n + n_need * (4 + 12 + 4 + 4 + 36)
-                + n_unique(row_c[v]) * 9 * Kp * 4,
+                n + n_need * (4 + 12 + 4 + 4 + 36) + rows * 9 * Kp * 4,
                 120.0 * n_need * g.cand.shape[1],
                 f"neumann3d_u's {n_need} need lanes of {n} after "
-                f"{WARM_STEPS} steps")
+                f"{WARM_STEPS} steps (K1 inside)", rows=rows, **split)
 
     # K5 on the in-shell lanes
     pv = (corners[:, 0:3], corners[:, 3:6], corners[:, 6:9])
-    uv = prim_project(3, q_c, pv)
-    side = prim_side(3, q_c, pv)
-    ins = v & (d < eps) & (uv[:, 0] > 0) & (uv[:, 1] > 0) & (uv.sum(1) < 1)
+    uv = prim_project(3, q, pv)
+    side = prim_side(3, q, pv)
+    ins = need & (d < eps) & (uv[:, 0] > 0) & (uv[:, 1] > 0) & (uv.sum(1) < 1)
     cfi = torch.where(ins, 2 * torch.clamp(pid, min=0) + (side < 0).int(),
                       0).to(torch.int32)
     cargs = (ins, cfi, g.color_rows)

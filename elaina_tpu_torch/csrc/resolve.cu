@@ -207,99 +207,152 @@ compact_lanes_kernel(const uint8_t* __restrict__ mask, int64_t n,
 }
 
 // --------------------------------------------------------------------------
-// K2: exact closest segment among a lane's candidate row, on masked lanes.
-// One warp per lane strides over the Kp slots of the row's coordinate
-// planes (R, 4, Kp) = ax | ay | bx | by, so each load instruction of the
-// warp reads 128 contiguous bytes.  Bound by those loads: 16 bytes per
-// candidate, 4 KB per lane at K = 256, ~20 flops per candidate.  The
-// winner is the lexicographic argmin over (d^2, slot) by warp shuffle,
-// which keeps the smallest slot among equal d^2 as the TPU kernel's
-// strict < does.  Padded slots hold 1e9, so their d^2 (~1e18) stays
-// finite.  Unmasked lanes get d = t = side = 0 and pid = -1.
+// K2 / K4: the lane-list sweeps.  The wrapper compacts the mask (N,) with
+// K1 first; one launch then covers both kinds of lane.  Its warps take the
+// list positions [0, cnt), cnt read on the device (no host sync): block b
+// a contiguous share of about cnt / gridDim.x positions, its warps one
+// position at a time, so neighbouring lanes of the list (neighbouring
+// walks, which mostly share a candidate row) run on one SM, where L1
+// serves the row's later reads.  Position p sweeps lane lanes[p]: it
+// reads row[lane] and q[lane] and writes its results at lane.  Every lane
+// off the list gets the plain version's unmasked values from the same
+// launch, by a grid-stride pass over the mask.  The grid is sized from
+// the card, a full wave of resident blocks (SM count x blocks an SM
+// holds), not from N, and never more blocks than N needs.
 // --------------------------------------------------------------------------
 
 constexpr int SWEEP_THREADS = 256;
+constexpr int SWEEP_WARPS = SWEEP_THREADS / 32;
+
+// Block blockIdx.x's share [*p0, *p1) of the list positions [0, cnt).
+__device__ __forceinline__ void list_share(int64_t cnt, int64_t* p0,
+                                           int64_t* p1) {
+  const int64_t per = (cnt + gridDim.x - 1) / gridDim.x;
+  *p0 = min(cnt, (int64_t)blockIdx.x * per);
+  *p1 = min(cnt, *p0 + per);
+}
+
+// Lexicographic (d^2, slot) argmin over the warp; every lane gets it.
+__device__ __forceinline__ void warp_argmin(float* d2, int* slot) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float od2 = __shfl_xor_sync(FULL, *d2, o);
+    const int os = __shfl_xor_sync(FULL, *slot, o);
+    if (od2 < *d2 || (od2 == *d2 && os < *slot)) {
+      *d2 = od2;
+      *slot = os;
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// K2: exact closest segment among a listed lane's candidate row.  One warp
+// per listed lane over the row's coordinate planes (R, 4, Kp) = ax | ay |
+// bx | by: each thread reads four neighbouring slots of each plane as one
+// float4 (a warp instruction reads 512 contiguous bytes; Kp % 32 == 0
+// and the wrapper's check that the table starts on 16 bytes keep every
+// plane row on 16 bytes), in slot order, and
+// keeps the first least d^2 (strict <).  The warp meets in a lexicographic
+// (d^2, slot) argmin by shuffle, which keeps the smallest slot among equal
+// d^2 as the TPU kernel's strict < does; then lane 0 recomputes the
+// winner's t and side from its slot with the same operations, so they
+// carry the bits of the sweep.  Padded slots hold 1e9, so their d^2
+// (~1e18) stays finite; when every d^2 overflows (a walk far outside the
+// grid) slot 0 wins, as the plain version's argmin gives.  The row reads
+// (16 bytes per candidate, 4 KB per lane at K = 256) come mostly from L1
+// and L2: the same list sorted by row, or shuffled, ran within 5% of K1's
+// order (PERF.md), so the re-reads do not set its time; what does is not
+// measured.  Each candidate costs ~20 flops and one IEEE division.  Lanes
+// off the list get d = t = side = 0 and pid = -1.
+// --------------------------------------------------------------------------
 
 // K2 and K10 take the segment distance of segment.cuh (seg_d2).
 
-__global__ void sweep_resolve_kernel(
-    const uint8_t* __restrict__ mask, const int32_t* __restrict__ row,
+__device__ __forceinline__ void seg_take(float qx, float qy, float ax,
+                                         float ay, float bx, float by,
+                                         int k, float* best, int* slot) {
+  float t;
+  const float d2 = seg_d2(qx - ax, qy - ay, bx - ax, by - ay, &t);
+  if (d2 < *best) {
+    *best = d2;
+    *slot = k;
+  }
+}
+
+__global__ void __launch_bounds__(SWEEP_THREADS) sweep_resolve_kernel(
+    const uint8_t* __restrict__ mask, const int32_t* __restrict__ lanes,
+    const int32_t* __restrict__ cnt_in, const int32_t* __restrict__ row,
     const float* __restrict__ q, const float* __restrict__ coords,
     const int32_t* __restrict__ cand, int64_t n, int32_t K, int32_t Kp,
     float* __restrict__ d_out, float* __restrict__ t_out,
     float* __restrict__ side_out, int32_t* __restrict__ pid_out) {
-  const int64_t i =
-      ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (i >= n) return;
-  if (!mask[i]) {
-    if (lane == 0) {
+  const int64_t stride = (int64_t)gridDim.x * SWEEP_THREADS;
+  for (int64_t i = (int64_t)blockIdx.x * SWEEP_THREADS + threadIdx.x; i < n;
+       i += stride) {
+    if (!mask[i]) {
       d_out[i] = 0.f;
       t_out[i] = 0.f;
       side_out[i] = 0.f;
       pid_out[i] = -1;
     }
-    return;
   }
-  const int64_t r = row[i];
-  const float qx = q[2 * i];
-  const float qy = q[2 * i + 1];
-  const float* ax_p = coords + r * 4 * Kp;
-  const float* ay_p = ax_p + Kp;
-  const float* bx_p = ay_p + Kp;
-  const float* by_p = bx_p + Kp;
+  const int warp = threadIdx.x >> 5;
+  const int lid = threadIdx.x & 31;
+  int64_t p0, p1;
+  list_share(min((int64_t)*cnt_in, n), &p0, &p1);
+  for (int64_t p = p0 + warp; p < p1; p += SWEEP_WARPS) {
+    const int64_t i = lanes[p];
+    const int64_t r = row[i];
+    const float qx = q[2 * i];
+    const float qy = q[2 * i + 1];
+    const float* ax_p = coords + r * 4 * Kp;
+    const float* ay_p = ax_p + Kp;
+    const float* bx_p = ay_p + Kp;
+    const float* by_p = bx_p + Kp;
 
-  float best_d2 = __int_as_float(0x7f800000);  // +inf
-  int best_slot = Kp;
-  float best_t = 0.f;
-  float best_side = 0.f;
-  for (int k = lane; k < Kp; k += 32) {
-    const float ax = ax_p[k];
-    const float ay = ay_p[k];
-    const float ex = bx_p[k] - ax;
-    const float ey = by_p[k] - ay;
-    const float wx = qx - ax;
-    const float wy = qy - ay;
-    float t;
-    const float d2 = seg_d2(wx, wy, ex, ey, &t);
-    if (d2 < best_d2) {
-      best_d2 = d2;
-      best_slot = k;
-      best_t = t;
-      best_side = ex * wy - ey * wx;
+    float best = __int_as_float(0x7f800000);  // +inf
+    int slot = Kp;
+    for (int k = 4 * lid; k < Kp; k += 128) {  // Kp % 4 == 0
+      const float4 ax = __ldg(reinterpret_cast<const float4*>(ax_p + k));
+      const float4 ay = __ldg(reinterpret_cast<const float4*>(ay_p + k));
+      const float4 bx = __ldg(reinterpret_cast<const float4*>(bx_p + k));
+      const float4 by = __ldg(reinterpret_cast<const float4*>(by_p + k));
+      seg_take(qx, qy, ax.x, ay.x, bx.x, by.x, k, &best, &slot);
+      seg_take(qx, qy, ax.y, ay.y, bx.y, by.y, k + 1, &best, &slot);
+      seg_take(qx, qy, ax.z, ay.z, bx.z, by.z, k + 2, &best, &slot);
+      seg_take(qx, qy, ax.w, ay.w, bx.w, by.w, k + 3, &best, &slot);
     }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float od2 = __shfl_down_sync(FULL, best_d2, o);
-    const int os = __shfl_down_sync(FULL, best_slot, o);
-    const float ot = __shfl_down_sync(FULL, best_t, o);
-    const float oside = __shfl_down_sync(FULL, best_side, o);
-    if (od2 < best_d2 || (od2 == best_d2 && os < best_slot)) {
-      best_d2 = od2;
-      best_slot = os;
-      best_t = ot;
-      best_side = oside;
+    warp_argmin(&best, &slot);
+    if (lid == 0) {
+      const int s = slot < Kp ? slot : 0;  // every d^2 overflowed
+      const float ax = ax_p[s];
+      const float ay = ay_p[s];
+      const float ex = bx_p[s] - ax;
+      const float ey = by_p[s] - ay;
+      const float wx = qx - ax;
+      const float wy = qy - ay;
+      float t;
+      seg_d2(wx, wy, ex, ey, &t);
+      d_out[i] = sqrtf(best);
+      t_out[i] = t;
+      side_out[i] = ex * wy - ey * wx;
+      pid_out[i] = s < K ? cand[r * K + s] : -1;
     }
-  }
-  if (lane == 0) {
-    d_out[i] = sqrtf(best_d2);
-    t_out[i] = best_t;
-    side_out[i] = best_side;
-    pid_out[i] = best_slot < K ? cand[r * K + best_slot] : -1;
   }
 }
 
 // --------------------------------------------------------------------------
-// K4: exact closest triangle among a lane's candidate row, on masked lanes.
-// The 3D form of K2: one warp per lane over the (R, 9, Kp) corner planes
-// ax ay az bx by bz cx cy cz, 36 bytes per candidate (9 KB per lane at
-// K = 256), ~120 flops per candidate; bound by those loads.  The distance
-// is _tri_d2_tile's: the interior distance from the explicit residual
-// w - u e1 - v e2 (no |q - p|^2 cancellation), else the least of the three
-// edge distances.  Winner: lexicographic (d^2, slot) argmin by warp
-// shuffle; lane 0 then reloads the winner's 9 corners (an L1 hit).
-// Unmasked lanes get d = 0, pid = -1 and zero corners.
+// K4: exact closest triangle among a listed lane's candidate row.  The 3D
+// form of K2 over the (R, 9, Kp) corner planes ax ay az bx by bz cx cy cz:
+// 36 bytes per candidate (9 KB per lane at K = 256), read as float4s four
+// slots at a time (the table on 16 bytes, as K2's), ~120 flops and up to
+// five IEEE divisions per candidate.
+// The distance is _tri_d2_tile's: the interior distance from the explicit
+// residual w - u e1 - v e2 (no |q - p|^2 cancellation) where the
+// projection falls inside, else the least of the three edge distances,
+// computed only there.  Winner: lexicographic (d^2, slot) argmin by warp
+// shuffle; nine lanes then reload the winner's corners (an L1 hit).
+// Lanes off the list get d = 0, pid = -1 and zero corners.
 // --------------------------------------------------------------------------
 
 __device__ __forceinline__ float dot3(const float* u, const float* v) {
@@ -338,68 +391,95 @@ __device__ __forceinline__ float tri_d2(const float* q, const float* c) {
   const float den = fmaxf(d11 * d22 - d12 * d12, 1e-30f);
   const float u = (d22 * w1 - d12 * w2) / den;
   const float v = (d11 * w2 - d12 * w1) / den;
-  const bool inside = u >= 0.f && v >= 0.f && u + v <= 1.f;
+  if (u >= 0.f && v >= 0.f && u + v <= 1.f) {  // inside: the plane residual
 #pragma unroll
-  for (int k = 0; k < 3; ++k) diff[k] = w[k] - u * e1[k] - v * e2[k];
-  const float d2_in = dot3(diff, diff);
-  const float d2_edge =
-      fminf(fminf(edge_d2(q, c, c + 3), edge_d2(q, c + 3, c + 6)),
-            edge_d2(q, c + 6, c));
-  return inside ? d2_in : d2_edge;
+    for (int k = 0; k < 3; ++k) diff[k] = w[k] - u * e1[k] - v * e2[k];
+    return dot3(diff, diff);
+  }
+  return fminf(fminf(edge_d2(q, c, c + 3), edge_d2(q, c + 3, c + 6)),
+               edge_d2(q, c + 6, c));
 }
 
-__global__ void sweep_resolve_3d_kernel(
-    const uint8_t* __restrict__ mask, const int32_t* __restrict__ row,
+__global__ void __launch_bounds__(SWEEP_THREADS) sweep_resolve_3d_kernel(
+    const uint8_t* __restrict__ mask, const int32_t* __restrict__ lanes,
+    const int32_t* __restrict__ cnt_in, const int32_t* __restrict__ row,
     const float* __restrict__ q, const float* __restrict__ coords,
     const int32_t* __restrict__ cand, int64_t n, int32_t K, int32_t Kp,
     float* __restrict__ d_out, int32_t* __restrict__ pid_out,
     float* __restrict__ corners_out) {
-  const int64_t i =
-      ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (i >= n) return;
-  if (!mask[i]) {
-    if (lane == 0) {
+  const int64_t stride = (int64_t)gridDim.x * SWEEP_THREADS;
+  const int64_t first = (int64_t)blockIdx.x * SWEEP_THREADS + threadIdx.x;
+  for (int64_t i = first; i < n; i += stride) {
+    if (!mask[i]) {
       d_out[i] = 0.f;
       pid_out[i] = -1;
     }
-    if (lane < 9) corners_out[9 * i + lane] = 0.f;
-    return;
   }
-  const int64_t r = row[i];
-  const float qv[3] = {q[3 * i], q[3 * i + 1], q[3 * i + 2]};
-  const float* base = coords + r * 9 * Kp;
+  for (int64_t j = first; j < 9 * n; j += stride)  // corners, coalesced
+    if (!mask[j / 9]) corners_out[j] = 0.f;
+  const int warp = threadIdx.x >> 5;
+  const int lid = threadIdx.x & 31;
+  int64_t p0, p1;
+  list_share(min((int64_t)*cnt_in, n), &p0, &p1);
+  for (int64_t p = p0 + warp; p < p1; p += SWEEP_WARPS) {
+    const int64_t i = lanes[p];
+    const int64_t r = row[i];
+    const float qv[3] = {q[3 * i], q[3 * i + 1], q[3 * i + 2]};
+    const float* base = coords + r * 9 * Kp;
 
-  float best_d2 = __int_as_float(0x7f800000);  // +inf
-  int best_slot = Kp;
-  for (int k = lane; k < Kp; k += 32) {
-    float c[9];
+    float best = __int_as_float(0x7f800000);  // +inf
+    int slot = Kp;
+    for (int k = 4 * lid; k < Kp; k += 128) {  // Kp % 4 == 0
+      float4 c4[9];
 #pragma unroll
-    for (int p = 0; p < 9; ++p) c[p] = base[p * Kp + k];
-    const float d2 = tri_d2(qv, c);
-    if (d2 < best_d2) {
-      best_d2 = d2;
-      best_slot = k;
+      for (int pl = 0; pl < 9; ++pl)
+        c4[pl] = __ldg(reinterpret_cast<const float4*>(base + pl * Kp + k));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float c[9];
+#pragma unroll
+        for (int pl = 0; pl < 9; ++pl)
+          c[pl] = j == 0 ? c4[pl].x : j == 1 ? c4[pl].y
+                : j == 2 ? c4[pl].z : c4[pl].w;
+        const float d2 = tri_d2(qv, c);
+        if (d2 < best) {
+          best = d2;
+          slot = k + j;
+        }
+      }
+    }
+    warp_argmin(&best, &slot);
+    // every d^2 overflowed (a walk far outside the grid): slot 0, as the
+    // plain version's argmin gives, not a read past the row
+    slot = slot < Kp ? slot : 0;
+    if (lid < 9) corners_out[9 * i + lid] = base[lid * Kp + slot];
+    if (lid == 0) {
+      d_out[i] = sqrtf(best);
+      pid_out[i] = slot < K ? cand[r * K + slot] : -1;
     }
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float od2 = __shfl_down_sync(FULL, best_d2, o);
-    const int os = __shfl_down_sync(FULL, best_slot, o);
-    if (od2 < best_d2 || (od2 == best_d2 && os < best_slot)) {
-      best_d2 = od2;
-      best_slot = os;
-    }
+}
+
+// Blocks of a full wave of the kernel on the current device (its SM count
+// times the blocks an SM holds at SWEEP_THREADS threads), found once per
+// device, and at most the blocks that n lanes need (a warp a lane); -1 if
+// the device cannot be read.
+template <typename F>
+int64_t sweep_blocks(F kernel, int64_t n) {
+  static int wave[64];  // one table per kernel
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return -1;
+  if (wave[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, SWEEP_THREADS, 0) != cudaSuccess)
+      return -1;
+    wave[dev] = sms * (per_sm > 0 ? per_sm : 1);
   }
-  best_slot = __shfl_sync(FULL, best_slot, 0);
-  // every d^2 overflowed (a walk far outside the grid): slot 0, as the
-  // plain version's argmin gives, not a read past the row
-  best_slot = best_slot < Kp ? best_slot : 0;
-  if (lane < 9) corners_out[9 * i + lane] = base[lane * Kp + best_slot];
-  if (lane == 0) {
-    d_out[i] = sqrtf(best_d2);
-    pid_out[i] = best_slot < K ? cand[r * K + best_slot] : -1;
-  }
+  const int64_t need = (n + SWEEP_WARPS - 1) / SWEEP_WARPS;
+  return need < wave[dev] ? need : wave[dev];
 }
 
 // --------------------------------------------------------------------------
@@ -462,16 +542,7 @@ __global__ void grid_band_kernel(const int32_t* __restrict__ row,
       best_slot = k;
     }
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float od2 = __shfl_down_sync(FULL, best_d2, o);
-    const int os = __shfl_down_sync(FULL, best_slot, o);
-    if (od2 < best_d2 || (od2 == best_d2 && os < best_slot)) {
-      best_d2 = od2;
-      best_slot = os;
-    }
-  }
-  best_slot = __shfl_sync(FULL, best_slot, 0);
+  warp_argmin(&best_d2, &best_slot);
   best_slot = best_slot < Kp ? best_slot : 0;     // every d^2 overflowed
   if (lane < NP) corners_out[NP * i + lane] = base[lane * Kp + best_slot];
   if (lane == 0) {
@@ -567,34 +638,38 @@ int compact_lanes_launch(const void* mask, int64_t n, int32_t cap,
   return (int)cudaGetLastError();
 }
 
-int sweep_resolve_launch(const void* mask, const void* row, const void* q,
-                         const void* coords, const void* cand, int64_t n,
-                         int32_t K, int32_t Kp, void* d, void* t, void* side,
-                         void* pid, void* stream) {
+// lanes, cnt: K1's list of the set lanes of mask (lanes[0, cnt), cap n).
+int sweep_resolve_launch(const void* mask, const void* lanes, const void* cnt,
+                         const void* row, const void* q, const void* coords,
+                         const void* cand, int64_t n, int32_t K, int32_t Kp,
+                         void* d, void* t, void* side, void* pid,
+                         void* stream) {
   if (n == 0) return 0;
-  const int lanes_per_block = SWEEP_THREADS / 32;
-  const int64_t blocks = (n + lanes_per_block - 1) / lanes_per_block;
+  const int64_t blocks = sweep_blocks(sweep_resolve_kernel, n);
+  if (blocks <= 0) return (int)cudaErrorInvalidValue;
   sweep_resolve_kernel<<<(unsigned)blocks, SWEEP_THREADS, 0,
                          (cudaStream_t)stream>>>(
-      (const uint8_t*)mask, (const int32_t*)row, (const float*)q,
-      (const float*)coords, (const int32_t*)cand, n, K, Kp, (float*)d,
-      (float*)t, (float*)side, (int32_t*)pid);
+      (const uint8_t*)mask, (const int32_t*)lanes, (const int32_t*)cnt,
+      (const int32_t*)row, (const float*)q, (const float*)coords,
+      (const int32_t*)cand, n, K, Kp, (float*)d, (float*)t, (float*)side,
+      (int32_t*)pid);
   return (int)cudaGetLastError();
 }
 
-int sweep_resolve_3d_launch(const void* mask, const void* row,
-                            const void* q, const void* coords,
-                            const void* cand, int64_t n, int32_t K,
-                            int32_t Kp, void* d, void* pid, void* corners,
-                            void* stream) {
+int sweep_resolve_3d_launch(const void* mask, const void* lanes,
+                            const void* cnt, const void* row, const void* q,
+                            const void* coords, const void* cand, int64_t n,
+                            int32_t K, int32_t Kp, void* d, void* pid,
+                            void* corners, void* stream) {
   if (n == 0) return 0;
-  const int lanes_per_block = SWEEP_THREADS / 32;
-  const int64_t blocks = (n + lanes_per_block - 1) / lanes_per_block;
+  const int64_t blocks = sweep_blocks(sweep_resolve_3d_kernel, n);
+  if (blocks <= 0) return (int)cudaErrorInvalidValue;
   sweep_resolve_3d_kernel<<<(unsigned)blocks, SWEEP_THREADS, 0,
                             (cudaStream_t)stream>>>(
-      (const uint8_t*)mask, (const int32_t*)row, (const float*)q,
-      (const float*)coords, (const int32_t*)cand, n, K, Kp, (float*)d,
-      (int32_t*)pid, (float*)corners);
+      (const uint8_t*)mask, (const int32_t*)lanes, (const int32_t*)cnt,
+      (const int32_t*)row, (const float*)q, (const float*)coords,
+      (const int32_t*)cand, n, K, Kp, (float*)d, (int32_t*)pid,
+      (float*)corners);
   return (int)cudaGetLastError();
 }
 

@@ -24,7 +24,12 @@ Contracts (from the TPU kernels, minus the bitmask words):
   masked lanes, the exact closest of the K candidates of row ``row``:
   distance, segment parameter t in [0, 1], the winner's cross product
   ``e x (q - a)`` (prim_side's sign) and its prim id; the smallest slot
-  wins ties.  Unmasked lanes give 0, 0, 0, -1.
+  wins ties.  Unmasked lanes give 0, 0, 0, -1.  On the card the wrapper
+  compacts ``mask`` with K1 and launches K2 once over K1's list: the
+  count stays on the device, each listed lane reads its row and point by
+  lane id and writes at it, and the same launch fills the unmasked lanes;
+  its grid is one wave of the card's SMs, not N, so the listed lanes, not
+  N, bound its sweep.  ``coords`` must start on 16 bytes there.
 * ``fetch_colors(mask, cfi, color_rows) -> (c0, c1)``: on masked lanes,
   the two endpoint colors of row ``cfi`` of the (2P, 6) table; 0 on
   unmasked lanes and rows out of range.
@@ -32,7 +37,8 @@ Contracts (from the TPU kernels, minus the bitmask words):
   on masked lanes, the exact closest of the K triangles of row ``row``
   (the distance of ``_tri_d2_tile``): distance, prim id and the winner's
   corners (N, 9) [a, b, c]; the smallest slot wins ties.  Unmasked lanes
-  give 0, -1, 0.
+  give 0, -1, 0.  On the card, K1 and one K4 launch over its list, as
+  K2.
 * ``fetch_colors3(mask, cfi, color_rows) -> (ca, cb, cc)``: K3 for the
   three triangle corners of the (2P, 9) table.
 * ``grid_band_2d(row, q, coords) -> (d2, slot, corners (N, 4))`` and
@@ -61,10 +67,10 @@ _PLAIN_CHUNK = 16384    # lanes per chunk of the plain sweep (bounds memory)
 
 _SIGNATURES = {
     "compact_lanes_launch": [VP, I64, I32, VP, VP, VP, I64, VP],
-    "sweep_resolve_launch": [VP, VP, VP, VP, VP, I64, I32, I32, VP, VP, VP,
-                             VP, VP],
-    "sweep_resolve_3d_launch": [VP, VP, VP, VP, VP, I64, I32, I32, VP, VP,
-                                VP, VP],
+    "sweep_resolve_launch": [VP, VP, VP, VP, VP, VP, VP, I64, I32, I32, VP,
+                             VP, VP, VP, VP],
+    "sweep_resolve_3d_launch": [VP, VP, VP, VP, VP, VP, VP, I64, I32, I32,
+                                VP, VP, VP, VP],
     "fetch_colors_launch": [VP, VP, VP, I64, I64, VP, VP],
     "fetch_colors3_launch": [VP, VP, VP, I64, I64, VP, VP],
     "grid_band_2d_launch": [VP, VP, VP, I64, I32, VP, VP, VP],
@@ -111,19 +117,25 @@ def _compact_workspace(dev: torch.device, n_tiles: int) -> torch.Tensor:
     return work
 
 
-def compact_lanes(mask: torch.Tensor, cap: int):
+def _compact_into(mask: torch.Tensor, cap: int) -> torch.Tensor:
+    """K1 on a checked CUDA mask into one new (cap + 1,) int32 tensor: the
+    list, then its count."""
     dev = mask.device
     n = mask.shape[0]
-    _check("mask", mask, torch.bool, (n,), dev)
-    if dev == CPU:
-        return compact_lanes_plain(mask, cap)
     work = _compact_workspace(dev, -(-n // COMPACT_TILE))
     out = torch.empty(cap + 1, dtype=torch.int32, device=dev)
     p = out.data_ptr()
     _launch(library().compact_lanes_launch, mask.data_ptr(), n, cap, p,
             p + 4 * cap, work.data_ptr(), work.numel() - 1, device=dev)
     compact_lanes.launches += 1
-    return out.split_with_sizes((cap, 1))
+    return out
+
+
+def compact_lanes(mask: torch.Tensor, cap: int):
+    _check("mask", mask, torch.bool, (mask.shape[0],), mask.device)
+    if mask.device == CPU:
+        return compact_lanes_plain(mask, cap)
+    return _compact_into(mask, cap).split_with_sizes((cap, 1))
 
 
 compact_lanes.launches = 0
@@ -174,30 +186,61 @@ def sweep_resolve_plain(mask, row, q, coords, cand):
     return d, t, side, pid
 
 
-def sweep_resolve(mask, row, q, coords, cand):
+def _check_sweep(mask, row, q, coords, cand, dim: int):
     n = row.shape[0]
     dev = q.device
     R, K = cand.shape
     Kp = coords.shape[2]
     _check("mask", mask, torch.bool, (n,), dev)
     _check("row", row, torch.int32, (n,), dev)
-    _check("q", q, torch.float32, (n, 2), dev)
-    _check("coords", coords, torch.float32, (R, 4, Kp), dev)
+    _check("q", q, torch.float32, (n, dim), dev)
+    _check("coords", coords, torch.float32, (R, dim * dim, Kp), dev)
     _check("cand", cand, torch.int32, (R, K), dev)
     if Kp < K or Kp % 32:
         raise ValueError(f"coords has {Kp} slots per row for K={K}")
-    if dev.type == "cpu":
+    if dev.type != "cpu" and coords.data_ptr() % 16:
+        raise ValueError("coords must start on 16 bytes (the kernel reads "
+                         "its planes as float4)")
+
+
+def _sweep_lanes(dim: int, mask, lanes: int, cnt: int, row, q, coords,
+                 cand):
+    """K2 (dim 2) or K4 (dim 3) on checked CUDA tensors over K1's list of
+    the set lanes of ``mask``, at the device addresses ``lanes`` (N int32)
+    and ``cnt`` (one int32, read on the device)."""
+    n = row.shape[0]
+    dev = q.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    if dim == 2:
+        wrapper, fn = sweep_resolve, library().sweep_resolve_launch
+        outs = (torch.empty((n,), **f32), torch.empty((n,), **f32),
+                torch.empty((n,), **f32), torch.empty((n,), **i32))
+    else:
+        wrapper, fn = sweep_resolve_3d, library().sweep_resolve_3d_launch
+        outs = (torch.empty((n,), **f32), torch.empty((n,), **i32),
+                torch.empty((n, 9), **f32))
+    _launch(fn, mask.data_ptr(), lanes, cnt, row.data_ptr(), q.data_ptr(),
+            coords.data_ptr(), cand.data_ptr(), n, cand.shape[1],
+            coords.shape[2], *(o.data_ptr() for o in outs), device=dev)
+    wrapper.launches += 1
+    return outs
+
+
+def _sweep(dim: int, mask, row, q, coords, cand):
+    """K1 on ``mask``, then K2 / K4 over its list: the CUDA path of both
+    wrappers."""
+    n = row.shape[0]
+    lst = _compact_into(mask, n)   # held until the sweep is enqueued
+    p = lst.data_ptr()
+    return _sweep_lanes(dim, mask, p, p + 4 * n, row, q, coords, cand)
+
+
+def sweep_resolve(mask, row, q, coords, cand):
+    _check_sweep(mask, row, q, coords, cand, 2)
+    if q.device.type == "cpu":
         return sweep_resolve_plain(mask, row, q, coords, cand)
-    d = torch.empty((n,), dtype=torch.float32, device=dev)
-    t = torch.empty((n,), dtype=torch.float32, device=dev)
-    side = torch.empty((n,), dtype=torch.float32, device=dev)
-    pid = torch.empty((n,), dtype=torch.int32, device=dev)
-    _launch(library().sweep_resolve_launch, mask.data_ptr(), row.data_ptr(),
-            q.data_ptr(), coords.data_ptr(), cand.data_ptr(), n, K, Kp,
-            d.data_ptr(), t.data_ptr(), side.data_ptr(), pid.data_ptr(),
-            device=dev)
-    sweep_resolve.launches += 1
-    return d, t, side, pid
+    return _sweep(2, mask, row, q, coords, cand)
 
 
 sweep_resolve.launches = 0
@@ -321,27 +364,10 @@ def sweep_resolve_3d_plain(mask, row, q, coords, cand):
 
 
 def sweep_resolve_3d(mask, row, q, coords, cand):
-    n = row.shape[0]
-    dev = q.device
-    R, K = cand.shape
-    Kp = coords.shape[2]
-    _check("mask", mask, torch.bool, (n,), dev)
-    _check("row", row, torch.int32, (n,), dev)
-    _check("q", q, torch.float32, (n, 3), dev)
-    _check("coords", coords, torch.float32, (R, 9, Kp), dev)
-    _check("cand", cand, torch.int32, (R, K), dev)
-    if Kp < K or Kp % 32:
-        raise ValueError(f"coords has {Kp} slots per row for K={K}")
-    if dev.type == "cpu":
+    _check_sweep(mask, row, q, coords, cand, 3)
+    if q.device.type == "cpu":
         return sweep_resolve_3d_plain(mask, row, q, coords, cand)
-    d = torch.empty((n,), dtype=torch.float32, device=dev)
-    pid = torch.empty((n,), dtype=torch.int32, device=dev)
-    corners = torch.empty((n, 9), dtype=torch.float32, device=dev)
-    _launch(library().sweep_resolve_3d_launch, mask.data_ptr(), row.data_ptr(),
-            q.data_ptr(), coords.data_ptr(), cand.data_ptr(), n, K, Kp,
-            d.data_ptr(), pid.data_ptr(), corners.data_ptr(), device=dev)
-    sweep_resolve_3d.launches += 1
-    return d, pid, corners
+    return _sweep(3, mask, row, q, coords, cand)
 
 
 sweep_resolve_3d.launches = 0

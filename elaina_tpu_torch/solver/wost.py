@@ -46,8 +46,8 @@ from ..geometry import queries as Q
 from ..geometry.grid import fine_decode, grid_closest_point
 from ..geometry.primitives import (prim_project, prim_sample_point,
                                    prim_side)
-from ..ops.resolve import (compact_lanes, fetch_colors, fetch_colors3,
-                           sweep_resolve, sweep_resolve_3d)
+from ..ops.resolve import (fetch_colors, fetch_colors3, sweep_resolve,
+                           sweep_resolve_3d)
 from ..utils.mathops import frame_from_normal, geometric_interpolate, to_world
 from .green import green_eval, green_norm, green_sample_radius
 from .sampling import (sphere_measure, uniform_sample_hemisphere,
@@ -116,25 +116,25 @@ def _dense_dirichlet(scene: Scene, q, active, eps: float):
     return d, in_shell, color, active
 
 
-def _resolve_2d(g, valid, row_c, q_c, eps: float):
-    """K2 + K3 on the compacted lanes: (d, color (n, 3), in-shell)."""
-    d_e, t, side, pid = sweep_resolve(valid, row_c, q_c, g.coords, g.cand)
-    ins = valid & (d_e < eps) & (t > 0.0) & (t < 1.0)
+def _resolve_2d(g, need, row, q, eps: float):
+    """K2 + K3 on the need lanes: (d, color (N, 3), in-shell)."""
+    d_e, t, side, pid = sweep_resolve(need, row, q, g.coords, g.cand)
+    ins = need & (d_e < eps) & (t > 0.0) & (t < 1.0)
     cfi = 2 * torch.clamp(pid, min=0) + (side < 0).to(torch.int32)
     c0, c1 = fetch_colors(ins, torch.where(ins, cfi, 0), g.color_rows)
     return d_e, c0 * (1.0 - t[:, None]) + c1 * t[:, None], ins
 
 
-def _resolve_3d(g, valid, row_c, q_c, eps: float):
-    """K4 + K5 on the compacted lanes: the winner's barycentrics, side and
+def _resolve_3d(g, need, row, q, eps: float):
+    """K4 + K5 on the need lanes: the winner's barycentrics, side and
     interior test from its corners, then the in-shell lanes' colors."""
-    d_e, pid, corners = sweep_resolve_3d(valid, row_c, q_c, g.coords, g.cand)
+    d_e, pid, corners = sweep_resolve_3d(need, row, q, g.coords, g.cand)
     pv = (corners[:, 0:3], corners[:, 3:6], corners[:, 6:9])
-    uv = prim_project(3, q_c, pv)
-    side = prim_side(3, q_c, pv)
+    uv = prim_project(3, q, pv)
+    side = prim_side(3, q, pv)
     interior = (uv[:, 0] > 0.0) & (uv[:, 1] > 0.0) & (uv[:, 0] + uv[:, 1]
                                                       < 1.0)
-    ins = valid & (d_e < eps) & interior
+    ins = need & (d_e < eps) & interior
     cfi = 2 * torch.clamp(pid, min=0) + (side < 0).to(torch.int32)
     ca, cb, cc = fetch_colors3(ins, torch.where(ins, cfi, 0), g.color_rows)
     return d_e, geometric_interpolate(3, (ca, cb, cc), uv), ins
@@ -145,36 +145,23 @@ def _fast_dirichlet(scene: Scene, q, active, eps: float):
 
     One FinePack load per lane gives the candidate row, the need bit and a
     distance lower bound.  The active lanes whose need bit (or out-of-grid
-    force) fired are compacted (K1, cap = N, so the compacted path always
-    applies), swept exactly over their row (K2 / K4), and the in-shell
-    ones fetch their boundary colors (K3 / K5); results scatter back by
-    lane id.  Returns (R_D, in_shell, color (N, 3), need).
+    force) fired are swept exactly over their row (K2 / K4: the wrapper
+    lists them with K1 and the sweep writes by lane id, so nothing is
+    gathered or scattered here), and the in-shell ones fetch their
+    boundary colors (K3 / K5).  Returns (R_D, in_shell, color (N, 3),
+    need).
     """
     g = scene.d_grid
     fp = g.fine
     if fp is None or fp.eps != float(eps):
         raise ValueError(f"the FinePack was baked for eps "
                          f"{None if fp is None else fp.eps}, not {eps}")
-    n = q.shape[0]
-    dev = q.device
     row, need_f, rl, outside = fine_decode(fp, q)
     need = active & (need_f | outside)
-
-    lanes, cnt = compact_lanes(need, cap=n)
-    valid = torch.arange(n, device=dev) < cnt
-    safe = torch.where(valid, lanes, 0).long()
     resolve = _resolve_2d if scene.dim == 2 else _resolve_3d
-    d_e, col, ins = resolve(g, valid, row[safe].contiguous(),
-                            q[safe].contiguous(), eps)
-    out_c = torch.cat([d_e[:, None], col, ins.to(torch.float32)[:, None]],
-                      dim=-1)
-    # scatter back; invalid slots land on the spare row n and are dropped
-    out = torch.zeros((n + 1, 5), dtype=torch.float32, device=dev)
-    out[torch.where(valid, lanes.long(), n)] = out_c
-    out = out[:n]
+    d_e, col, in_shell = resolve(g, need, row, q, eps)
 
-    in_shell = need & (out[:, 4] > 0.5)
-    R_D = torch.where(need, out[:, 0], rl)
+    R_D = torch.where(need, d_e, rl)
     if g.trunc_min_rl < 2.0 * float(eps):
         # truncated nearest-K rows near the shell: the sweep's min over a
         # subset can overestimate the distance; the cell's lower bound is
@@ -182,7 +169,7 @@ def _fast_dirichlet(scene: Scene, q, active, eps: float):
         tr = need & ~outside & g.row_trunc[row.long()]
         R_D = torch.where(tr, g.row_lbound[row.long()], R_D)
     in_shell &= R_D < eps
-    color = torch.where(in_shell[:, None], out[:, 1:4], 0.0)
+    color = torch.where(in_shell[:, None], col, 0.0)
     return R_D, in_shell, color, need
 
 

@@ -2,7 +2,8 @@
 
     python -m elaina_tpu_torch.utils.ab --tree parent=<dir> \\
         --tree change=<dir> \\
-        --order parent,change,change,parent,parent,change [--out <file>]
+        --order parent,change,change,parent,parent,change [--out <file>] \\
+        [--gathered parent]
 
 Each tree is a checkout of the repository, for example ``git archive`` of
 a commit unpacked into a directory that ``.gitignore`` lists.  At every
@@ -30,9 +31,24 @@ turn of ``--order`` the named tree runs, each in a process of its own:
    else what its path runs there, the full form), over the bench square's
    2,048 segments and over nogrid_u's 256 (``*_nogrid*``), with K1 alone
    on nogrid_u's walks; K6 on neumann3d_u's lanes after 3 depth steps
-   with their star radii (with the tree's skip where it has one): call ms
-   and device ms as ``utils/timing.py`` takes them, with the live lanes
-   the lane-list form swept.
+   with their star radii (with the tree's skip where it has one); K2 and
+   K4 on lobed_u's and neumann3d_u's need lanes after 3 depth steps, as
+   the tree's ``_fast_dirichlet`` runs them (N-wide mask, rows and points
+   to the wrapper, which lists the lanes itself; or, for a tree named by
+   ``--gathered``, one from before that form, K1, the gather of rows and
+   points, the sweep of the compacted lanes and one scatter of its
+   outputs back by lane id):
+   call ms and device ms as ``utils/timing.py`` takes them, with the live
+   lanes the lane-list form swept; and the form's launches apart, K1
+   alone (``*_k1``) and the sweep alone (``*_alone_k1``: the gathered
+   form's wrapper on the gathered lanes, the lane-list form's launch over
+   K1's list, which in that form also runs over the list sorted by row
+   and shuffled, ``_list_orders``: whether the rows' re-reads set its
+   time).
+
+Each CLI run also records a digest of its SOLUTION film (the exported
+float32 ``solution.exr``), so the medians line can say whether the trees'
+films are equal bit for bit.
 
 The trees share one grid cache, so only the first run of a scene builds
 its grids (before the solve's clock in both trees).  One JSON line per
@@ -43,6 +59,7 @@ The card's name and power limit head the output.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -50,6 +67,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 # the main paths' shapes (PERF.md): lanes, set lanes, in-shell lanes, prims
 LOBED = (1048576, 187567, 72062, 65536)
@@ -202,10 +220,148 @@ def _band_kernels(conf_3d: str, conf_ng: str, dev, timed) -> dict:
     return out
 
 
-def _kernel_times(conf_3d: str, conf_ng: str) -> dict:
+def _resolve_kernels(conf_2d: str, conf_3d: str, dev, timed,
+                     gathered: bool) -> dict:
+    """K2 on lobed_u's and K4 on neumann3d_u's need lanes after 3 depth
+    steps, each as the tree's ``_fast_dirichlet`` runs it (``gathered``:
+    around a gather and a scatter); the PyTorch ops
+    that one ``_fast_dirichlet`` and one depth step enqueue there, and the
+    first statement of each (and of that form) that waits for the
+    device."""
+    import torch
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from elaina_tpu_torch.geometry.grid import fine_decode
+    from elaina_tpu_torch.ops import resolve as R
+    from elaina_tpu_torch.solver import wost as W
+    from elaina_tpu_torch.utils.rng import sample_generators
+
+    def first_sync(fn):
+        """Where one call of ``fn`` first makes the host wait for the
+        device (``torch.cuda.set_sync_debug_mode``), or None."""
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        except RuntimeError as e:
+            tb = traceback.extract_tb(e.__traceback__)
+            f = [t for t in tb if "elaina_tpu_torch" in t.filename][-1]
+            return f"{os.path.basename(f.filename)}:{f.lineno} {f.line}"
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return None
+
+    def top_ops(fn) -> int:
+        """The PyTorch ops that one call of ``fn`` enqueues (torch.profiler
+        on the host: aten ops not inside another)."""
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+        return sum(1 for e in prof.events() if e.name.startswith("aten::")
+                   and (e.cpu_parent is None
+                        or not e.cpu_parent.name.startswith("aten::")))
+
+    def gather(need, row, q):
+        """K1 and the gather of the parent's form: (lanes, the valid
+        slots, their rows, their points)."""
+        n = need.shape[0]
+        lanes, cnt = R.compact_lanes(need, n)
+        valid = torch.arange(n, device=dev) < cnt
+        safe = torch.where(valid, lanes, 0).long()
+        return lanes, valid, row[safe].contiguous(), q[safe].contiguous()
+
+    def compacted(sweep, need, row, q, g):
+        """The parent's form: K1, gather, sweep, one scatter back."""
+        n = need.shape[0]
+        lanes, valid, row_c, q_c = gather(need, row, q)
+        out = sweep(valid, row_c, q_c, g.coords, g.cand)
+        flat = torch.cat([o.reshape(n, -1).to(torch.float32) for o in out],
+                         dim=1)
+        back = torch.zeros((n + 1, flat.shape[1]), dtype=torch.float32,
+                           device=dev)
+        back[torch.where(valid, lanes.long(), n)] = flat
+        return back[:n]
+
+    out = {}
+    for name, conf in (("sweep_resolve", conf_2d),
+                       ("sweep_resolve_3d", conf_3d)):
+        problem, integ = load_integrator(conf, dev, 1)
+        g = problem.scene.d_grid
+        state = warm_state(problem, integ, 3)
+        q = state.pos
+        row, need_f, _, outside = fine_decode(g.fine, q)
+        need = state.active & (need_f | outside)
+        sweep = getattr(R, name)
+        args = (need, row, q, g.coords, g.cand)
+        form = ((lambda: compacted(sweep, *args[:3], g)) if gathered else
+                (lambda: sweep(*args)))
+        out[name] = timed(form)
+        out[name]["need"] = int(need.sum())
+        # the form's launches apart: K1, then the sweep alone (the
+        # parent's on the gathered lanes, the change's over K1's list)
+        n = need.shape[0]
+        out[f"{name}_k1"] = timed(lambda: R.compact_lanes(need, n))
+        if gathered:
+            c_args = (*gather(need, row, q)[1:], g.coords, g.cand)
+            out[f"{name}_alone_k1"] = timed(lambda: sweep(*c_args))
+        else:
+            out.update(_list_orders(name, need, row, q, g, timed))
+        eps = float(integ.settings.epsilonShell)
+        gens = sample_generators(0, 0, dev)
+        resolve = (lambda: W._fast_dirichlet(problem.scene, q, state.active,
+                                             eps))
+        step = (lambda: W.wost_depth_step(problem.scene, state, gens, eps))
+        out[name].update(
+            fast_dirichlet_ops=top_ops(resolve), step_ops=top_ops(step),
+            form_sync=first_sync(form),
+            fast_dirichlet_sync=first_sync(resolve),
+            step_sync=first_sync(step))
+        del problem, integ
+    return out
+
+
+def _list_orders(name: str, need, row, q, g, timed) -> dict:
+    """K2 or K4 alone (``ops.resolve._sweep_lanes``) over K1's list of
+    ``need``, over that list sorted by row (lanes that share a row side by
+    side) and over a seeded permutation of it (neighbours rarely share
+    one), each equal to the wrapper's output: how far the rows' re-reads
+    set the sweep's time.  Keys ``<name>_alone_<order>``."""
+    import torch
+
+    from elaina_tpu_torch.ops import resolve as R
+
+    n = need.shape[0]
+    lanes, cnt = R.compact_lanes(need, n)
+    k = int(cnt)
+    ids = lanes[:k].long()
+    gen = torch.Generator(device=need.device)
+    gen.manual_seed(5)
+    orders = {"k1": lanes,
+              "by_row": torch.cat([ids[torch.sort(row[ids], stable=True)[1]]
+                                   .int(), lanes[k:]]),
+              "shuffled": torch.cat([ids[torch.randperm(
+                  k, generator=gen, device=need.device)].int(), lanes[k:]])}
+    dim = 2 if name == "sweep_resolve" else 3
+    want = getattr(R, name)(need, row, q, g.coords, g.cand)
+    out = {}
+    for key, order in orders.items():
+        order = order.contiguous()
+        args = (dim, need, order.data_ptr(), cnt.data_ptr(), row, q,
+                g.coords, g.cand)
+        if not all(torch.equal(a, b) for a, b in zip(R._sweep_lanes(*args),
+                                                     want)):
+            raise RuntimeError(f"{name} over the {key} list differs")
+        out[f"{name}_alone_{key}"] = timed(
+            lambda a=args, o=order: R._sweep_lanes(*a))
+    return out
+
+
+def _kernel_times(conf_2d: str, conf_3d: str, conf_ng: str,
+                  form: str) -> dict:
     """K1, K3 and K5 of the tree in the working directory, on seeded
-    inputs, then K13 and K6 (``_band_kernels``); run as a file there:
-    ``timing`` is this file's neighbour."""
+    inputs, then K13 and K6 (``_band_kernels``) and K2 and K4
+    (``_resolve_kernels``, in the ``gathered`` or ``listed`` form); run
+    as a file there: ``timing`` is this file's neighbour."""
     sys.path.insert(0, os.getcwd())
     import torch
     from timing import cuda_ms, device_ms
@@ -247,7 +403,9 @@ def _kernel_times(conf_3d: str, conf_ng: str) -> dict:
                          (fetch.__name__,
                           lambda i=ins, c=cfi, r=rows, f=fetch: f(i, c, r))):
             out[name] = timed(fn)
-    return {**out, **_band_kernels(conf_3d, conf_ng, dev, timed)}
+    return {**out, **_band_kernels(conf_3d, conf_ng, dev, timed),
+            **_resolve_kernels(conf_2d, conf_3d, dev, timed,
+                               form == "gathered")}
 
 
 def _card() -> str:
@@ -268,15 +426,19 @@ def _run(cmd: list, tree: str, env: dict) -> str:
 
 
 def _run_scene(tree: str, conf: str, env: dict) -> dict:
+    from ..output.image_io import read_exr
+
     _run([sys.executable, "-m", "elaina_tpu_torch", "run", conf, "--device",
           "cuda"], tree, env)
     with open(conf) as f:
         c = json.load(f)
-    with open(os.path.join(c["base_path"], c["exp_name"],
-                           "result.json")) as f:
+    out = os.path.join(c["base_path"], c["exp_name"])
+    with open(os.path.join(out, "result.json")) as f:
         r = json.load(f)
+    film = read_exr(os.path.join(out, "solution.exr")).astype("float32")
     return {"walk_steps": r["walk_steps"], "duration_ms": r["duration"],
-            "walk_steps_s": r["walk_steps"] / (r["duration"] / 1e3)}
+            "walk_steps_s": r["walk_steps"] / (r["duration"] / 1e3),
+            "solution_sha256": hashlib.sha256(film.tobytes()).hexdigest()}
 
 
 def main(argv=None) -> int:
@@ -286,6 +448,10 @@ def main(argv=None) -> int:
     ap.add_argument("--order", required=True,
                     help="comma-separated tree names, one per turn")
     ap.add_argument("--out", help="also write the lines to this file")
+    ap.add_argument("--gathered", action="append", default=[],
+                    help="a tree whose _fast_dirichlet gathers the need "
+                    "lanes around K2/K4 and scatters back (before the "
+                    "lane-list form)")
     args = ap.parse_args(argv)
     trees = dict(t.split("=", 1) for t in args.tree)
     trees = {k: os.path.abspath(v) for k, v in trees.items()}
@@ -321,7 +487,9 @@ def main(argv=None) -> int:
                             "--solve-twice", *extra], trees[name], env)
                 turn[scene] = json.loads(out.strip().splitlines()[-1])
             out = _run([sys.executable, os.path.join(here, "ab.py"),
-                        "--kernels", confs["neumann3d_u"], conf_ng],
+                        "--kernels", confs["lobed_u"], confs["neumann3d_u"],
+                        conf_ng, "gathered" if name in args.gathered
+                        else "listed"],
                        trees[name], env)
             turn["kernels"] = json.loads(out.strip().splitlines()[-1])
             turn["seconds"] = time.time() - t0
@@ -341,7 +509,13 @@ def main(argv=None) -> int:
             for key in ("ms", "device_ms", "host_us"):
                 summary[name][f"{k}_{key}"] = statistics.median(
                     t["kernels"][k][key] for t in mine)
-    lines.append(json.dumps({"medians": summary}))
+    films = {scene: {name: sorted({t[scene]["solution_sha256"]
+                                   for t in turns if t["tree"] == name})
+                     for name in trees} for scene in confs}
+    equal = {scene: len({d for ds in by.values() for d in ds}) == 1
+             for scene, by in films.items()}
+    lines.append(json.dumps({"medians": summary, "solution_sha256": films,
+                             "films_equal": equal}))
     print(lines[-1], flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -352,7 +526,7 @@ def main(argv=None) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--kernels"]:
-        print(json.dumps(_kernel_times(sys.argv[2], sys.argv[3])))
+        print(json.dumps(_kernel_times(*sys.argv[2:6])))
     elif sys.argv[1:2] == ["--solve-twice"]:
         print(json.dumps(_solve_twice(sys.argv[2] if sys.argv[2:] else None)))
     else:
