@@ -36,7 +36,12 @@ and never prints its last line:
    table) through ``grid_closest_point``, whose launches are K12's path,
    held to K13's distances (equal on untruncated rows, at most K13's on
    truncated ones); K9-2D on the lanes of the lobed scene in a wavy
-   Neumann box of 8,192 segments after a few depth steps.
+   Neumann box of 8,192 segments after a few depth steps, with the walks'
+   live mask as ``_separate`` passes it, without a mask, on every lane, on
+   none and on lane N - 1 alone, bit-equal to its plain version; and each
+   of its forms (1, 2, 4, 8 or 32 lanes a warp; loads of a slot of a
+   plane, a slot's float2 pair from a re-laid table, or four slots of a
+   plane) timed on every lane and on the live lanes, each bit-equal.
 3. The mixed Dirichlet/Neumann square, u = (x + 1) / 2, through
    ``UniformIntegrator``: 256 walks of depth 64 at three points (64 lanes
    a point, 4 samples), each point within 0.07 of u.
@@ -79,8 +84,12 @@ and never prints its last line:
    exact; K11: the frame's 65,536 plane points through
    ``grid_row_index``); K6 on that step's live lanes and star radii from
    ``_separate``, with its skip (the share of lanes it took printed) and
-   without; K6-K8 also at radii 0.05-1, which reach the blob, and K6 there
-   on the table padded to 128 slots (its instantiation for wide rows).
+   without; K7 with its skip (reach tmax + eps) on the step's live lanes,
+   without a mask, on every lane, on none and on lane N - 1 alone (slots
+   exact, t within TOL), and equal bit for bit to the unskipped kernel on
+   those lanes; K6-K8 also at radii 0.05-1, which reach the blob, and K6
+   there on the table padded to 128 slots (its instantiation for wide
+   rows).
 5b. The fused depth step (K6) against the unfused one (K8 + K7) on
    neumann3d's lanes, 3 steps with the same generators, held to
    ``tests/test_fused_band.py``'s lane thresholds.
@@ -117,6 +126,10 @@ and never prints its last line:
    K6) and fused, 8 spp each: both walk-steps/s printed, K8 must launch,
    and the two means agree within 4 combined standard errors on >= 99%
    of the pixels.
+8d. One depth step each of lobed_u, neumann3d_u, neumann3d_u with a
+   source and wavy8192_u (1 spp, after one step outside the probe) under
+   ``torch.cuda.set_sync_debug_mode("error")``: the phase fails where a
+   step makes the host wait for the device.
 
 Each phase ends with a line of its wall seconds (``[4d]: 3.2 s wall``),
 and ``[9]`` gives the whole run's.  The lines before the last hold the card's name and power limit and one
@@ -846,32 +859,68 @@ def phase_kernels_2c(conf_2d: str, conf_wavy: str, device,
     log(f"    wavy box of 8,192 segments loaded in {time.time() - t0:.1f} s: "
         f"{problem.stats['neumann_sil_grid']}; "
         f"{problem.stats['neumann_band_grid']}")
-    sg = problem.scene.n_sgrid
     state = warm_state(problem, integ, WARM_STEPS)
+    check_sil_band_2d(problem.scene.n_sgrid, state, kernels)
+    return launches
+
+
+def lane_masks(live):
+    """The masks a lane-masked kernel is held to its plain version on: the
+    step's live lanes, every lane, no lane and lane N - 1 alone."""
+    import torch
+
+    last = torch.zeros_like(live)
+    last[-1] = True
+    return (("the step's live lanes", live),
+            ("every lane", torch.ones_like(live)),
+            ("no lane", torch.zeros_like(live)), ("lane N - 1 alone", last))
+
+
+def check_sil_band_2d(sg, state, kernels: Kernels) -> None:
+    """K9-2D as ``_separate`` calls it (the walks' live mask) on
+    wavy8192_u's lanes, bit-equal to its plain version on every mask of
+    ``lane_masks`` and without a mask; timed on the live lanes and on
+    every lane."""
+    import torch
+
+    from elaina_tpu_torch.geometry import queries as Q
+    from elaina_tpu_torch.ops import queries as QK
+    from elaina_tpu_torch.utils.timing import device_ms
+
     lin, outside = Q.band_cell(sg, state.pos)
     cell = torch.where(outside, -1, lin).to(torch.int32)
     q2 = state.pos.contiguous()
-    d2 = QK.sil_band_2d(cell, q2, sg.coords)
-    d2_p = QK.sil_band_2d_plain(cell, q2, sg.coords)
-    fin = torch.isfinite(d2_p)
-    if not torch.equal(torch.isfinite(d2), fin):
-        raise RuntimeError("sil_band_2d: found / none differ")
-    err = float((d2[fin] - d2_p[fin]).abs().max())
-    if not torch.allclose(d2[fin], d2_p[fin], rtol=TOL, atol=0.0):
-        raise RuntimeError(f"sil_band_2d differs: {err}")
+    live = state.active.contiguous()
     n2 = cell.shape[0]
+    for label, m in (("no mask", None), *lane_masks(live)):
+        d2 = QK.sil_band_2d(cell, q2, sg.coords, m)
+        d2_p = QK.sil_band_2d_plain(cell, q2, sg.coords, m)
+        if not torch.equal(d2, d2_p):
+            raise RuntimeError(f"sil_band_2d differs from its plain version "
+                               f"({label}): {int((d2 != d2_p).sum())} lanes")
+        n_m = n2 if m is None else int(m.sum())
+        log(f"    sil_band_2d, {label} ({n_m} of {n2}): bit-equal, "
+            f"{int((d2 < 1e17).sum())} with a silhouette in their row")
+    all_ms = device_ms(lambda: QK.sil_band_2d(cell, q2, sg.coords))[0]
+    log(f"    sil_band_2d, every lane: device {all_ms:.4f} ms "
+        f"({kernels.card})")
     n_in = int((cell >= 0).sum())
+    work = live & (cell >= 0)
+    n_work = int(work.sum())
     sKp = sg.coords.shape[2]
-    log(f"    sil_band_2d: {n_in} of {n2} lanes in the grid "
-        f"({int(state.active.sum())} live), {int((d2 < 1e17).sum())} with a "
-        f"silhouette in their row")
-    kernels.add("sil_band_2d", err, lambda: QK.sil_band_2d(cell, q2, sg.coords),
-                lambda: QK.sil_band_2d_plain(cell, q2, sg.coords), None,
-                n2 * (4 + 8 + 4) + n_unique(cell[cell >= 0]) * 6 * sKp * 4,
-                12.0 * n_in * sKp,
-                f"wavy8192_u after {WARM_STEPS} steps: {n2} lanes, {n_in} in "
-                f"the grid, Kp = {sKp}")
-    return launches
+    row_bytes = 6 * sKp * 4
+    all_bound, _ = bound(n2 * (4 + 8 + 4)
+                         + n_unique(cell[cell >= 0]) * row_bytes,
+                         12.0 * n_in * sKp)
+    kernels.add("sil_band_2d", 0.0,
+                lambda: QK.sil_band_2d(cell, q2, sg.coords, live),
+                lambda: QK.sil_band_2d_plain(cell, q2, sg.coords, live), None,
+                n2 * (1 + 4) + int(live.sum()) * 4 + n_work * 8
+                + n_unique(cell[work]) * row_bytes, 12.0 * n_work * sKp,
+                f"wavy8192_u after {WARM_STEPS} steps, the walks' live mask: "
+                f"{n2} lanes, {n_in} in the grid, {n_work} of them live, Kp = "
+                f"{sKp}", all_lanes_device_ms=all_ms,
+                all_lanes_bound_ms=all_bound)
 
 
 def square_side(sides, n_per_side=6):
@@ -1470,32 +1519,39 @@ def phase_kernels_3d(conf_path: str, device, kernels: Kernels) -> None:
                 all_lanes_bound_ms=all_bound)
 
     # K7: the walk ray alone, from the eps-offset origin in pos's cell, as
-    # the unfused step and the source term call it
+    # the unfused step and the source term call it (the step's live lanes,
+    # the skip with reach tmax + eps)
     current = (state.pos + torch.where(state.on_neumann[:, None],
                                        eps * state.n_normal, 0.0)).contiguous()
-    d_c = direction.contiguous()
-    err = 0.0
-    for label, radii in (("star radii", R_B), ("radii 0.05-1", wide)):
-        rargs = (cell, current, d_c, radii.contiguous(), bg.coords)
-        t, slot = QK.band_ray(*rargs)
-        t_p, slot_p = QK.band_ray_plain(*rargs)
-        hit = torch.isfinite(t_p)
-        if not (torch.equal(torch.isfinite(t), hit)
-                and torch.equal(slot, slot_p)):
-            raise RuntimeError(f"band_ray: hits or slots differ ({label})")
-        e = float((t[hit] - t_p[hit]).abs().max()) if hit.any() else 0.0
-        if not torch.allclose(t[hit], t_p[hit], rtol=TOL, atol=0.0):
-            raise RuntimeError(f"band_ray t differs: {e}")
-        err = max(err, e)
-        log(f"    band_ray, {label}: {int(hit.sum())} hits of {n_in} lanes "
-            f"in the grid")
-    rargs = (cell, current, d_c, R_B.contiguous(), bg.coords)
+    err = check_band_ray(cell, current, direction.contiguous(), R_B, wide,
+                         live, eps, bg)
+    rargs = (cell, current, direction.contiguous(), R_B.contiguous(),
+             bg.coords, bg.skip_r, live, eps)
+    noskip = rargs[:5]
+    work = QK.ray_work(cell, R_B, eps, bg.skip_r, live)
+    n_work = int(work.sum())
+    ns_ms = cuda_ms(lambda: QK.band_ray(*noskip))
+    ns_dev = device_ms(lambda: QK.band_ray(*noskip))[0]
+    # every lane reads cell, live, tmax and its cell's skip_r and writes t
+    # and slot; only a lane with band work reads o, d and its cell's
+    # corners (the every-lane bound: o, d and the corners of every lane)
+    corner_bytes = 9 * bKp * 4
+    ray_bound, _ = bound(n * (4 + 1 + 4 + 4 + 4) + cells * 4
+                         + n_in * 24 + cells * corner_bytes,
+                         45.0 * n_in * bKp)
+    log(f"    band_ray without the skip: {ns_ms:.4f} ms (device "
+        f"{ns_dev:.4f} ms); the skip took {1.0 - n_work / n:.4f} of the "
+        f"{n} lanes (band work on {n_work}); the bound of every lane in "
+        f"the grid {ray_bound:.4f} ms ({kernels.card})")
     kernels.add("band_ray", err, lambda: QK.band_ray(*rargs),
                 lambda: QK.band_ray_plain(*rargs), None,
-                n * (4 + 12 + 12 + 4 + 4 + 4) + cells * 9 * bKp * 4,
-                45.0 * n_in * bKp,
-                f"neumann3d_u after {WARM_STEPS} steps, star radii: {n} "
-                f"lanes, {n_in} in the grid, Kp = {bKp}")
+                n * (4 + 1 + 4 + 4 + 4) + n_unique(cell[inn & live]) * 4
+                + n_work * 24 + n_unique(cell[work]) * corner_bytes,
+                45.0 * n_work * bKp,
+                f"neumann3d_u after {WARM_STEPS} steps, star radii, the "
+                f"step's live lanes: {n} lanes, {n_in} in the grid, band "
+                f"work on {n_work}, Kp = {bKp}", noskip_ms=ns_ms,
+                noskip_device_ms=ns_dev, all_lanes_bound_ms=ray_bound)
 
     # K8: the in-ball CDF sample alone, as the unfused step calls it
     err = 0.0
@@ -1534,6 +1590,47 @@ def phase_kernels_3d(conf_path: str, device, kernels: Kernels) -> None:
                     kernels, "neumann3d's 256^2 plane points")
     phase_fused_vs_unfused(scene, integ, eps)
     phase_skip_step(scene, state, eps)
+
+
+def check_band_ray(cell, o, d, R_B, wide, live, eps: float, bg) -> float:
+    """K7 against its plain version with the skip (reach tmax + eps) on
+    every mask of ``lane_masks`` and without a mask, at the star radii
+    and at radii 0.05-1: slots exact, t within TOL; and the skipped
+    kernel against the unskipped one, bit for bit on the live lanes.
+    Returns the largest t difference from the plain version."""
+    import torch
+
+    from elaina_tpu_torch.ops import queries as QK
+
+    err = 0.0
+    inn = cell >= 0
+    for rlabel, radii in (("star radii", R_B), ("radii 0.05-1", wide)):
+        radii = radii.contiguous()
+        t0, s0 = QK.band_ray(cell, o, d, radii, bg.coords)
+        for label, m in (("no mask", None), *lane_masks(live)):
+            args = (cell, o, d, radii, bg.coords, bg.skip_r, m, eps)
+            t, slot = QK.band_ray(*args)
+            t_p, slot_p = QK.band_ray_plain(*args)
+            hit = torch.isfinite(t_p)
+            if not (torch.equal(torch.isfinite(t), hit)
+                    and torch.equal(slot, slot_p)):
+                raise RuntimeError(f"band_ray: hits or slots differ "
+                                   f"({rlabel}, {label})")
+            e = float((t[hit] - t_p[hit]).abs().max()) if hit.any() else 0.0
+            if not torch.allclose(t[hit], t_p[hit], rtol=TOL, atol=0.0):
+                raise RuntimeError(f"band_ray t differs: {e}")
+            err = max(err, e)
+            on = torch.ones_like(live) if m is None else m
+            if not (torch.equal(t[on], t0[on])
+                    and torch.equal(slot[on], s0[on])):
+                raise RuntimeError(f"band_ray: the skip changed a live lane "
+                                   f"({rlabel}, {label})")
+            work = QK.ray_work(cell, radii, eps, bg.skip_r, m)
+            log(f"    band_ray, {rlabel}, {label}: {int(hit.sum())} hits, "
+                f"band work on {int(work.sum())} of {int((inn & on).sum())} "
+                f"live lanes in the grid; equal to the plain version (slots "
+                f"exact) and, on those lanes, to the unskipped kernel")
+    return err
 
 
 def phase_skip_step(scene, state, eps: float) -> None:
@@ -1781,6 +1878,43 @@ def phase_unfused_3d(conf_path: str, card: str) -> dict:
     return lu
 
 
+def phase_syncs(paths: dict, device) -> None:
+    """[8d] One depth step of each main path under
+    ``torch.cuda.set_sync_debug_mode("error")``, after one step outside it
+    (the kernel libraries loaded, the FinePack baked): a step that makes
+    the host wait for the device raises there, and the phase fails with
+    the port's frames of the stack."""
+    import traceback
+
+    import torch
+
+    from elaina_tpu_torch.solver.wost import wost_depth_step
+    from elaina_tpu_torch.utils.ab import load_integrator, warm_state
+    from elaina_tpu_torch.utils.rng import sample_generators
+
+    for label, conf in paths.items():
+        problem, integ = load_integrator(conf, device, 1)
+        state = warm_state(problem, integ, 1)
+        gens = sample_generators(0, 1, device)
+        eps = float(integ.settings.epsilonShell)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            wost_depth_step(problem.scene, state, gens, eps)
+        except RuntimeError as e:
+            where = [f"{os.path.relpath(f.filename)}:{f.lineno} {f.line}"
+                     for f in traceback.extract_tb(e.__traceback__)
+                     if "elaina_tpu_torch" in f.filename]
+            raise RuntimeError(f"{label}: the depth step waits for the "
+                               f"device at {where}: {e}") from None
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        log(f"[8d] {label}: one depth step of {state.pos.shape[0]} lanes "
+            f"({int(state.active.sum())} live) without a host sync")
+        del problem, integ, state
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -1807,6 +1941,9 @@ def main() -> int:
         conf_wavy = scenes.write_scene(wavy, WAVY_SPP, neumann_segments=8192)
         conf_3d = scenes.write_config_copy(root, "neumann3d_u", SPP_3D)
         conf_bumpy = scenes.write_config_copy(root, "bumpy3d_u", SPP_3D)
+        syncs = os.path.join(root, "syncs")
+        os.makedirs(syncs)
+        source_conf = scenes.write_neumann3d_source(syncs, 1)
         for label, key, fn, args in (
                 ("[2]", None, phase_kernels, (conf_2d, device, kernels)),
                 ("[2c]", "bare_grid", phase_kernels_2c,
@@ -1825,7 +1962,11 @@ def main() -> int:
                 ("[8]", "neumann3d_u", phase_main_3d, (conf_3d, card)),
                 ("[8b]", "neumann3d_source", phase_source_3d, (root, card)),
                 ("[8c]", "neumann3d_unfused", phase_unfused_3d,
-                 (conf_3d, card))):
+                 (conf_3d, card)),
+                ("[8d]", None, phase_syncs,
+                 ({"lobed_u": conf_2d, "neumann3d_u": conf_3d,
+                   "neumann3d_source": source_conf,
+                   "wavy8192_u": conf_wavy}, device))):
             out = timed_phase(label, fn, *args)
             if key is not None:
                 runs[key] = out

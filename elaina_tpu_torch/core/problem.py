@@ -75,18 +75,21 @@ class SourceGrid:
     data: torch.Tensor
     origin: torch.Tensor     # (D,) world position of voxel (0, ..., 0)
     inv_voxel: torch.Tensor  # (D,) 1 / voxel size
+    hi: torch.Tensor         # (D,) int64 voxel counts - 1: the clamp
+    corners: torch.Tensor    # (2^D, D) int64 the cell's corner offsets
 
     def sample(self, p: torch.Tensor) -> torch.Tensor:
-        """Values (N, 3) at world points p (N, D)."""
+        """Values (N, 3) at world points p (N, D).  The clamp and the
+        corner offsets are the grid's own device tensors, so a depth step
+        copies nothing from the host here (and never waits for the
+        device)."""
         dim = p.shape[-1]
         idx_f = (p - self.origin) * self.inv_voxel
         i0 = torch.floor(idx_f).to(torch.int64)
         frac = idx_f - i0.to(idx_f.dtype)
-        hi = torch.tensor(self.data.shape[:dim], device=p.device) - 1
         out = 0.0
-        for corner in itertools.product((0, 1), repeat=dim):
-            ii = torch.minimum(
-                (i0 + torch.tensor(corner, device=p.device)).clamp(min=0), hi)
+        for k, corner in enumerate(itertools.product((0, 1), repeat=dim)):
+            ii = torch.minimum((i0 + self.corners[k]).clamp(min=0), self.hi)
             w = torch.ones(p.shape[:-1], dtype=self.data.dtype,
                            device=p.device)
             for d in range(dim):
@@ -97,13 +100,18 @@ class SourceGrid:
 
 def source_from_numpy(data, origin, voxel, device) -> SourceGrid:
     data = np.asarray(data, np.float32)
+    dim = data.ndim - 1
     return SourceGrid(
         data=torch.as_tensor(np.require(data, requirements=("C", "W")),
                              device=device),
         origin=torch.as_tensor(np.asarray(origin, np.float32), device=device),
         inv_voxel=torch.as_tensor(
             (1.0 / np.asarray(voxel, np.float32)).astype(np.float32),
-            device=device))
+            device=device),
+        hi=torch.as_tensor(np.asarray(data.shape[:dim], np.int64) - 1,
+                           device=device),
+        corners=torch.as_tensor(np.asarray(list(itertools.product(
+            (0, 1), repeat=dim)), np.int64), device=device))
 
 
 def load_source(path: str, dim: int, device) -> SourceGrid:

@@ -6,7 +6,7 @@
 //   K6 band_neumann_walk_dma_3d (pallas_queries.py:1043, kernel
 //      _make_band_neumann_walk_kernel_3d :862)   -> band_neumann_walk_kernel
 //   K9 sil_band_dma (pallas_queries.py:622, kernel :563; 3D and 2D)
-//                                                -> sil_band_kernel<3 | 2>
+//                                -> sil_band_kernel (3D), sil_band_2d_kernel
 //
 // the two unfused prim-band queries, which the volumetric source term and
 // the unfused Neumann step run:
@@ -36,7 +36,9 @@
 // strides over the Kp slots of the lane's cell, whose table is planes by
 // slot, so each load instruction of the warp reads 128 contiguous bytes
 // (K13, which reads one shared set, is one thread for a few lanes
-// instead).  Lanes with cell < 0 (outside the grid) do no work.  Each
+// instead; K9-2D serves several lanes a warp; K6 and K7 test several
+// lanes a warp and sweep only those with band work).  Lanes with cell < 0
+// (outside the grid) do no work.  Each
 // launch function enqueues on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
 // Built with -fmad=false, as resolve.cu: the plain PyTorch versions write
@@ -270,21 +272,19 @@ __device__ __forceinline__ void closest_hit(const float* base, int Kp,
 
 // --------------------------------------------------------------------------
 // K9: squared distance to the nearest silhouette entity of the lane's
-// SilGrid cell.  3D: entity planes (C, 12, Kp) = p0 | p1 | n1 | n2 (x, y,
-// z each), the edge distance: 48 bytes per slot, 3 KB per lane at K = 64,
-// ~40 flops per slot.  2D: (C, 6, Kp) = p0 | n1 | n2 (x, y each), the
-// vertex distance: 24 bytes per slot, 1.5 KB per lane, ~10 flops per slot.
-// Both bound by the loads.  An entity counts when s1 * s2 <= 0 (n1 = 0
-// for "always" entities); padded slots pass with d^2 ~ 1e18, which the
-// caller maps to "none".  Lanes with cell < 0 get +inf.
+// SilGrid cell.  An entity counts when s1 * s2 <= 0 (n1 = 0 for "always"
+// entities); padded slots pass with d^2 ~ 1e18, which the caller maps to
+// "none".  Lanes with cell < 0 get +inf.
+//
+// 3D: entity planes (C, 12, Kp) = p0 | p1 | n1 | n2 (x, y, z each), the
+// edge distance: 48 bytes per slot, 3 KB per lane at K = 64, ~40 flops
+// per slot; bound by the loads.  One warp a lane.
 // --------------------------------------------------------------------------
 
-template <int DIM>
 __global__ void sil_band_kernel(const int32_t* __restrict__ cell,
                                 const float* __restrict__ q,
                                 const float* __restrict__ coords, int64_t n,
                                 int32_t Kp, float* __restrict__ d2_out) {
-  constexpr int NP = DIM == 3 ? 12 : 6;
   const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (i >= n) return;
@@ -293,43 +293,111 @@ __global__ void sil_band_kernel(const int32_t* __restrict__ cell,
     if (lane == 0) d2_out[i] = inf_f();
     return;
   }
-  float qv[DIM];
+  float qv[3];
 #pragma unroll
-  for (int d = 0; d < DIM; ++d) qv[d] = q[DIM * i + d];
-  const float* base = coords + c * NP * Kp;
+  for (int d = 0; d < 3; ++d) qv[d] = q[3 * i + d];
+  const float* base = coords + c * 12 * Kp;
   float best = inf_f();
   for (int k = lane; k < Kp; k += 32) {
-    float d2, s1, s2;
-    if constexpr (DIM == 3) {
-      float p0[3], e[3], w[3], v[3], n1[3], n2[3];
+    float p0[3], e[3], w[3], v[3], n1[3], n2[3];
 #pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        p0[d] = base[d * Kp + k];
-        e[d] = base[(3 + d) * Kp + k] - p0[d];
-        w[d] = qv[d] - p0[d];
-        n1[d] = base[(6 + d) * Kp + k];
-        n2[d] = base[(9 + d) * Kp + k];
-      }
-      const float den = fmaxf(dot3(e, e), 1e-30f);
-      const float t = fminf(fmaxf(dot3(w, e) / den, 0.f), 1.f);
-#pragma unroll
-      for (int d = 0; d < 3; ++d) v[d] = w[d] - t * e[d];
-      d2 = dot3(v, v);
-      s1 = dot3(n1, v);
-      s2 = dot3(n2, v);
-    } else {
-      const float vx = qv[0] - base[k];
-      const float vy = qv[1] - base[Kp + k];
-      d2 = vx * vx + vy * vy;
-      s1 = base[2 * Kp + k] * vx + base[3 * Kp + k] * vy;
-      s2 = base[4 * Kp + k] * vx + base[5 * Kp + k] * vy;
+    for (int d = 0; d < 3; ++d) {
+      p0[d] = base[d * Kp + k];
+      e[d] = base[(3 + d) * Kp + k] - p0[d];
+      w[d] = qv[d] - p0[d];
+      n1[d] = base[(6 + d) * Kp + k];
+      n2[d] = base[(9 + d) * Kp + k];
     }
+    const float den = fmaxf(dot3(e, e), 1e-30f);
+    const float t = fminf(fmaxf(dot3(w, e) / den, 0.f), 1.f);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) v[d] = w[d] - t * e[d];
+    const float d2 = dot3(v, v);
+    const float s1 = dot3(n1, v);
+    const float s2 = dot3(n2, v);
     if (s1 * s2 <= 0.f && d2 < best) best = d2;
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     best = fminf(best, __shfl_xor_sync(FULL, best, o));
   if (lane == 0) d2_out[i] = best;
+}
+
+// --------------------------------------------------------------------------
+// K9, 2D: the vertex distance over the lane's cell of a 2D SilGrid, 24
+// bytes and ~10 flops per slot, 1.5 KB per lane at K = 64.  The table is
+// planes by slot, (C, 6, Kp) = p0 | n1 | n2 (x, y each).
+//
+// What bounds it: on the 2D paths every lane of a 1024^2 frame queries
+// it each step, and neighbouring lanes share cells, so the rows come from
+// L1 and L2 (1.5 GB a call at wavy8192_u's 1,048,576 lanes against ~61 MB
+// of distinct rows).  One warp a lane left each warp one lane's chain of
+// dependent loads with little in flight.  So a warp serves SIL_2D_G = 8
+// lanes: 4 threads a lane, each reading four consecutive slots of a plane
+// in one 16-byte load (a lane's 4 threads read 64 bytes of a plane, so
+// each of its six loads touches one line a lane), and a 2-step shuffle
+// tree within the lane's threads.  Each of a lane's threads reads its
+// live bit, cell and point (the same words, so one transaction).
+// ``live`` (n,) (null: every lane) takes a dead walk out before it reads
+// its cell: it gets +inf, as a lane outside the grid.  fminf is exact and
+// commutative, so the split over threads changes no bit: d^2 is the plain
+// version's.  This form was chosen by trial on the card against 1, 2, 4
+// and 32 lanes a warp, each with one slot a load and with (x, y) pairs a
+// load (every form's time in PERF.md): it and the wide-load forms at 2 and
+// 4 lanes a warp ran at 0.15-0.18 ms, near the L2's rate for the rows'
+// 1.5 GB; one slot a load at 4 or more lanes a warp, and any form at one
+// thread a lane, ran 1.7x to 8.2x slower.
+// --------------------------------------------------------------------------
+
+constexpr int SIL_2D_G = 8;  // lanes a warp
+
+__device__ __forceinline__ void sil_slot_2d(float qx, float qy, float px,
+                                            float py, float ax, float ay,
+                                            float bx, float by,
+                                            float* best) {
+  const float vx = qx - px;
+  const float vy = qy - py;
+  const float d2 = vx * vx + vy * vy;
+  const float s1 = ax * vx + ay * vy;
+  const float s2 = bx * vx + by * vy;
+  if (s1 * s2 <= 0.f && d2 < *best) *best = d2;
+}
+
+__global__ void __launch_bounds__(THREADS) sil_band_2d_kernel(
+    const int32_t* __restrict__ cell, const float* __restrict__ q,
+    const float* __restrict__ coords, const uint8_t* __restrict__ live,
+    int64_t n, int32_t Kp, float* __restrict__ d2_out) {
+  constexpr int T = 32 / SIL_2D_G;           // threads a lane
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / T;
+  const int j = threadIdx.x % T;
+  float best = inf_f();
+  if (i < n && (live == nullptr || live[i])) {
+    const int64_t c = cell[i];
+    if (c >= 0) {
+      const float qx = q[2 * i];
+      const float qy = q[2 * i + 1];
+      const float* base = coords + c * 6 * Kp;
+#pragma unroll 2
+      for (int k = 4 * j; k < Kp; k += 4 * T) {
+        float4 p[6];
+#pragma unroll
+        for (int g = 0; g < 6; ++g)
+          p[g] = *reinterpret_cast<const float4*>(base + g * Kp + k);
+        sil_slot_2d(qx, qy, p[0].x, p[1].x, p[2].x, p[3].x, p[4].x, p[5].x,
+                    &best);
+        sil_slot_2d(qx, qy, p[0].y, p[1].y, p[2].y, p[3].y, p[4].y, p[5].y,
+                    &best);
+        sil_slot_2d(qx, qy, p[0].z, p[1].z, p[2].z, p[3].z, p[4].z, p[5].z,
+                    &best);
+        sil_slot_2d(qx, qy, p[0].w, p[1].w, p[2].w, p[3].w, p[4].w, p[5].w,
+                    &best);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = T / 2; o > 0; o >>= 1)
+    best = fminf(best, __shfl_xor_sync(FULL, best, o));
+  if (j == 0 && i < n) d2_out[i] = best;
 }
 
 // --------------------------------------------------------------------------
@@ -361,9 +429,9 @@ __global__ void sil_band_kernel(const int32_t* __restrict__ cell,
 // reads (slot, w_sel, total, walk_hit, walk_t, walk_n) is then what the
 // kernel without the skip gives; occluded, sample_pt, side and plane_n of
 // a lane without a selection differ (the visibility ray toward the PAD
-// corners is not traced), and the step masks them.  A warp tests G lanes
-// at once and runs the band work of those that need it one after the
-// other (G = 4 was chosen by trial on the card among 1, 4, 8 and 32):
+// corners is not traced), and the step masks them.  A warp tests BAND_G
+// lanes at once and runs the band work of those that need it one after
+// the other (G = 4 was chosen by trial on the card among 1, 4, 8 and 32):
 // each lane's Kp x 9 corners are read once, into registers
 // (MAXR rounds of 32 slots: 18 floats a thread at Kp = 64, 72 at Kp =
 // 256), and the CDF, the visibility ray and the walk ray run from there;
@@ -371,7 +439,7 @@ __global__ void sil_band_kernel(const int32_t* __restrict__ cell,
 // thread that holds them.
 // --------------------------------------------------------------------------
 
-constexpr int K6_G = 4;                     // lanes a warp tests at once
+constexpr int BAND_G = 4;           // lanes a warp tests at once (K6, K7)
 
 // The select-and-shuffle of slot ``slot``'s corners (slot < 32 * MAXR)
 // from the thread that holds them, to every thread of the warp.
@@ -531,10 +599,10 @@ __global__ void __launch_bounds__(THREADS) band_neumann_walk_kernel(
     int64_t n, int32_t Kp, float* __restrict__ out,
     int32_t* __restrict__ slot_out) {
   const int64_t first =
-      (((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5) * K6_G;
+      (((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5) * BAND_G;
   const int lane = threadIdx.x & 31;
   bool work = false;
-  if (lane < K6_G && first + lane < n) {
+  if (lane < BAND_G && first + lane < n) {
     const int64_t i = first + lane;
     const int64_t c = cell[i];
     work = c >= 0 && (live == nullptr || live[i]);
@@ -556,36 +624,58 @@ __global__ void __launch_bounds__(THREADS) band_neumann_walk_kernel(
 // --------------------------------------------------------------------------
 // K7: the closest hit of each lane's ray o + t d, t in (1e-6, tmax], over
 // its prim-band cell (K6's walk ray alone): 36 bytes per slot of each
-// distinct cell, ~45 flops per slot; bound by the loads.  t (n,) is +inf
-// and slot (n,) is Kp on a miss and on lanes with cell < 0.
+// distinct cell, ~45 flops per slot.  t (n,) is +inf and slot (n,) is Kp
+// on a miss, on lanes with cell < 0, and on the lanes it skips.
+//
+// Bound: at neumann3d_u's star radii no lane's ray reaches a prim of its
+// row (the radii stay below the blob's band lbound), so a sweep of every
+// slot of every lane finds nothing.  So, as K6, a lane first takes the
+// skip test: a lane that is not live (``live``, when given), outside the
+// grid, or whose reach tmax + offset lies below its cell's ``skip_r``
+// (when given) writes the outputs of a miss without reading a corner.
+// ``offset`` bounds |o - ref|, ref the point whose cell the caller passed
+// (the eps of an offset origin): every point of the ray then lies within
+// tmax + offset of a point of the cell, and skip_r is the cell's lbound
+// less a float margin (geometry/grid.band_skip_radius), so a skipped lane
+// has no hit, which is what the sweep gives it.  A warp tests BAND_G lanes
+// at once and sweeps those with band work one after the other, each
+// slot's corners read once (closest_hit, K6's walk ray in slot order).
 // --------------------------------------------------------------------------
 
-__global__ void band_ray_kernel(const int32_t* __restrict__ cell,
-                                const float* __restrict__ o,
-                                const float* __restrict__ d,
-                                const float* __restrict__ tmax,
-                                const float* __restrict__ coords, int64_t n,
-                                int32_t Kp, float* __restrict__ t_out,
-                                int32_t* __restrict__ slot_out) {
-  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+__global__ void __launch_bounds__(THREADS) band_ray_kernel(
+    const int32_t* __restrict__ cell, const float* __restrict__ o,
+    const float* __restrict__ d, const float* __restrict__ tmax,
+    const float* __restrict__ coords, const float* __restrict__ skip_r,
+    const uint8_t* __restrict__ live, float offset, int64_t n, int32_t Kp,
+    float* __restrict__ t_out, int32_t* __restrict__ slot_out) {
+  const int64_t first =
+      (((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5) * BAND_G;
   const int lane = threadIdx.x & 31;
-  if (i >= n) return;
-  const int64_t c = cell[i];
-  if (c < 0) {
-    if (lane == 0) {
+  bool work = false;
+  if (lane < BAND_G && first + lane < n) {
+    const int64_t i = first + lane;
+    if (live == nullptr || live[i]) {
+      const int64_t c = cell[i];
+      work = c >= 0;
+      if (work && skip_r != nullptr) work = !(tmax[i] + offset < skip_r[c]);
+    }
+    if (!work) {
       t_out[i] = inf_f();
       slot_out[i] = Kp;
     }
-    return;
   }
-  const float ov[3] = {o[3 * i], o[3 * i + 1], o[3 * i + 2]};
-  const float dv[3] = {d[3 * i], d[3 * i + 1], d[3 * i + 2]};
-  float t;
-  int slot;
-  closest_hit(coords + c * 9 * Kp, Kp, ov, dv, tmax[i], lane, &t, &slot);
-  if (lane == 0) {
-    t_out[i] = t;
-    slot_out[i] = slot;
+  for (unsigned todo = __ballot_sync(FULL, work); todo; todo &= todo - 1) {
+    const int64_t i = first + __ffs(todo) - 1;
+    const float ov[3] = {o[3 * i], o[3 * i + 1], o[3 * i + 2]};
+    const float dv[3] = {d[3 * i], d[3 * i + 1], d[3 * i + 2]};
+    float t;
+    int slot;
+    closest_hit(coords + (int64_t)cell[i] * 9 * Kp, Kp, ov, dv, tmax[i],
+                lane, &t, &slot);
+    if (lane == 0) {
+      t_out[i] = t;
+      slot_out[i] = slot;
+    }
   }
 }
 
@@ -861,17 +951,6 @@ __global__ void candidate_band_kernel(const float* __restrict__ q,
   }
 }
 
-template <int DIM>
-int sil_band_dim(const void* cell, const void* q, const void* coords,
-                 int64_t n, int32_t Kp, void* d2, void* stream) {
-  if (n == 0) return 0;
-  const int64_t blocks = (n + THREADS / 32 - 1) / (THREADS / 32);
-  sil_band_kernel<DIM><<<(unsigned)blocks, THREADS, 0,
-                         (cudaStream_t)stream>>>(
-      (const int32_t*)cell, (const float*)q, (const float*)coords, n, Kp,
-      (float*)d2);
-  return (int)cudaGetLastError();
-}
 
 }  // namespace
 
@@ -880,13 +959,25 @@ extern "C" {
 // K9, 3D: coords (C, 12, Kp)
 int sil_band_launch(const void* cell, const void* q, const void* coords,
                     int64_t n, int32_t Kp, void* d2, void* stream) {
-  return sil_band_dim<3>(cell, q, coords, n, Kp, d2, stream);
+  if (n == 0) return 0;
+  const int64_t blocks = (n + THREADS / 32 - 1) / (THREADS / 32);
+  sil_band_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)cell, (const float*)q, (const float*)coords, n, Kp,
+      (float*)d2);
+  return (int)cudaGetLastError();
 }
 
-// K9, 2D: coords (C, 6, Kp)
+// K9, 2D: coords (C, 6, Kp) planes, Kp a multiple of 4 and the table on
+// 16 bytes; live may be null.
 int sil_band_2d_launch(const void* cell, const void* q, const void* coords,
-                       int64_t n, int32_t Kp, void* d2, void* stream) {
-  return sil_band_dim<2>(cell, q, coords, n, Kp, d2, stream);
+                       const void* live, int64_t n, int32_t Kp, void* d2,
+                       void* stream) {
+  if (n == 0) return 0;
+  const int64_t blocks = (n * (32 / SIL_2D_G) + THREADS - 1) / THREADS;
+  sil_band_2d_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)cell, (const float*)q, (const float*)coords,
+      (const uint8_t*)live, n, Kp, (float*)d2);
+  return (int)cudaGetLastError();
 }
 
 // active, lanes and cnt are all null (every lane) or all given (the
@@ -940,7 +1031,7 @@ int band_neumann_walk_launch(const void* cell, const void* q, const void* R,
                              void* stream) {
   if (n == 0) return 0;
   if (Kp > 32 * MAX_ROUNDS || Kp % 32) return (int)cudaErrorInvalidValue;
-  const int64_t warps = (n + K6_G - 1) / K6_G;
+  const int64_t warps = (n + BAND_G - 1) / BAND_G;
   const int64_t blocks = (warps + THREADS / 32 - 1) / (THREADS / 32);
   auto kernel = Kp <= 64 ? band_neumann_walk_kernel<2>
                          : band_neumann_walk_kernel<MAX_ROUNDS>;
@@ -953,15 +1044,18 @@ int band_neumann_walk_launch(const void* cell, const void* q, const void* R,
   return (int)cudaGetLastError();
 }
 
+// skip_r (C,) and live (n,) may be null: no reach test, every lane live.
 int band_ray_launch(const void* cell, const void* o, const void* d,
-                    const void* tmax, const void* coords, int64_t n,
-                    int32_t Kp, void* t, void* slot, void* stream) {
+                    const void* tmax, const void* coords, const void* skip_r,
+                    const void* live, float offset, int64_t n, int32_t Kp,
+                    void* t, void* slot, void* stream) {
   if (n == 0) return 0;
-  const int64_t blocks = (n + THREADS / 32 - 1) / (THREADS / 32);
+  const int64_t warps = (n + BAND_G - 1) / BAND_G;
+  const int64_t blocks = (warps + THREADS / 32 - 1) / (THREADS / 32);
   band_ray_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)cell, (const float*)o, (const float*)d,
-      (const float*)tmax, (const float*)coords, n, Kp, (float*)t,
-      (int32_t*)slot);
+      (const float*)tmax, (const float*)coords, (const float*)skip_r,
+      (const uint8_t*)live, offset, n, Kp, (float*)t, (int32_t*)slot);
   return (int)cudaGetLastError();
 }
 

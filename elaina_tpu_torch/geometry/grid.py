@@ -94,6 +94,8 @@ class FinePack:
     packed: torch.Tensor     # (prod(res),) int32
     origin: torch.Tensor     # (D,) f32
     inv_cell: torch.Tensor   # (D,) f32 finest cells per world unit
+    res_f: torch.Tensor      # (D,) f32 res: the outside test
+    hi_f: torch.Tensor       # (D,) f32 res - 1: the clamp
     r0: float                # quantization base (an exact f32 value)
     res: tuple               # finest resolution per axis
     s: float                 # buckets per octave
@@ -105,6 +107,7 @@ class CandidateGrid:
     origin: torch.Tensor     # (D,) f32
     inv_cell: torch.Tensor   # (D,) f32
     res: tuple
+    res_hi: torch.Tensor     # (D,) int32 res - 1: the clamp of a cell index
     cand: torch.Tensor       # (R, K) int32
     meta: list               # host int32 arrays (FinePack build input)
     meta_t: list             # the same levels as int32 device tensors
@@ -142,6 +145,8 @@ class BandGrid:
     origin: torch.Tensor
     inv_cell: torch.Tensor
     res: tuple
+    res_f: torch.Tensor      # (D,) f32 res: the outside test
+    res_hi: torch.Tensor     # (D,) int32 res - 1: the clamp of a cell index
     rows: torch.Tensor       # (C, K) int32
     r_cap: torch.Tensor      # (C,) f32
     lbound: torch.Tensor     # (C,) f32
@@ -369,7 +374,8 @@ def grid_from_numpy(*, cand, meta, row_lbound, row_diag, row_trunc, origin,
     return CandidateGrid(
         origin=t(np.asarray(origin, np.float32), torch.float32),
         inv_cell=t(np.asarray(inv_cell, np.float32), torch.float32),
-        res=tuple(int(r) for r in res), cand=cand_t,
+        res=tuple(int(r) for r in res),
+        res_hi=t(np.asarray(res, np.int32) - 1, torch.int32), cand=cand_t,
         meta=[np.asarray(m, np.int32) for m in meta],
         meta_t=[t(np.asarray(m, np.int32), torch.int32) for m in meta],
         row_lbound=t(rlb, torch.float32),
@@ -505,10 +511,12 @@ def _band_tensors(arrays: dict, device) -> dict:
         return torch.as_tensor(np.require(a, requirements=("C", "W")),
                                device=device)
 
+    res = np.asarray(arrays["res"], np.int64)
     return dict(
         origin=t(np.asarray(arrays["origin"], np.float32)),
         inv_cell=t(np.asarray(arrays["inv_cell"], np.float32)),
-        res=tuple(int(r) for r in arrays["res"]),
+        res=tuple(int(r) for r in res), res_f=t(res.astype(np.float32)),
+        res_hi=t((res - 1).astype(np.int32)),
         rows=t(np.asarray(arrays["rows"], np.int32)),
         r_cap=t(np.asarray(arrays["r_cap"], np.float32)),
         lbound=t(np.asarray(arrays["lbound"], np.float32)),
@@ -619,23 +627,27 @@ def build_fine_pack(grid: CandidateGrid, eps: float,
 
 def fine_pack_from_numpy(*, packed, origin, inv_cell, r0, res, s, eps,
                          device: torch.device) -> FinePack:
+    res_f = np.asarray(res, np.float32)
     return FinePack(
         packed=torch.as_tensor(np.require(packed, np.int32, ("C", "W")),
                                device=device),
         origin=torch.tensor(np.asarray(origin, np.float32), device=device),
         inv_cell=torch.tensor(np.asarray(inv_cell, np.float32),
                               device=device),
+        res_f=torch.tensor(res_f, device=device),
+        hi_f=torch.tensor(res_f - np.float32(1.0), device=device),
         r0=float(np.float32(r0)), res=tuple(int(r) for r in res),
         s=float(s), eps=float(eps))
 
 
 def fine_decode(fp: FinePack, q: torch.Tensor):
     """(row int32, need, rl, outside) for query points q (N, D): one load
-    of the packed table per lane."""
-    res_f = torch.tensor(fp.res, dtype=torch.float32, device=q.device)
+    of the packed table per lane.  The bounds are the pack's own device
+    tensors: a tensor made from host values here would copy from pageable
+    memory, and the host would wait for the device once a step."""
     rel = (q - fp.origin) * fp.inv_cell
-    outside = ((rel < 0.0) | (rel >= res_f)).any(dim=-1)
-    idx = torch.minimum(torch.clamp(rel, min=0.0), res_f - 1.0).long()
+    outside = ((rel < 0.0) | (rel >= fp.res_f)).any(dim=-1)
+    idx = torch.minimum(torch.clamp(rel, min=0.0), fp.hi_f).long()
     lin = idx[..., 0]
     for d in range(1, len(fp.res)):
         lin = lin * fp.res[d] + idx[..., d]
@@ -659,9 +671,7 @@ def grid_cell_index(grid: CandidateGrid, q: torch.Tensor) -> torch.Tensor:
     """Level-0 linear cell index (int64) of query points q (N, D),
     clamped to the grid."""
     rel = (q - grid.origin) * grid.inv_cell
-    hi = torch.tensor([r - 1 for r in grid.res], dtype=torch.int32,
-                      device=q.device)
-    idx = torch.minimum(rel.to(torch.int32).clamp(min=0), hi)
+    idx = torch.minimum(rel.to(torch.int32).clamp(min=0), grid.res_hi)
     lin = idx[..., 0].long()
     for d in range(1, len(grid.res)):
         lin = lin * grid.res[d] + idx[..., d]
@@ -675,9 +685,8 @@ def grid_row_index(grid: CandidateGrid, q: torch.Tensor) -> torch.Tensor:
     a point on a cell border stays in its floor cell)."""
     dim = len(grid.res)
     rel = (q - grid.origin) * grid.inv_cell
-    hi = torch.tensor([r - 1 for r in grid.res], dtype=torch.int32,
-                      device=q.device)
-    idx = torch.minimum(torch.floor(rel).to(torch.int32).clamp(min=0), hi)
+    idx = torch.minimum(torch.floor(rel).to(torch.int32).clamp(min=0),
+                        grid.res_hi)
     lin = idx[..., 0].long()
     for d in range(1, dim):
         lin = lin * grid.res[d] + idx[..., d]

@@ -263,13 +263,11 @@ def sample_in_ball(gs: GeomSet, q, R, u):
 
 def band_cell(bg: BandGrid, q: torch.Tensor):
     """(lin int64, outside): the grid cell of each query point (N, D),
-    out-of-grid points clamped to a border cell."""
-    res_f = torch.tensor(bg.res, dtype=torch.float32, device=q.device)
+    out-of-grid points clamped to a border cell (by the grid's own bound
+    tensors: no host copy, so no wait for the device)."""
     rel = (q - bg.origin) * bg.inv_cell
-    outside = ((rel < 0.0) | (rel >= res_f)).any(dim=-1)
-    idx = torch.minimum(rel.to(torch.int32).clamp(min=0),
-                        torch.tensor([r - 1 for r in bg.res],
-                                     dtype=torch.int32, device=q.device))
+    outside = ((rel < 0.0) | (rel >= bg.res_f)).any(dim=-1)
+    idx = torch.minimum(rel.to(torch.int32).clamp(min=0), bg.res_hi)
     lin = idx[..., 0].long()
     for d in range(1, len(bg.res)):
         lin = lin * bg.res[d] + idx[..., d]
@@ -295,14 +293,20 @@ def _kernel_cell(bg: BandGrid, q):
     return lin, outside, torch.where(outside, -1, lin).to(torch.int32)
 
 
-def grid_closest_silhouette(sg: BandGrid, q):
+def grid_closest_silhouette(sg: BandGrid, q, live=None):
     """Distance (N,) to the nearest silhouette through the SilGrid:
     min(nearest kept entity, the cell's r_cap), exact below r_cap and a
     lower bound above it, either way a valid star radius; the bbox
-    distance outside the grid.  Kernel K9 (``sil_band_2d`` in 2D)."""
+    distance outside the grid.  Kernel K9 (``sil_band_2d`` in 2D).  In 2D
+    the lanes that ``live`` (N,) bool leaves out read no row: their
+    nearest entity is +inf (so their distance is the cap); the 3D kernel
+    sweeps every lane."""
     lin, outside, cell = _kernel_cell(sg, q)
-    sweep = K.sil_band if q.shape[1] == 3 else K.sil_band_2d
-    d2 = sweep(cell, q.contiguous(), sg.coords)
+    if q.shape[1] == 3:
+        d2 = K.sil_band(cell, q.contiguous(), sg.coords)
+    else:
+        d2 = K.sil_band_2d(cell, q.contiguous(), sg.coords,
+                           None if live is None else live.contiguous())
     # padded slots pass the sign test at ~1e18: a cell whose kept
     # entities all fail it finds nothing
     found = torch.where(d2 >= 1e17, float("inf"), torch.sqrt(d2))
@@ -394,18 +398,27 @@ def _band_ray_gather(bg: BandGrid, gs: GeomSet, o, d, tmax, refp):
     return hit, torch.where(hit, t, _INF), torch.where(hit, pid, 0)
 
 
-def band_ray_intersect(bg: BandGrid, gs: GeomSet, o, d, tmax, ref=None):
+def band_ray_intersect(bg: BandGrid, gs: GeomSet, o, d, tmax, ref=None,
+                       live=None, offset: float | None = None):
     """(hit, t, pid): the closest hit of the rays o + t d, t in (1e-6,
     tmax], over the prim band of ``ref``'s cell (default: the origin's),
     kernel K7 in 3D and the gather form in 2D.  ``ref`` matters when the
     origin is an eps offset off a boundary: the offset point can sit in a
     neighbouring cell, whose r_cap the ray's length was not clamped to.
-    Misses give t = inf and pid 0."""
+    Misses give t = inf and pid 0.  In 3D, K7 sweeps no row for the lanes
+    that ``live`` (N,) bool leaves out, and, where ``offset`` (a bound on
+    |o - ref|) is given, none for a lane whose reach tmax + offset lies
+    below its cell's ``skip_r``: no prim of the row is in reach, so the
+    lane misses, as the sweep would give it.  Both change nothing on a
+    live lane; the 2D gather form sweeps every lane."""
     if bg.coords is None:
         return _band_ray_gather(bg, gs, o, d, tmax, o if ref is None else ref)
     lin, outside, cell = _kernel_cell(bg, o if ref is None else ref)
     t, slot = K.band_ray(cell, o.contiguous(), d.contiguous(),
-                         tmax.contiguous(), bg.coords)
+                         tmax.contiguous(), bg.coords,
+                         None if offset is None else bg.skip_r,
+                         None if live is None else live.contiguous(),
+                         0.0 if offset is None else offset)
     K_row = bg.rows.shape[1]
     hit = torch.isfinite(t) & (t <= tmax) & ~outside
     pid = bg.rows[lin, slot.long().clamp(max=K_row - 1)]

@@ -16,8 +16,10 @@ Contracts (the TPU kernels', minus the per-lane DMAs):
 * ``sil_band(cell, q, coords) -> d2 (N,)``: the least squared distance
   from q to the entities of its SilGrid cell that pass s1 s2 <= 0 (point
   to segment, t clamped to [0, 1]); +inf where cell < 0.  Padded slots
-  give ~1e18, which the caller reads as "none".  ``sil_band_2d`` is the
-  same over a 2D cell table (C, 6, Kp), point to vertex.
+  give ~1e18, which the caller reads as "none".
+  ``sil_band_2d(cell, q, coords, live=None)`` is the same over a 2D cell
+  table (C, 6, Kp), point to vertex, and gives +inf also to the lanes
+  that ``live`` (N,) bool leaves out, without reading their cell.
 * ``closest_point_dense(q, seg_a, seg_b, active=None) -> (dist (N,),
   prim (N,))``: the closest of all P segments, dist = sqrt(min d^2) and
   the smallest index attaining it (0 when every d^2 overflows).  With
@@ -44,9 +46,14 @@ Contracts (the TPU kernels', minus the per-lane DMAs):
   and plane_n of a skipped lane are zeros where the unskipped kernel
   gives those of a lane without a selection (the visibility ray toward
   PAD_COORD), which every caller masks by the selection.
-* ``band_ray(cell, o, d, tmax, coords) -> (t (N,), slot (N,))``: K6's
-  walk ray alone, the closest hit with t in (1e-6, tmax] (the smallest
-  slot on equal t); t = inf and slot = Kp on a miss and where cell < 0.
+* ``band_ray(cell, o, d, tmax, coords, skip_r=None, live=None, offset=0.0)
+  -> (t (N,), slot (N,))``: K6's walk ray alone, the closest hit with t
+  in (1e-6, tmax] (the smallest slot on equal t); t = inf and slot = Kp
+  on a miss, where cell < 0, and on the lanes it skips without a sweep:
+  those that ``live`` leaves out and those whose reach tmax + offset lies
+  below ``skip_r`` (C,) of their cell (``offset`` bounds the distance
+  from the origin to the point whose cell was passed).  The skip changes
+  no output of a live lane.
 * ``band_ball(cell, q, R, u, coords) -> (slot, w_sel, total)``: K6's
   in-ball CDF sample alone; slot = Kp means none (w_sel = 0), and lanes
   with cell < 0 get slot = Kp and zeros.
@@ -75,13 +82,14 @@ _PLAIN_PAIRS = 1 << 24  # lanes x segments per chunk of K13's plain version
 
 _SIGNATURES = {
     "sil_band_launch": [VP, VP, VP, I64, I32, VP, VP],
-    "sil_band_2d_launch": [VP, VP, VP, I64, I32, VP, VP],
+    "sil_band_2d_launch": [VP, VP, VP, VP, I64, I32, VP, VP],
     "closest_point_dense_launch": [VP, VP, VP, I64, I32, VP, VP, VP, VP,
                                    VP, VP],
     "candidate_band_launch": [VP, VP, VP, VP, VP, VP, I64, I32, VP, VP, VP],
     "band_neumann_walk_launch": [VP, VP, VP, VP, VP, VP, VP, VP, F32, VP,
                                  VP, VP, I64, I32, VP, VP, VP],
-    "band_ray_launch": [VP, VP, VP, VP, VP, I64, I32, VP, VP, VP],
+    "band_ray_launch": [VP, VP, VP, VP, VP, VP, VP, F32, I64, I32, VP, VP,
+                        VP],
     "band_ball_launch": [VP, VP, VP, VP, VP, I64, I32, VP, VP, VP, VP],
 }
 
@@ -109,10 +117,13 @@ def _cross(u, v):
 # --------------------------------------------------------------------------- #
 
 
-def _sil_band_plain(cell, q, coords, dim: int):
+def _sil_band_plain(cell, q, coords, dim: int, live=None):
     n = cell.shape[0]
     d2 = torch.full((n,), float("inf"), dtype=torch.float32, device=q.device)
-    sel = torch.nonzero(cell >= 0).flatten()
+    work = cell >= 0
+    if live is not None:
+        work &= live
+    sel = torch.nonzero(work).flatten()
     for c0 in range(0, sel.numel(), _PLAIN_CHUNK):
         ids = sel[c0:c0 + _PLAIN_CHUNK]
         pl = coords[cell[ids].long()].unbind(1)       # 12 or 6 x (m, Kp)
@@ -140,11 +151,11 @@ def sil_band_plain(cell, q, coords):
     return _sil_band_plain(cell, q, coords, 3)
 
 
-def sil_band_2d_plain(cell, q, coords):
-    return _sil_band_plain(cell, q, coords, 2)
+def sil_band_2d_plain(cell, q, coords, live=None):
+    return _sil_band_plain(cell, q, coords, 2, live)
 
 
-def _sil_band(wrapper, fn: str, cell, q, coords, dim: int):
+def _sil_band_checks(cell, q, coords, dim: int, live=None):
     n = cell.shape[0]
     dev = q.device
     C, _, Kp = coords.shape
@@ -152,26 +163,38 @@ def _sil_band(wrapper, fn: str, cell, q, coords, dim: int):
     _check("q", q, torch.float32, (n, dim), dev)
     _check("coords", coords, torch.float32, (C, 12 if dim == 3 else 6, Kp),
            dev)
+    if live is not None:
+        _check("live", live, torch.bool, (n,), dev)
     if Kp % 32:
         raise ValueError(f"coords has {Kp} slots per cell")
-    if dev.type == "cpu":
-        return _sil_band_plain(cell, q, coords, dim)
-    d2 = torch.empty((n,), dtype=torch.float32, device=dev)
-    _launch(getattr(library(), fn), cell.data_ptr(), q.data_ptr(),
-            coords.data_ptr(), n, Kp, d2.data_ptr(), device=dev)
-    wrapper.launches += 1
-    return d2
 
 
 def sil_band(cell, q, coords):
-    return _sil_band(sil_band, "sil_band_launch", cell, q, coords, 3)
+    _sil_band_checks(cell, q, coords, 3)
+    if q.device.type == "cpu":
+        return sil_band_plain(cell, q, coords)
+    d2 = torch.empty_like(cell, dtype=torch.float32)
+    _launch(library().sil_band_launch, cell.data_ptr(), q.data_ptr(),
+            coords.data_ptr(), cell.shape[0], coords.shape[2], d2.data_ptr(),
+            device=q.device)
+    sil_band.launches += 1
+    return d2
 
 
 sil_band.launches = 0
 
-
-def sil_band_2d(cell, q, coords):
-    return _sil_band(sil_band_2d, "sil_band_2d_launch", cell, q, coords, 2)
+def sil_band_2d(cell, q, coords, live=None):
+    _sil_band_checks(cell, q, coords, 2, live)
+    if q.device.type == "cpu":
+        return sil_band_2d_plain(cell, q, coords, live)
+    if coords.data_ptr() % 16:
+        raise ValueError("coords must start on 16 bytes")
+    d2 = torch.empty_like(cell, dtype=torch.float32)
+    _launch(library().sil_band_2d_launch, cell.data_ptr(), q.data_ptr(),
+            coords.data_ptr(), 0 if live is None else live.data_ptr(),
+            cell.shape[0], coords.shape[2], d2.data_ptr(), device=q.device)
+    sil_band_2d.launches += 1
+    return d2
 
 
 sil_band_2d.launches = 0
@@ -326,16 +349,20 @@ def _closest_hit_plain(o, d, c, tmax):
     return torch.min(_mt_planes(o, d, c, tmax), dim=1)
 
 
-def band_work(cell, R, on, eps: float, skip_r=None, live=None):
-    """The lanes K6 does band work for: in the grid, live, and with a
-    reach R + oe at or above their cell's ``skip_r``."""
+def _in_reach(cell, reach, skip_r, live):
+    """The lanes in the grid, live, and with ``reach`` at or above their
+    cell's ``skip_r`` (each test where its input is given)."""
     work = cell >= 0
     if live is not None:
         work &= live
     if skip_r is not None:
-        reach = R + torch.where(on, eps, 0.0)
         work &= ~(reach < skip_r[cell.clamp(min=0).long()])
     return work
+
+
+def band_work(cell, R, on, eps: float, skip_r=None, live=None):
+    """The lanes K6 does band work for: reach R + oe."""
+    return _in_reach(cell, R + torch.where(on, eps, 0.0), skip_r, live)
 
 
 def band_neumann_walk_plain(cell, q, R, on, n_normal, u_sel, u_pt, d_walk,
@@ -439,13 +466,19 @@ band_neumann_walk.launches = 0
 # --------------------------------------------------------------------------- #
 
 
-def band_ray_plain(cell, o, d, tmax, coords):
+def ray_work(cell, tmax, offset: float, skip_r=None, live=None):
+    """The lanes K7 sweeps: reach tmax + offset."""
+    return _in_reach(cell, tmax + offset, skip_r, live)
+
+
+def band_ray_plain(cell, o, d, tmax, coords, skip_r=None, live=None,
+                   offset: float = 0.0):
     n = cell.shape[0]
     Kp = coords.shape[2]
     dev = o.device
     t = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
     slot = torch.full((n,), Kp, dtype=torch.int32, device=dev)
-    sel = torch.nonzero(cell >= 0).flatten()
+    sel = torch.nonzero(ray_work(cell, tmax, offset, skip_r, live)).flatten()
     for c0 in range(0, sel.numel(), _PLAIN_CHUNK):
         ids = sel[c0:c0 + _PLAIN_CHUNK]
         c = coords[cell[ids].long()].unbind(1)             # 9 x (m, Kp)
@@ -458,7 +491,8 @@ def band_ray_plain(cell, o, d, tmax, coords):
     return t, slot
 
 
-def band_ray(cell, o, d, tmax, coords):
+def band_ray(cell, o, d, tmax, coords, skip_r=None, live=None,
+             offset: float = 0.0):
     n = cell.shape[0]
     dev = o.device
     C, _, Kp = coords.shape
@@ -467,14 +501,20 @@ def band_ray(cell, o, d, tmax, coords):
     _check("d", d, torch.float32, (n, 3), dev)
     _check("tmax", tmax, torch.float32, (n,), dev)
     _check("coords", coords, torch.float32, (C, 9, Kp), dev)
+    if skip_r is not None:
+        _check("skip_r", skip_r, torch.float32, (C,), dev)
+    if live is not None:
+        _check("live", live, torch.bool, (n,), dev)
     if Kp % 32:
         raise ValueError(f"coords has {Kp} slots per cell")
     if dev.type == "cpu":
-        return band_ray_plain(cell, o, d, tmax, coords)
+        return band_ray_plain(cell, o, d, tmax, coords, skip_r, live, offset)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     slot = torch.empty((n,), dtype=torch.int32, device=dev)
     _launch(library().band_ray_launch, cell.data_ptr(), o.data_ptr(),
-            d.data_ptr(), tmax.data_ptr(), coords.data_ptr(), n, Kp,
+            d.data_ptr(), tmax.data_ptr(), coords.data_ptr(),
+            0 if skip_r is None else skip_r.data_ptr(),
+            0 if live is None else live.data_ptr(), float(offset), n, Kp,
             t.data_ptr(), slot.data_ptr(), device=dev)
     band_ray.launches += 1
     return t, slot

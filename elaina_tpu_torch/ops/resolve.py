@@ -98,7 +98,8 @@ def compact_lanes_plain(mask: torch.Tensor, cap: int):
     lanes = torch.zeros((cap,), dtype=torch.int32, device=mask.device)
     k = min(cap, ids.numel())
     lanes[:k] = ids[:k]
-    cnt = torch.tensor([ids.numel()], dtype=torch.int32, device=mask.device)
+    cnt = torch.full((1,), ids.numel(), dtype=torch.int32,
+                     device=mask.device)
     return lanes, cnt
 
 

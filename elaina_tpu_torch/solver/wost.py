@@ -196,7 +196,8 @@ def _separate(scene: Scene, state: WalkState, eps: float, shrink: bool):
         R_N = inf
     else:
         if scene.n_sgrid is not None:
-            R_N = Q.grid_closest_silhouette(scene.n_sgrid, q)
+            # a dead walk's R_N is never read: K9-2D skips its row
+            R_N = Q.grid_closest_silhouette(scene.n_sgrid, q, state.active)
         else:
             R_N = Q.closest_silhouette(scene.neumann.gs, q)
         if scene.n_bgrid is not None:
@@ -251,13 +252,14 @@ def _source_term(scene: Scene, state: WalkState, live, R_B, gen,
         gen, state, dim, scene.neumann is not None)
     dist = R_B
     if scene.neumann is not None:
-        offset = state.pos + eps * direction
+        origin = state.pos + eps * direction
         if scene.n_bgrid is not None:
             hit, t, _ = Q.band_ray_intersect(scene.n_bgrid, scene.neumann.gs,
-                                             offset, direction, dist,
-                                             ref=state.pos)
+                                             origin, direction, dist,
+                                             ref=state.pos, live=live,
+                                             offset=eps)
         else:
-            hit, t, _ = Q.ray_intersect(scene.neumann.gs, offset, direction,
+            hit, t, _ = Q.ray_intersect(scene.neumann.gs, origin, direction,
                                         dist)
         dist = torch.where(hit, torch.minimum(t, dist), dist)
     u = torch.rand((n, 3), generator=gen, device=gen.device)
@@ -300,8 +302,10 @@ def _neumann_term(scene: Scene, state: WalkState, live, R_B, gen,
     clamp_dist = torch.linalg.norm(ray, dim=-1)
     ray_dir = ray / torch.clamp(clamp_dist, min=1e-20)[:, None]
     if bg is not None:
+        # reach: the ray's points lie within tmax + eps of pos
         occluded, _, _ = Q.band_ray_intersect(bg, gs, origin, ray_dir,
-                                              clamp_dist - eps, ref=state.pos)
+                                              clamp_dist - eps, ref=state.pos,
+                                              live=live, offset=eps)
     else:
         occluded, _, _ = Q.ray_intersect(gs, origin, ray_dir,
                                          clamp_dist - eps)
@@ -337,7 +341,8 @@ def _walk(scene: Scene, state: WalkState, live, R_B, gen, eps: float):
         gs = scene.neumann.gs
         if scene.n_bgrid is not None:
             hit, t, pid = Q.band_ray_intersect(scene.n_bgrid, gs, current,
-                                               direction, R_B, ref=state.pos)
+                                               direction, R_B, ref=state.pos,
+                                               live=live, offset=eps)
         else:
             hit, t, pid = Q.ray_intersect(gs, current, direction, R_B)
         n_raw = gs.prim_normal[pid]

@@ -10,11 +10,14 @@ a commit unpacked into a directory that ``.gitignore`` lists.  At every
 turn of ``--order`` the named tree runs, each in a process of its own:
 
 1. lobed_u (``utils/scenes.write_scene``, 32 spp), neumann3d_u
-   (``configs/neumann3d_u.json`` as shipped, 64 spp) and nogrid_u
+   (``configs/neumann3d_u.json`` as shipped, 64 spp), nogrid_u
    (``chip_smoke.py``'s: bench.py's curve at 256 segments, no grid, in
-   the 4-segment box, 8 spp) through ``python -m elaina_tpu_torch run``:
-   walk_steps / duration of ``result.json``.  A tree's first turn starts
-   on a cold ``_build/``;
+   the 4-segment box, 8 spp), neumann3d_source (neumann3d_u with a
+   volumetric source, ``utils/scenes.write_neumann3d_source``, 64 spp)
+   and wavy8192_u (the lobed scene in a wavy Neumann box of 8,192
+   segments, its 2D band grids, 8 spp) through ``python -m
+   elaina_tpu_torch run``: walk_steps / duration of ``result.json``.  A
+   tree's first turn starts on a cold ``_build/``;
 2. bench.py's own scene (``bench_square``: 2,048 segments, no grid,
    1024^2, depth 64, 4 spp) and nogrid_u through the tree's
    ``UniformIntegrator`` in a process of their own, each solved twice:
@@ -72,7 +75,7 @@ import traceback
 # the main paths' shapes (PERF.md): lanes, set lanes, in-shell lanes, prims
 LOBED = (1048576, 187567, 72062, 65536)
 NEUMANN3D = (65536, 3876, 304, 768)
-SPP_2D, SPP_3D, SPP_SQUARE, SPP_NOGRID = 32, 64, 4, 8
+SPP_2D, SPP_3D, SPP_SQUARE, SPP_NOGRID, SPP_WAVY = 32, 64, 4, 8, 8
 
 
 def bench_square(dev, spp: int):
@@ -441,6 +444,16 @@ def _run_scene(tree: str, conf: str, env: dict) -> dict:
             "solution_sha256": hashlib.sha256(film.tobytes()).hexdigest()}
 
 
+def _renamed(conf: str, exp_name: str) -> str:
+    """The config at ``conf`` with its ``exp_name`` set; returns its path."""
+    with open(conf) as f:
+        c = json.load(f)
+    c["exp_name"] = exp_name
+    with open(conf, "w") as f:
+        json.dump(c, f)
+    return conf
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m elaina_tpu_torch.utils.ab")
     ap.add_argument("--tree", action="append", required=True,
@@ -464,18 +477,20 @@ def main(argv=None) -> int:
     turns = []
     with tempfile.TemporaryDirectory() as root:
         env = dict(os.environ, ELAINA_CACHE_DIR=os.path.join(root, "cache"))
-        nogrid = os.path.join(root, "nogrid")
-        os.makedirs(nogrid)
-        conf_ng = scenes.write_scene(nogrid, SPP_NOGRID, segments=256)
-        with open(conf_ng) as f:
-            c = json.load(f)
-        c["exp_name"] = "nogrid_u"
-        with open(conf_ng, "w") as f:
-            json.dump(c, f)
+        for sub in ("nogrid", "source", "wavy"):
+            os.makedirs(os.path.join(root, sub))
+        conf_ng = _renamed(scenes.write_scene(
+            os.path.join(root, "nogrid"), SPP_NOGRID, segments=256),
+            "nogrid_u")
         confs = {"lobed_u": scenes.write_scene(root, SPP_2D),
                  "neumann3d_u": scenes.write_config_copy(root, "neumann3d_u",
                                                          SPP_3D),
-                 "nogrid_u": conf_ng}
+                 "nogrid_u": conf_ng,
+                 "neumann3d_source": scenes.write_neumann3d_source(
+                     os.path.join(root, "source"), SPP_3D),
+                 "wavy8192_u": _renamed(scenes.write_scene(
+                     os.path.join(root, "wavy"), SPP_WAVY,
+                     neumann_segments=8192), "wavy8192_u")}
         for i, name in enumerate(order):
             t0 = time.time()
             turn = {"turn": i, "tree": name}
