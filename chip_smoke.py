@@ -33,15 +33,16 @@ and never prints its last line:
    ``_dense_dirichlet`` hands them over), on every lane and on none of
    that state, the same way; K12 on the same
    points over a bare candidate grid of that curve (K = 64, no coordinate
-   table) through ``grid_closest_point``, whose launches are K12's path,
+   table) through ``grid_closest_point``, whose one launch is K12's path,
    held to K13's distances (equal on untruncated rows, at most K13's on
-   truncated ones); K9-2D on the lanes of the lobed scene in a wavy
-   Neumann box of 8,192 segments after a few depth steps, with the walks'
-   live mask as ``_separate`` passes it, without a mask, on every lane, on
-   none and on lane N - 1 alone, bit-equal to its plain version; and each
-   of its forms (1, 2, 4, 8 or 32 lanes a warp; loads of a slot of a
-   plane, a slot's float2 pair from a re-laid table, or four slots of a
-   plane) timed on every lane and on the live lanes, each bit-equal.
+   truncated ones), then alone on every point's row against its plain
+   version (the gathered rows' K12), distances bit-equal and prim ids
+   equal, and the whole ``grid_closest_point`` timed; K9-2D on the lanes
+   of the lobed scene in a wavy Neumann box of 8,192 segments after a few
+   depth steps, with the walks' live mask as ``_separate`` passes it,
+   without a mask, on every lane, on none and on lane N - 1 alone,
+   bit-equal to its plain version, timed on the live lanes and on every
+   lane.
 3. The mixed Dirichlet/Neumann square, u = (x + 1) / 2, through
    ``UniformIntegrator``: 256 walks of depth 64 at three points (64 lanes
    a point, 4 samples), each point within 0.07 of u.
@@ -87,9 +88,11 @@ and never prints its last line:
    without; K7 with its skip (reach tmax + eps) on the step's live lanes,
    without a mask, on every lane, on none and on lane N - 1 alone (slots
    exact, t within TOL), and equal bit for bit to the unskipped kernel on
-   those lanes; K6-K8 also at radii 0.05-1, which reach the blob, and K6
-   there on the table padded to 128 slots (its instantiation for wide
-   rows).
+   those lanes; K8 the same way (reach R), with and without its skip, the
+   lanes it does not sweep bit-equal (slot Kp, zeros), the rest's slots
+   equal but for CDF_FLIPS and w_sel and total within TOL; K6-K8 also at
+   radii 0.05-1, which reach the blob, and K6 there on the table padded
+   to 128 slots (its instantiation for wide rows).
 5b. The fused depth step (K6) against the unfused one (K8 + K7) on
    neumann3d's lanes, 3 steps with the same generators, held to
    ``tests/test_fused_band.py``'s lane thresholds.
@@ -194,7 +197,7 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
     "grid_band_2d": (RESOLVE_SOURCE, "elaina_tpu/ops/pallas_queries.py:136"),
     "grid_band_3d": (RESOLVE_SOURCE, "elaina_tpu/ops/pallas_queries.py:316"),
     "sil_band_2d": (QUERIES_SOURCE, "elaina_tpu/ops/pallas_queries.py:622"),
-    "candidate_band": (QUERIES_SOURCE,
+    "candidate_rows": (QUERIES_SOURCE,
                        "elaina_tpu/ops/pallas_queries.py:499"),
     "closest_point_dense": (QUERIES_SOURCE,
                             "elaina_tpu/ops/pallas_queries.py:421"),
@@ -207,7 +210,7 @@ PATH_OF = {**{k: "lobed_u" for k in MAIN_2D},
            **{k: "neumann3d_u" for k in MAIN_3D},
            "grid_band_2d": "channels_2d", "band_ray": "neumann3d_source",
            "band_ball": "neumann3d_unfused", "sil_band_2d": "wavy8192_u",
-           "candidate_band": "bare_grid", "closest_point_dense": "nogrid_u"}
+           "candidate_rows": "bare_grid", "closest_point_dense": "nogrid_u"}
 CDF_FLIPS = 0.005            # K6 / K8 CDF slot flips allowed, share of lanes
 
 
@@ -811,8 +814,10 @@ def phase_kernels_2c(conf_2d: str, conf_wavy: str, device,
     d12, _ = grid_closest_point(bare, q)
     torch.cuda.synchronize()
     launches = read_counts()
-    if not launches["candidate_band"]:
-        raise RuntimeError(f"the bare grid did not launch K12: {launches}")
+    if launches["candidate_rows"] != 1:
+        raise RuntimeError(f"the bare grid launched K12 "
+                           f"{launches['candidate_rows']} times, not once: "
+                           f"{launches}")
     row = grid_row_index(bare, q)
     tr = bare.row_trunc[row.long()]
     same = torch.isclose(d12, d13, rtol=TOL, atol=TOL)
@@ -820,37 +825,39 @@ def phase_kernels_2c(conf_2d: str, conf_wavy: str, device,
     log(f"    grid_closest_point on the bare grid: {int(tr.sum())} of {n} "
         f"points in truncated rows (at most K13's distance there: "
         f"{bool(below[tr].all())}), the rest equal to K13's (1e-5): "
-        f"{bool(same[~tr].all())}; {launches['candidate_band']} K12 "
-        f"launches")
+        f"{bool(same[~tr].all())}; {launches['candidate_rows']} K12 "
+        f"launch")
     if not (same[~tr].all() and below[tr].all()):
         raise RuntimeError("the bare chain path disagrees with K13")
 
-    # K12 alone on every point's gathered row, as _bare_rows hands it over
-    def gather():
-        cand = bare.cand[row.long()]
-        safe = cand.clamp(min=0).long()
-        ends = [bare.verts[bare.indices[:, k][safe]] for k in (0, 1)]
-        return (tuple(e[..., c].contiguous() for e in ends for c in (0, 1))
-                + (cand >= 0,))
-
-    *planes, valid = gather()
-    dk, sk = QK.candidate_band(q, *planes, valid)
-    dk_p, sk_p = QK.candidate_band_plain(q, *planes, valid)
-    err = check_exact("candidate_band", dk, dk_p, sk, sk_p)
-    Kw = valid.shape[1]
-    n_valid = int(valid.sum())
-    gather_ms = cuda_ms(gather, runs=5)
-    path_ms = cuda_ms(lambda: grid_closest_point(bare, q), runs=5)
-    log(f"    candidate_band: {n} lanes x K = {Kw}, {n_valid} valid slots; "
-        f"the gather that feeds it {gather_ms:.4f} ms, grid_closest_point "
-        f"in all {path_ms:.4f} ms ({kernels.card})")
-    kernels.add("candidate_band", err,
-                lambda: QK.candidate_band(q, *planes, valid),
-                lambda: QK.candidate_band_plain(q, *planes, valid), None,
-                n * 8 + n * Kw + n_valid * 16 + n * 8, 14.0 * n_valid,
-                f"{n} frame points' gathered rows of a bare grid, K = {Kw}, "
-                f"{n_valid} valid slots")
-    del planes, valid
+    # K12 as grid_closest_point calls it: every frame point's row, the
+    # grid's rows and segment table
+    args = (q, row, bare.cand, bare.seg)
+    dk, pk = QK.candidate_rows(*args)
+    dk_p, pk_p = QK.candidate_rows_plain(*args)
+    check_bits("candidate_rows", dk, dk_p, pk, pk_p)
+    Kw = bare.cand.shape[1]
+    cand = bare.cand[row.long()]
+    n_valid = int((cand >= 0).sum())
+    rows = n_unique(row)
+    del cand
+    path_ms = cuda_ms(lambda: grid_closest_point(bare, q))
+    path_dev = device_ms(lambda: grid_closest_point(bare, q))[0]
+    log(f"    candidate_rows: {n} lanes x K = {Kw}, {n_valid} slots with an "
+        f"id, {rows} distinct rows; bit-equal to the plain version; "
+        f"grid_closest_point on the bare grid {path_ms:.4f} ms (device "
+        f"{path_dev:.4f} ms; {kernels.card})")
+    # each lane reads its point and row index and writes dist and pid;
+    # the rows the lanes name and the segment table are read once (the
+    # per-lane count, each lane's row read for it, is an extra key)
+    kernels.add("candidate_rows", 0.0, lambda: QK.candidate_rows(*args),
+                lambda: QK.candidate_rows_plain(*args), None,
+                n * (8 + 4 + 8) + rows * 4 * Kw + P * 16, 14.0 * n_valid,
+                f"{n} frame points' rows of a bare grid, K = {Kw}, "
+                f"{n_valid} slots with an id, {rows} distinct rows",
+                path_ms=path_ms, path_device_ms=path_dev,
+                per_lane_rows_bound_ms=bound(
+                    n * (8 + 4 + 4 * Kw + 8) + P * 16, 14.0 * n_valid)[0])
 
     # K9-2D on the wavy box's lanes after a few depth steps
     t0 = time.time()
@@ -1553,33 +1560,41 @@ def phase_kernels_3d(conf_path: str, device, kernels: Kernels) -> None:
                 f"work on {n_work}, Kp = {bKp}", noskip_ms=ns_ms,
                 noskip_device_ms=ns_dev, all_lanes_bound_ms=ray_bound)
 
-    # K8: the in-ball CDF sample alone, as the unfused step calls it
-    err = 0.0
-    for label, radii in (("star radii", R_B), ("radii 0.05-1", wide)):
-        bargs = (cell, q, radii.contiguous(), u_sel, bg.coords)
-        slot, w_sel, total = QK.band_ball(*bargs)
-        slot_p, w_sel_p, total_p = QK.band_ball_plain(*bargs)
-        same = inn & (slot == slot_p)
-        flips = int((inn & ~same).sum())
-        if flips > CDF_FLIPS * n_in or not torch.equal(slot[~inn],
-                                                       slot_p[~inn]):
-            raise RuntimeError(f"band_ball: {flips} CDF slots differ")
-        e = max(float((w_sel[same] - w_sel_p[same]).abs().max()),
-                float((total - total_p).abs().max()))
-        if not (torch.allclose(w_sel[same], w_sel_p[same], rtol=TOL, atol=0)
-                and torch.allclose(total, total_p, rtol=TOL, atol=0)):
-            raise RuntimeError(f"band_ball w_sel or total differs: {e}")
-        err = max(err, e)
-        log(f"    band_ball, {label}: {int((same & (w_sel > 0)).sum())} "
-            f"lanes with a sample, {flips} CDF slots flipped against the "
-            f"plain cumsum")
-    bargs = (cell, q, R_B.contiguous(), u_sel, bg.coords)
+    # K8: the in-ball CDF sample alone, as the unfused step calls it (the
+    # step's live lanes, the skip with reach R)
+    err = check_band_ball(cell, q, u_sel, R_B, wide, live, bg)
+    bargs = (cell, q, R_B.contiguous(), u_sel, bg.coords, bg.skip_r, live,
+             0.0)
+    noskip = bargs[:5]
+    work = QK.ball_work(cell, R_B, 0.0, bg.skip_r, live)
+    n_work = int(work.sum())
+    ns_ms = cuda_ms(lambda: QK.band_ball(*noskip))
+    ns_dev = device_ms(lambda: QK.band_ball(*noskip))[0]
+    wargs = (cell, q, wide.contiguous(), u_sel, bg.coords)
+    wide_dev = device_ms(lambda: QK.band_ball(*wargs, bg.skip_r, live))[0]
+    wide_ns = device_ms(lambda: QK.band_ball(*wargs))[0]
+    # every lane reads cell, live and R and writes slot, w_sel and total,
+    # a live one in the grid its cell's skip_r; only a lane with band work
+    # reads q, u and its cell's corners (the every-lane bound: q, u and
+    # the corners of every lane in the grid)
+    ball_bound, _ = bound(n * (4 + 1 + 4 + 12) + cells * 4 + n_in * 16
+                          + cells * corner_bytes, 80.0 * n_in * bKp)
+    log(f"    band_ball without the skip: {ns_ms:.4f} ms (device "
+        f"{ns_dev:.4f} ms); the skip took {1.0 - n_work / n:.4f} of the "
+        f"{n} lanes (band work on {n_work}); the bound of every lane in "
+        f"the grid {ball_bound:.4f} ms; at radii 0.05-1 device "
+        f"{wide_dev:.4f} ms with the skip and the step's live lanes, "
+        f"{wide_ns:.4f} without ({kernels.card})")
     kernels.add("band_ball", err, lambda: QK.band_ball(*bargs),
                 lambda: QK.band_ball_plain(*bargs), None,
-                n * (4 + 12 + 4 + 4 + 4 + 4 + 4) + cells * 9 * bKp * 4,
-                80.0 * n_in * bKp,
-                f"neumann3d_u after {WARM_STEPS} steps, star radii: {n} "
-                f"lanes, {n_in} in the grid, Kp = {bKp}")
+                n * (4 + 1 + 4 + 12) + n_unique(cell[inn & live]) * 4
+                + n_work * 16 + n_unique(cell[work]) * corner_bytes,
+                80.0 * n_work * bKp,
+                f"neumann3d_u after {WARM_STEPS} steps, star radii, the "
+                f"step's live lanes: {n} lanes, {n_in} in the grid, band "
+                f"work on {n_work}, Kp = {bKp}", noskip_ms=ns_ms,
+                noskip_device_ms=ns_dev, all_lanes_bound_ms=ball_bound,
+                wide_device_ms=wide_dev, wide_noskip_device_ms=wide_ns)
 
     # K11: the frame's plane points through the chain path, as the
     # DIRICHLET_SDF channel hands them over
@@ -1630,6 +1645,69 @@ def check_band_ray(cell, o, d, R_B, wide, live, eps: float, bg) -> float:
                 f"band work on {int(work.sum())} of {int((inn & on).sum())} "
                 f"live lanes in the grid; equal to the plain version (slots "
                 f"exact) and, on those lanes, to the unskipped kernel")
+    return err
+
+
+def check_band_ball(cell, q, u, R_B, wide, live, bg) -> float:
+    """K8 against its plain version on every mask of ``lane_masks`` and
+    without a mask, with the skip (reach R) and without it, at the star
+    radii and at radii 0.05-1: the lanes it does not sweep bit-equal (slot
+    = Kp, zeros), the others' slots equal but for CDF_FLIPS of the lanes
+    in the grid and their w_sel and total within TOL; and the kernel
+    against itself without skip or mask, bit for bit on the lanes the mask
+    keeps.  Returns the largest w_sel or total difference."""
+    import torch
+
+    from elaina_tpu_torch.ops import queries as QK
+
+    err = 0.0
+    inn = cell >= 0
+    n_in = int(inn.sum())
+    Kp = bg.coords.shape[2]
+    for rlabel, radii in (("star radii", R_B), ("radii 0.05-1", wide)):
+        radii = radii.contiguous()
+        base = QK.band_ball(cell, q, radii, u, bg.coords)
+        for label, m in (("no mask", None), *lane_masks(live)):
+            for skip in (bg.skip_r, None):
+                args = (cell, q, radii, u, bg.coords, skip, m, 0.0)
+                out = QK.band_ball(*args)
+                out_p = QK.band_ball_plain(*args)
+                work = QK.ball_work(cell, radii, 0.0, skip, m)
+                idle = (torch.full_like(out[0], Kp), torch.zeros_like(
+                    out[1]), torch.zeros_like(out[2]))
+                if not all(torch.equal(a[~work], b[~work])
+                           and torch.equal(p[~work], b[~work])
+                           for a, p, b in zip(out, out_p, idle)):
+                    raise RuntimeError(f"band_ball: a lane without band "
+                                       f"work differs ({rlabel}, {label})")
+                (slot, w_sel, total), (slot_p, w_sel_p, total_p) = out, out_p
+                same = work & (slot == slot_p)
+                flips = int((work & ~same).sum())
+                if flips > CDF_FLIPS * n_in:
+                    raise RuntimeError(f"band_ball: {flips} CDF slots differ")
+                e = (max(float((w_sel[same] - w_sel_p[same]).abs().max()),
+                         float((total[work] - total_p[work]).abs().max()))
+                     if same.any() else 0.0)
+                if not (torch.allclose(w_sel[same], w_sel_p[same], rtol=TOL,
+                                       atol=0)
+                        and torch.allclose(total, total_p, rtol=TOL,
+                                           atol=0)):
+                    raise RuntimeError(f"band_ball w_sel or total differs: "
+                                       f"{e}")
+                err = max(err, e)
+                on = torch.ones_like(live) if m is None else m
+                if not all(torch.equal(a[on], b[on])
+                           for a, b in zip(out, base)):
+                    raise RuntimeError(f"band_ball: the skip changed a live "
+                                       f"lane ({rlabel}, {label})")
+                log(f"    band_ball, {rlabel}, {label}"
+                    f"{'' if skip is not None else ', no skip'}: "
+                    f"{int((same & (w_sel > 0)).sum())} lanes with a "
+                    f"sample, band work on {int(work.sum())} of "
+                    f"{int((inn & on).sum())} live lanes in the grid, "
+                    f"{flips} CDF slots flipped against the plain cumsum; "
+                    f"the rest bit-equal, and equal to the kernel without "
+                    f"skip or mask on those lanes")
     return err
 
 

@@ -21,8 +21,9 @@
 //
 //   K13 closest_point_dense_pallas (pallas_queries.py:421, body :392)
 //                                                -> closest_point_dense_kernel
-//   K12 candidate_band_pallas (pallas_queries.py:499, body :469)
-//                                                -> candidate_band_kernel
+//   K12 candidate_band_pallas (pallas_queries.py:499, body :469), with
+//       the gathers that feed it (elaina_tpu/geometry/grid.py:1271-1292)
+//                                                -> candidate_rows_kernel
 //
 // K7 is K6's walk ray and K8 its in-ball CDF sample: they take the same
 // per-slot and per-warp device functions (mt_hit and warp_closest;
@@ -36,9 +37,10 @@
 // strides over the Kp slots of the lane's cell, whose table is planes by
 // slot, so each load instruction of the warp reads 128 contiguous bytes
 // (K13, which reads one shared set, is one thread for a few lanes
-// instead; K9-2D serves several lanes a warp; K6 and K7 test several
-// lanes a warp and sweep only those with band work).  Lanes with cell < 0
-// (outside the grid) do no work.  Each
+// instead, and K12 one thread a lane; K9-2D serves several lanes a warp;
+// K6, K7 and K8 test several lanes a warp and sweep only those with band
+// work).  Lanes with
+// cell < 0 (outside the grid) do no work.  Each
 // launch function enqueues on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
 // Built with -fmad=false, as resolve.cu: the plain PyTorch versions write
@@ -208,16 +210,17 @@ __device__ __forceinline__ int cdf_select(const float* w, float part,
 
 // K8's in-ball CDF sample, each slot's corners read once from device
 // memory (K6 takes cdf_select over the corners it holds in registers).
+template <int MAXR>
 __device__ __forceinline__ int ball_sample(const float* base, int Kp,
                                            const float* qv, float R,
                                            float u_sel, int lane,
                                            float* w_sel_out,
                                            float* total_out) {
   const int rounds = Kp >> 5;
-  float w[MAX_ROUNDS];
+  float w[MAXR];
   float part = 0.f;
 #pragma unroll
-  for (int j = 0; j < MAX_ROUNDS; ++j) {
+  for (int j = 0; j < MAXR; ++j) {
     w[j] = 0.f;
     if (j < rounds) {
       float cr[9];
@@ -226,8 +229,8 @@ __device__ __forceinline__ int ball_sample(const float* base, int Kp,
       part += w[j];
     }
   }
-  return cdf_select<MAX_ROUNDS>(w, part, rounds, Kp, u_sel, lane, w_sel_out,
-                                total_out);
+  return cdf_select<MAXR>(w, part, rounds, Kp, u_sel, lane, w_sel_out,
+                          total_out);
 }
 
 // The lexicographic (t, slot) argmin of each thread's best hit by warp
@@ -439,7 +442,7 @@ __global__ void __launch_bounds__(THREADS) sil_band_2d_kernel(
 // thread that holds them.
 // --------------------------------------------------------------------------
 
-constexpr int BAND_G = 4;           // lanes a warp tests at once (K6, K7)
+constexpr int BAND_G = 4;     // lanes a warp tests at once (K6, K7, K8)
 
 // The select-and-shuffle of slot ``slot``'s corners (slot < 32 * MAXR)
 // from the thread that holds them, to every thread of the warp.
@@ -683,38 +686,60 @@ __global__ void __launch_bounds__(THREADS) band_ray_kernel(
 // K8: the Green-weighted in-ball CDF sample over each lane's prim-band
 // cell (K6's step 1 alone): slot (n,) (Kp: none), w_sel and total (n,).
 // 36 bytes per slot of each distinct cell, ~80 flops and two square roots
-// per slot; bound by the loads.  Lanes with cell < 0 get slot = Kp and
-// zeros.
+// per slot.
+//
+// Bound: at neumann3d_u's star radii few balls reach a prim of their row
+// (the radii stay below the blob's band lbound), so a sweep of every slot
+// of every lane finds no weight.  So, as K6 and K7, a lane first takes
+// the skip test: a lane that is not live (``live``, when given), outside
+// the grid (cell < 0), or whose reach R + offset lies below its cell's
+// ``skip_r`` (when given) writes slot = Kp, w_sel = 0 and total = 0
+// without reading a corner.  These are the sweep's own outputs when no
+// slot weighs: every weight is +0 (d >= R), so total is +0, the target
+// u * 0 is at or above every CDF entry, the count is Kp and w_sel 0.  The
+// ball is centred on the point whose cell was passed, so the depth step
+// passes offset 0.  A warp tests BAND_G lanes at once and sweeps those
+// with band work one after the other, each slot's corners read once
+// (ball_sample, K6's step 1 in slot order).
 // --------------------------------------------------------------------------
 
-__global__ void band_ball_kernel(const int32_t* __restrict__ cell,
-                                 const float* __restrict__ q,
-                                 const float* __restrict__ R_in,
-                                 const float* __restrict__ u_in,
-                                 const float* __restrict__ coords, int64_t n,
-                                 int32_t Kp, int32_t* __restrict__ slot_out,
-                                 float* __restrict__ w_sel_out,
-                                 float* __restrict__ total_out) {
-  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+template <int MAXR>
+__global__ void __launch_bounds__(THREADS) band_ball_kernel(
+    const int32_t* __restrict__ cell, const float* __restrict__ q,
+    const float* __restrict__ R_in, const float* __restrict__ u_in,
+    const float* __restrict__ coords, const float* __restrict__ skip_r,
+    const uint8_t* __restrict__ live, float offset, int64_t n, int32_t Kp,
+    int32_t* __restrict__ slot_out, float* __restrict__ w_sel_out,
+    float* __restrict__ total_out) {
+  const int64_t first =
+      (((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5) * BAND_G;
   const int lane = threadIdx.x & 31;
-  if (i >= n) return;
-  const int64_t c = cell[i];
-  if (c < 0) {
-    if (lane == 0) {
+  bool work = false;
+  if (lane < BAND_G && first + lane < n) {
+    const int64_t i = first + lane;
+    if (live == nullptr || live[i]) {
+      const int64_t c = cell[i];
+      work = c >= 0;
+      if (work && skip_r != nullptr) work = !(R_in[i] + offset < skip_r[c]);
+    }
+    if (!work) {
       slot_out[i] = Kp;
       w_sel_out[i] = 0.f;
       total_out[i] = 0.f;
     }
-    return;
   }
-  const float qv[3] = {q[3 * i], q[3 * i + 1], q[3 * i + 2]};
-  float w_sel, total;
-  const int sel = ball_sample(coords + c * 9 * Kp, Kp, qv, R_in[i], u_in[i],
-                              lane, &w_sel, &total);
-  if (lane == 0) {
-    slot_out[i] = sel;
-    w_sel_out[i] = w_sel;
-    total_out[i] = total;
+  for (unsigned todo = __ballot_sync(FULL, work); todo; todo &= todo - 1) {
+    const int64_t i = first + __ffs(todo) - 1;
+    const float qv[3] = {q[3 * i], q[3 * i + 1], q[3 * i + 2]};
+    float w_sel, total;
+    const int sel =
+        ball_sample<MAXR>(coords + (int64_t)cell[i] * 9 * Kp, Kp, qv,
+                          R_in[i], u_in[i], lane, &w_sel, &total);
+    if (lane == 0) {
+      slot_out[i] = sel;
+      w_sel_out[i] = w_sel;
+      total_out[i] = total;
+    }
   }
 }
 
@@ -897,60 +922,71 @@ __global__ void __launch_bounds__(DENSE_THREADS) closest_point_dense_kernel(
 }
 
 // --------------------------------------------------------------------------
-// K12: the closest segment over each lane's own K gathered candidates:
-// q (N, 2), endpoint planes ax, ay, bx, by (N, K) and valid (N, K) ->
-// dist = sqrt(min d^2 over valid slots) (inf when none is) and the
-// smallest slot attaining it (0 when the min is inf, as the TPU kernel's
-// min(where(d2 <= best, cols, K))).  One warp a lane, K10's form: the lanes
-// stride the row, whose planes are contiguous, and the winner is the
-// lexicographic (d^2, slot) argmin by warp shuffle.  17 bytes and ~14
-// flops per (lane, slot): bound by the bytes.
+// K12 with its gathers: the closest segment over each lane's candidate
+// row.  q (N, 2), row (N,), cand (R, K) prim ids (-1 padded) and the
+// segment table seg (P, 4) = (ax, ay, bx, by) -> dist = sqrt(min d^2
+// over the slots with cand >= 0) (+inf when none is) and pid =
+// cand[row, s], s the smallest slot attaining the min (slot 0 when the
+// min is inf, as the TPU kernel's min(where(d2 <= best, cols, K))).  The
+// distance is seg_d2 on the operands the gathered form took (q - a, b -
+// a), so it is that form's bit for bit.
+//
+// Bound: the gathered form read four (N, K) planes and a mask that a
+// gather of verts[indices[cand[row]]] had just written (4.6 ms at the
+// bare grid's 1M lanes for a 0.39 ms sweep on an H100 80GB HBM3 at 700
+// W).  Here a lane reads its row
+// of K ids (4 bytes each; neighbouring lanes share rows, so most come
+// from L1 and L2) and one float4 of the table per valid slot (the table
+// is P x 16 bytes, 32 KB for bench.py's 2,048 segments, so it stays in
+// L1 and L2): ~20 bytes and ~14 flops a (lane, slot), so the bytes.  One
+// launch serves every lane, one thread a lane: it reads its row four
+// slots at a time in int4 loads (one slot a load when K is not a
+// multiple of 4) and keeps the least d^2 with a strict < in slot order.
+// This form was chosen by trial on the card against 2, 4, 8, 16 and 32
+// threads a lane, each reading four slots a load and meeting in a (d^2,
+// slot) min by shuffle (every form's time in PERF.md): the fewer threads
+// a lane, the faster.
 // --------------------------------------------------------------------------
 
-__global__ void candidate_band_kernel(const float* __restrict__ q,
-                                      const float* __restrict__ ax_p,
-                                      const float* __restrict__ ay_p,
-                                      const float* __restrict__ bx_p,
-                                      const float* __restrict__ by_p,
-                                      const uint8_t* __restrict__ valid,
-                                      int64_t n, int32_t K,
-                                      float* __restrict__ dist_out,
-                                      int32_t* __restrict__ slot_out) {
-  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
+template <int V>
+__global__ void __launch_bounds__(THREADS) candidate_rows_kernel(
+    const float* __restrict__ q, const int32_t* __restrict__ row,
+    const int32_t* __restrict__ cand, const float4* __restrict__ seg,
+    int64_t n, int32_t K, float* __restrict__ dist_out,
+    int32_t* __restrict__ pid_out) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float qx = q[2 * i];
   const float qy = q[2 * i + 1];
-  const int64_t off = i * K;
-  float best_d2 = inf_f();
-  int best_slot = K;
-  for (int k = lane; k < K; k += 32) {
-    if (!valid[off + k]) continue;
-    const float ax = ax_p[off + k];
-    const float ay = ay_p[off + k];
-    float t;
-    const float d2 = seg_d2(qx - ax, qy - ay, bx_p[off + k] - ax,
-                            by_p[off + k] - ay, &t);
-    if (d2 < best_d2) {
-      best_d2 = d2;
-      best_slot = k;
+  const int32_t* cr = cand + (int64_t)row[i] * K;
+  float best = inf_f();
+  int best_k = K;
+  for (int k0 = 0; k0 < K; k0 += V) {
+    int c[V];
+    if constexpr (V == 4) {
+      const int4 v = *reinterpret_cast<const int4*>(cr + k0);
+      c[0] = v.x;
+      c[1] = v.y;
+      c[2] = v.z;
+      c[3] = v.w;
+    } else {
+      c[0] = cr[k0];
     }
-  }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float od2 = __shfl_down_sync(FULL, best_d2, o);
-    const int os = __shfl_down_sync(FULL, best_slot, o);
-    if (od2 < best_d2 || (od2 == best_d2 && os < best_slot)) {
-      best_d2 = od2;
-      best_slot = os;
+    for (int u = 0; u < V; ++u) {
+      if (c[u] < 0) continue;
+      const float4 s = __ldg(seg + c[u]);
+      float t;
+      const float d2 = seg_d2(qx - s.x, qy - s.y, s.z - s.x, s.w - s.y, &t);
+      if (d2 < best) {
+        best = d2;
+        best_k = k0 + u;
+      }
     }
   }
-  if (lane == 0) {
-    dist_out[i] = sqrtf(best_d2);
-    slot_out[i] = best_slot < K ? best_slot : 0;
-  }
+  dist_out[i] = sqrtf(best);
+  pid_out[i] = cr[best_k < K ? best_k : 0];
 }
-
 
 }  // namespace
 
@@ -1006,18 +1042,17 @@ int closest_point_dense_launch(const void* q, const void* seg_a,
   return (int)cudaGetLastError();
 }
 
-int candidate_band_launch(const void* q, const void* ax, const void* ay,
-                          const void* bx, const void* by, const void* valid,
-                          int64_t n, int32_t K, void* dist, void* slot,
-                          void* stream) {
+// cand on 16 bytes when K % 4 == 0 (int4 loads), seg on 16 bytes.
+int candidate_rows_launch(const void* q, const void* row, const void* cand,
+                          const void* seg, int64_t n, int32_t K, void* dist,
+                          void* pid, void* stream) {
   if (n == 0) return 0;
   if (K <= 0) return (int)cudaErrorInvalidValue;
-  const int64_t blocks = (n + THREADS / 32 - 1) / (THREADS / 32);
-  candidate_band_kernel<<<(unsigned)blocks, THREADS, 0,
-                          (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)ax, (const float*)ay, (const float*)bx,
-      (const float*)by, (const uint8_t*)valid, n, K, (float*)dist,
-      (int32_t*)slot);
+  const int64_t blocks = (n + THREADS - 1) / THREADS;
+  auto kernel = K % 4 ? candidate_rows_kernel<1> : candidate_rows_kernel<4>;
+  kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)q, (const int32_t*)row, (const int32_t*)cand,
+      (const float4*)seg, n, K, (float*)dist, (int32_t*)pid);
   return (int)cudaGetLastError();
 }
 
@@ -1059,17 +1094,21 @@ int band_ray_launch(const void* cell, const void* o, const void* d,
   return (int)cudaGetLastError();
 }
 
+// skip_r (C,) and live (n,) may be null: no reach test, every lane live.
 int band_ball_launch(const void* cell, const void* q, const void* R,
-                     const void* u, const void* coords, int64_t n,
-                     int32_t Kp, void* slot, void* w_sel, void* total,
-                     void* stream) {
+                     const void* u, const void* coords, const void* skip_r,
+                     const void* live, float offset, int64_t n, int32_t Kp,
+                     void* slot, void* w_sel, void* total, void* stream) {
   if (n == 0) return 0;
   if (Kp > 32 * MAX_ROUNDS || Kp % 32) return (int)cudaErrorInvalidValue;
-  const int64_t blocks = (n + THREADS / 32 - 1) / (THREADS / 32);
-  band_ball_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  const int64_t warps = (n + BAND_G - 1) / BAND_G;
+  const int64_t blocks = (warps + THREADS / 32 - 1) / (THREADS / 32);
+  auto kernel = Kp <= 64 ? band_ball_kernel<2> : band_ball_kernel<MAX_ROUNDS>;
+  kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)cell, (const float*)q, (const float*)R,
-      (const float*)u, (const float*)coords, n, Kp, (int32_t*)slot,
-      (float*)w_sel, (float*)total);
+      (const float*)u, (const float*)coords, (const float*)skip_r,
+      (const uint8_t*)live, offset, n, Kp, (int32_t*)slot, (float*)w_sel,
+      (float*)total);
   return (int)cudaGetLastError();
 }
 

@@ -69,7 +69,7 @@ _COORD_CHUNK_ROWS = 1 << 16
 BARE_ROW_MAX = 128             # widest row the bare chain path sweeps whole
 SKIP_REL = 2.0 ** -10          # band_skip_radius's margins: relative ...
 SKIP_ABS = 2.0 ** -16          # ... and of the scene's extent
-_BARE_CHUNK_SLOTS = 1 << 22    # lanes x slots per chunk of the bare path
+_BARE_CHUNK_SLOTS = 1 << 22    # lanes x slots a chunk of the gathered bare rows
 
 
 @dataclass
@@ -120,6 +120,8 @@ class CandidateGrid:
     color_rows: torch.Tensor  # (2P, 3*dim) f32 corner colors per (prim, side)
     coords: torch.Tensor | None = None  # (R, dim*D, Kp) corner planes
     fine: FinePack | None = None
+    seg: torch.Tensor | None = None  # (P, 4) f32 (ax, ay, bx, by): a bare
+    #                                  2D grid's segments, K12's table
 
 
 @dataclass
@@ -361,7 +363,8 @@ def grid_from_numpy(*, cand, meta, row_lbound, row_diag, row_trunc, origin,
     """The port's CandidateGrid from numpy arrays (the port's own build, or
     np.asarray of a reference grid) plus the boundary's verts (V, D),
     indices (P, D) and colors (V, 2, 3): a bare grid, without the
-    coordinate table (``attach_coords`` adds it)."""
+    coordinate table (``attach_coords`` adds it).  In 2D it carries the
+    segment table that its chain path (K12) reads, 16 bytes a segment."""
     def t(a, dtype):
         return torch.as_tensor(np.require(a, requirements=("C", "W")),
                                dtype=dtype, device=device)
@@ -371,6 +374,9 @@ def grid_from_numpy(*, cand, meta, row_lbound, row_diag, row_trunc, origin,
     verts_t = t(np.asarray(verts, np.float32), torch.float32)
     idx_t = t(np.asarray(indices, np.int64), torch.int64)
     cand_t = t(np.asarray(cand, np.int32), torch.int32)
+    seg = None
+    if idx_t.shape[1] == 2:
+        seg = verts_t[idx_t].reshape(-1, 4).contiguous()
     return CandidateGrid(
         origin=t(np.asarray(origin, np.float32), torch.float32),
         inv_cell=t(np.asarray(inv_cell, np.float32), torch.float32),
@@ -384,16 +390,17 @@ def grid_from_numpy(*, cand, meta, row_lbound, row_diag, row_trunc, origin,
         trunc_min_rl=float(rlb[rt].min()) if rt.any() else float("inf"),
         verts=verts_t, indices=idx_t,
         color_rows=color_rows_from(t(np.asarray(colors, np.float32),
-                                     torch.float32), idx_t))
+                                     torch.float32), idx_t), seg=seg)
 
 
 def attach_coords(grid: CandidateGrid) -> CandidateGrid:
     """The grid with its coordinate table (the reference's
-    ``attach_coords``): the corner planes that K2-K5, K10 and K11 sweep."""
+    ``attach_coords``): the corner planes that K2-K5, K10 and K11 sweep,
+    in place of the bare chain path's segment table."""
     if grid.coords is not None:
         return grid
     return replace(grid, coords=coords_from_cand(grid.cand, grid.verts,
-                                                 grid.indices))
+                                                 grid.indices), seg=None)
 
 
 # --------------------------------------------------------------------------- #
@@ -713,22 +720,13 @@ def _trunc_fallback(grid: CandidateGrid, row: torch.Tensor, d: torch.Tensor):
     return torch.where(grid.row_trunc[r], grid.row_lbound[r], d)
 
 
-def _bare_rows(grid: CandidateGrid, q, cand):
-    """A whole row of at most BARE_ROW_MAX slots on gathered corners:
-    K12 in 2D, the reference's dense prim_closest_point sweep in 3D.
-    (distance, winning slot's prim id, -1 where the row holds none)."""
-    dim = len(grid.res)
+def _bare_rows_3d(grid: CandidateGrid, q, cand):
+    """A whole 3D row of at most BARE_ROW_MAX slots on gathered corners,
+    the reference's dense prim_closest_point sweep: (distance, winning
+    slot's prim id, -1 where the row holds none)."""
     safe = cand.clamp(min=0).long()
-    corner = [grid.verts[grid.indices[:, k][safe]] for k in range(dim)]
-    if dim == 2:
-        from ..ops.queries import candidate_band  # it imports this module
-
-        (ax, ay), (bx, by) = (c.unbind(-1) for c in corner)
-        d, slot = candidate_band(q.contiguous(), ax.contiguous(),
-                                 ay.contiguous(), bx.contiguous(),
-                                 by.contiguous(), cand >= 0)
-        return d, cand.gather(1, slot[:, None].long())[:, 0]
-    d, _ = prim_closest_point(dim, q[:, None, :], corner)
+    corner = [grid.verts[grid.indices[:, k][safe]] for k in range(3)]
+    d, _ = prim_closest_point(3, q[:, None, :], corner)
     d = torch.where(cand >= 0, d, torch.full_like(d, float("inf")))
     j = torch.argmin(d, dim=1, keepdim=True)                # first minimum
     return d.gather(1, j)[:, 0], cand.gather(1, j)[:, 0]
@@ -768,12 +766,19 @@ def _planar_rows(grid: CandidateGrid, q, cand):
 
 def _grid_closest_point_bare(grid: CandidateGrid, q, row):
     """The chain path's sweep on a grid without a coordinate table (the
-    reference's ``_grid_closest_point_xla``): each lane's row of prim ids
+    reference's ``_grid_closest_point_xla``): in 2D with rows of at most
+    BARE_ROW_MAX slots, K12 over every lane in one launch, reading the
+    rows and the segment table itself; else each lane's row of prim ids
     and their corners gathered, in lane chunks of _BARE_CHUNK_SLOTS
     slots.  (distance (N,), prim id (N,) int32)."""
     n = q.shape[0]
     K = grid.cand.shape[1]
-    sweep = _bare_rows if K <= BARE_ROW_MAX else _planar_rows
+    if len(grid.res) == 2 and K <= BARE_ROW_MAX:
+        from ..ops.queries import candidate_rows  # it imports this module
+
+        return candidate_rows(q.contiguous(), row.contiguous(), grid.cand,
+                              grid.seg)
+    sweep = _bare_rows_3d if K <= BARE_ROW_MAX else _planar_rows
     dist = torch.empty((n,), dtype=torch.float32, device=q.device)
     pid = torch.empty((n,), dtype=torch.int32, device=q.device)
     m = max(1, _BARE_CHUNK_SLOTS // K)

@@ -428,7 +428,8 @@ def band_ray_intersect(bg: BandGrid, gs: GeomSet, o, d, tmax, ref=None,
 
 def _band_ball_gather(bg: BandGrid, gs: GeomSet, q, R, u):
     """band_sample_in_ball on the rows' gathered corners (the reference's
-    form for a grid without a corner table), in lane chunks."""
+    form for a grid without a corner table), in lane chunks; every lane is
+    sampled."""
     n = q.shape[0]
     idx = torch.empty((n,), dtype=torch.int32, device=q.device)
     pdf = torch.empty((n,), device=q.device)
@@ -459,17 +460,23 @@ def _band_ball_gather(bg: BandGrid, gs: GeomSet, q, R, u):
     return idx, pdf
 
 
-def band_sample_in_ball(bg: BandGrid, gs: GeomSet, q, R, u):
+def band_sample_in_ball(bg: BandGrid, gs: GeomSet, q, R, u, live=None):
     """(prim id, pdf per unit area): the Green-weighted in-ball prim
     sample over the band row of q's cell, kernel K8 in 3D and the gather
     form in 2D; -1 and 0 when no prim weighs.  The pdf takes the prim's
     measure (the sample is uniform on the prim); the kernel's in-tile
-    area only weights the CDF."""
+    area only weights the CDF.  In 3D, K8 sweeps no row for a lane whose
+    R lies below its cell's ``skip_r`` (no prim of the row is in the
+    ball, so none weighs: the same outputs on every lane) nor for the
+    lanes that ``live`` (N,) bool leaves out (-1 and 0 there); the 2D
+    gather form samples every lane."""
     if bg.coords is None:
         return _band_ball_gather(bg, gs, q, R, u)
     lin, outside, cell = _kernel_cell(bg, q)
     slot, w_sel, total = K.band_ball(cell, q.contiguous(), R.contiguous(),
-                                     u.contiguous(), bg.coords)
+                                     u.contiguous(), bg.coords, bg.skip_r,
+                                     None if live is None
+                                     else live.contiguous(), 0.0)
     K_row = bg.rows.shape[1]
     pid = torch.clamp(bg.rows[lin, slot.long().clamp(max=K_row - 1)], min=0)
     m_sel = gs.prim_measure[pid]

@@ -25,10 +25,15 @@ Contracts (the TPU kernels', minus the per-lane DMAs):
   the smallest index attaining it (0 when every d^2 overflows).  With
   ``active`` (N,) bool, the lane-list form: K1 compacts the set lanes and
   only those are swept; every other lane gets dist = +inf and prim = 0.
-* ``candidate_band(q, vax, vay, vbx, vby, valid) -> (dist, slot)``: the
-  closest of each lane's own K gathered segments among its valid slots,
-  dist = sqrt(min d^2) (inf when none is valid) and the smallest slot
-  attaining it (0 when the min is inf).
+* ``candidate_rows(q, row, cand, seg) -> (dist (N,), pid (N,))``: the
+  closest of the segments in each lane's candidate row ``cand[row]``
+  (prim ids, -1 padded) over the segment table ``seg`` (P, 4) = (ax, ay,
+  bx, by): dist = sqrt(min d^2 over the slots with an id) (inf when none
+  has) and pid = cand[row, s], s the smallest slot attaining it (0 when
+  the min is inf).  It is the TPU kernel's contract
+  (``candidate_band_plain``: the closest of each lane's own K gathered
+  segments among its valid slots, and that slot) with the gathers that
+  feed it.
 * ``band_neumann_walk(cell, q, R, on, n_normal, u_sel, u_pt, d_walk, eps,
   coords, skip_r=None, live=None) -> (out (N, 15), slot (N,))``: the
   Green-weighted in-ball CDF sample over the lane's prim-band cell, its
@@ -54,9 +59,15 @@ Contracts (the TPU kernels', minus the per-lane DMAs):
   below ``skip_r`` (C,) of their cell (``offset`` bounds the distance
   from the origin to the point whose cell was passed).  The skip changes
   no output of a live lane.
-* ``band_ball(cell, q, R, u, coords) -> (slot, w_sel, total)``: K6's
-  in-ball CDF sample alone; slot = Kp means none (w_sel = 0), and lanes
-  with cell < 0 get slot = Kp and zeros.
+* ``band_ball(cell, q, R, u, coords, skip_r=None, live=None, offset=0.0)
+  -> (slot, w_sel, total)``: K6's in-ball CDF sample alone; slot = Kp
+  means none (w_sel = 0).  Lanes with cell < 0 get slot = Kp and zeros
+  without a sweep, and so do the lanes that ``live`` leaves out and those
+  whose reach R + offset lies below ``skip_r`` (C,) of their cell
+  (``offset`` bounds the distance from the ball's centre to the point
+  whose cell was passed).  Those are the sweep's outputs when no slot
+  weighs, so the reach test changes no output of any lane, and the mask
+  only those of the lanes it leaves out.
 """
 
 from __future__ import annotations
@@ -85,12 +96,13 @@ _SIGNATURES = {
     "sil_band_2d_launch": [VP, VP, VP, VP, I64, I32, VP, VP],
     "closest_point_dense_launch": [VP, VP, VP, I64, I32, VP, VP, VP, VP,
                                    VP, VP],
-    "candidate_band_launch": [VP, VP, VP, VP, VP, VP, I64, I32, VP, VP, VP],
+    "candidate_rows_launch": [VP, VP, VP, VP, I64, I32, VP, VP, VP],
     "band_neumann_walk_launch": [VP, VP, VP, VP, VP, VP, VP, VP, F32, VP,
                                  VP, VP, I64, I32, VP, VP, VP],
     "band_ray_launch": [VP, VP, VP, VP, VP, VP, VP, F32, I64, I32, VP, VP,
                         VP],
-    "band_ball_launch": [VP, VP, VP, VP, VP, I64, I32, VP, VP, VP, VP],
+    "band_ball_launch": [VP, VP, VP, VP, VP, VP, VP, F32, I64, I32, VP, VP,
+                         VP, VP],
 }
 
 
@@ -262,38 +274,66 @@ closest_point_dense.launches = 0
 
 
 # --------------------------------------------------------------------------- #
-# K12 candidate_band
+# K12 candidate_rows
 # --------------------------------------------------------------------------- #
 
 
 def candidate_band_plain(q, vax, vay, vbx, vby, valid):
+    """The TPU kernel's contract on gathered rows: q (N, 2), endpoint
+    planes (N, K) and valid (N, K) -> (dist (N,), slot (N,))."""
+    n, K = vax.shape
+    _check("q", q, torch.float32, (n, 2), q.device)
+    for name, x in (("vax", vax), ("vay", vay), ("vbx", vbx), ("vby", vby)):
+        _check(name, x, torch.float32, (n, K), q.device)
+    _check("valid", valid, torch.bool, (n, K), q.device)
     d2 = seg_d2(q[:, 0:1] - vax, q[:, 1:2] - vay, vbx - vax, vby - vay)[0]
     d2 = torch.where(valid, d2, torch.full_like(d2, float("inf")))
     s = torch.argmin(d2, dim=1, keepdim=True)              # first minimum
     return torch.sqrt(d2.gather(1, s)[:, 0]), s[:, 0].to(torch.int32)
 
 
-def candidate_band(q, vax, vay, vbx, vby, valid):
-    n, K = vax.shape
+def candidate_rows_plain(q, row, cand, seg):
+    """Gather each lane's row and its segments, then
+    ``candidate_band_plain``, in lane chunks."""
+    n = q.shape[0]
+    K = cand.shape[1]
+    dist = torch.empty((n,), dtype=torch.float32, device=q.device)
+    pid = torch.empty((n,), dtype=torch.int32, device=q.device)
+    m = max(1, _PLAIN_PAIRS // K)
+    for c0 in range(0, n, m):
+        c = cand[row[c0:c0 + m].long()]                    # (m, K)
+        g = seg[c.clamp(min=0).long()].unbind(-1)          # 4 x (m, K)
+        dist[c0:c0 + m], slot = candidate_band_plain(
+            q[c0:c0 + m], *(x.contiguous() for x in g), c >= 0)
+        pid[c0:c0 + m] = c.gather(1, slot[:, None].long())[:, 0]
+    return dist, pid
+
+
+def candidate_rows(q, row, cand, seg):
+    n = q.shape[0]
+    R, K = cand.shape
     dev = q.device
     _check("q", q, torch.float32, (n, 2), dev)
-    for name, x in (("vax", vax), ("vay", vay), ("vbx", vbx), ("vby", vby)):
-        _check(name, x, torch.float32, (n, K), dev)
-    _check("valid", valid, torch.bool, (n, K), dev)
+    _check("row", row, torch.int32, (n,), dev)
+    _check("cand", cand, torch.int32, (R, K), dev)
+    _check("seg", seg, torch.float32, (seg.shape[0], 4), dev)
     if K == 0:
         raise ValueError("no candidate slots")
     if dev.type == "cpu":
-        return candidate_band_plain(q, vax, vay, vbx, vby, valid)
+        return candidate_rows_plain(q, row, cand, seg)
+    if seg.data_ptr() % 16 or (K % 4 == 0 and cand.data_ptr() % 16):
+        raise ValueError("seg (and cand when K % 4 == 0) must start on 16 "
+                         "bytes: the kernel reads them as float4 / int4")
     dist = torch.empty((n,), dtype=torch.float32, device=dev)
-    slot = torch.empty((n,), dtype=torch.int32, device=dev)
-    _launch(library().candidate_band_launch, q.data_ptr(), vax.data_ptr(),
-            vay.data_ptr(), vbx.data_ptr(), vby.data_ptr(), valid.data_ptr(),
-            n, K, dist.data_ptr(), slot.data_ptr(), device=dev)
-    candidate_band.launches += 1
-    return dist, slot
+    pid = torch.empty((n,), dtype=torch.int32, device=dev)
+    _launch(library().candidate_rows_launch, q.data_ptr(), row.data_ptr(),
+            cand.data_ptr(), seg.data_ptr(), n, K, dist.data_ptr(),
+            pid.data_ptr(), device=dev)
+    candidate_rows.launches += 1
+    return dist, pid
 
 
-candidate_band.launches = 0
+candidate_rows.launches = 0
 
 
 # --------------------------------------------------------------------------- #
@@ -528,14 +568,20 @@ band_ray.launches = 0
 # --------------------------------------------------------------------------- #
 
 
-def band_ball_plain(cell, q, R, u, coords):
+def ball_work(cell, R, offset: float, skip_r=None, live=None):
+    """The lanes K8 sweeps: reach R + offset."""
+    return _in_reach(cell, R + offset, skip_r, live)
+
+
+def band_ball_plain(cell, q, R, u, coords, skip_r=None, live=None,
+                    offset: float = 0.0):
     n = cell.shape[0]
     Kp = coords.shape[2]
     dev = q.device
     slot = torch.full((n,), Kp, dtype=torch.int32, device=dev)
     w_sel = torch.zeros((n,), dtype=torch.float32, device=dev)
     total = torch.zeros((n,), dtype=torch.float32, device=dev)
-    sel = torch.nonzero(cell >= 0).flatten()
+    sel = torch.nonzero(ball_work(cell, R, offset, skip_r, live)).flatten()
     for c0 in range(0, sel.numel(), _PLAIN_CHUNK):
         ids = sel[c0:c0 + _PLAIN_CHUNK]
         c = coords[cell[ids].long()].unbind(1)             # 9 x (m, Kp)
@@ -545,7 +591,8 @@ def band_ball_plain(cell, q, R, u, coords):
     return slot, w_sel, total
 
 
-def band_ball(cell, q, R, u, coords):
+def band_ball(cell, q, R, u, coords, skip_r=None, live=None,
+              offset: float = 0.0):
     n = cell.shape[0]
     dev = q.device
     C, _, Kp = coords.shape
@@ -554,16 +601,22 @@ def band_ball(cell, q, R, u, coords):
     _check("R", R, torch.float32, (n,), dev)
     _check("u", u, torch.float32, (n,), dev)
     _check("coords", coords, torch.float32, (C, 9, Kp), dev)
+    if skip_r is not None:
+        _check("skip_r", skip_r, torch.float32, (C,), dev)
+    if live is not None:
+        _check("live", live, torch.bool, (n,), dev)
     if Kp % 32 or Kp > 256:
         raise ValueError(f"coords has {Kp} slots per cell (a multiple of "
                          f"32, at most 256)")
     if dev.type == "cpu":
-        return band_ball_plain(cell, q, R, u, coords)
+        return band_ball_plain(cell, q, R, u, coords, skip_r, live, offset)
     slot = torch.empty((n,), dtype=torch.int32, device=dev)
     w_sel = torch.empty((n,), dtype=torch.float32, device=dev)
     total = torch.empty((n,), dtype=torch.float32, device=dev)
     _launch(library().band_ball_launch, cell.data_ptr(), q.data_ptr(),
-            R.data_ptr(), u.data_ptr(), coords.data_ptr(), n, Kp,
+            R.data_ptr(), u.data_ptr(), coords.data_ptr(),
+            0 if skip_r is None else skip_r.data_ptr(),
+            0 if live is None else live.data_ptr(), float(offset), n, Kp,
             slot.data_ptr(), w_sel.data_ptr(), total.data_ptr(), device=dev)
     band_ball.launches += 1
     return slot, w_sel, total
@@ -572,7 +625,7 @@ def band_ball(cell, q, R, u, coords):
 band_ball.launches = 0
 
 KERNELS = (band_neumann_walk, band_ray, band_ball, sil_band, sil_band_2d,
-           closest_point_dense, candidate_band)
+           closest_point_dense, candidate_rows)
 
 
 def reset_launch_counts():

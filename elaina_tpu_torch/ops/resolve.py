@@ -73,8 +73,8 @@ _SIGNATURES = {
                                 VP, VP, VP, VP],
     "fetch_colors_launch": [VP, VP, VP, I64, I64, VP, VP],
     "fetch_colors3_launch": [VP, VP, VP, I64, I64, VP, VP],
-    "grid_band_2d_launch": [VP, VP, VP, I64, I32, VP, VP, VP],
-    "grid_band_3d_launch": [VP, VP, VP, I64, I32, VP, VP, VP],
+    "grid_band_2d_launch": [VP, VP, VP, I64, I32, VP, VP, VP, VP],
+    "grid_band_3d_launch": [VP, VP, VP, I64, I32, VP, VP, VP, VP],
 }
 
 

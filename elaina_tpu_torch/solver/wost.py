@@ -284,7 +284,8 @@ def _neumann_term(scene: Scene, state: WalkState, live, R_B, gen,
     n = state.pos.shape[0]
     u_sel = torch.rand(n, generator=gen, device=gen.device)
     if bg is not None:
-        pid, pdf = Q.band_sample_in_ball(bg, gs, state.pos, R_B, u_sel)
+        pid, pdf = Q.band_sample_in_ball(bg, gs, state.pos, R_B, u_sel,
+                                         live=live)
     else:
         pid, pdf = Q.sample_in_ball(gs, state.pos, R_B, u_sel)
     valid = (pid >= 0) & (pdf > 0)

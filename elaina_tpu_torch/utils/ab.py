@@ -13,11 +13,12 @@ turn of ``--order`` the named tree runs, each in a process of its own:
    (``configs/neumann3d_u.json`` as shipped, 64 spp), nogrid_u
    (``chip_smoke.py``'s: bench.py's curve at 256 segments, no grid, in
    the 4-segment box, 8 spp), neumann3d_source (neumann3d_u with a
-   volumetric source, ``utils/scenes.write_neumann3d_source``, 64 spp)
-   and wavy8192_u (the lobed scene in a wavy Neumann box of 8,192
-   segments, its 2D band grids, 8 spp) through ``python -m
-   elaina_tpu_torch run``: walk_steps / duration of ``result.json``.  A
-   tree's first turn starts on a cold ``_build/``;
+   volumetric source, ``utils/scenes.write_neumann3d_source``, 64 spp),
+   wavy8192_u (the lobed scene in a wavy Neumann box of 8,192 segments,
+   its 2D band grids, 8 spp) and neumann3d_unfused (neumann3d_u at 64 spp
+   with ``ELAINA_FUSED_BAND=0``: K8 and K7 in place of K6) through
+   ``python -m elaina_tpu_torch run``: walk_steps / duration of
+   ``result.json``.  A tree's first turn starts on a cold ``_build/``;
 2. bench.py's own scene (``bench_square``: 2,048 segments, no grid,
    1024^2, depth 64, 4 spp) and nogrid_u through the tree's
    ``UniformIntegrator`` in a process of their own, each solved twice:
@@ -33,8 +34,13 @@ turn of ``--order`` the named tree runs, each in a process of its own:
    (``*_lanes``: the lane-list form, K1 included, where the tree has one,
    else what its path runs there, the full form), over the bench square's
    2,048 segments and over nogrid_u's 256 (``*_nogrid*``), with K1 alone
-   on nogrid_u's walks; K6 on neumann3d_u's lanes after 3 depth steps
-   with their star radii (with the tree's skip where it has one); K2 and
+   on nogrid_u's walks; ``grid_closest_point`` on a bare candidate grid
+   of the bench square's curve (K = 64, no coordinate table) over the
+   1024^2 frame points (``bare_grid``: K12 and, in a tree from before it
+   read the rows itself, the gathers that fed it); K6 and K8 on
+   neumann3d_u's lanes after 3 depth steps with their star radii (with
+   the tree's skip and live mask where it has them), K8 also at radii
+   of 0.05 to 1 (``band_ball_wide``), which reach the blob; K2 and
    K4 on lobed_u's and neumann3d_u's need lanes after 3 depth steps, as
    the tree's ``_fast_dirichlet`` runs them (N-wide mask, rows and points
    to the wrapper, which lists the lanes itself; or, for a tree named by
@@ -173,7 +179,8 @@ def _k13_kernels(problem, integ, a, b, tag: str, timed) -> dict:
 
 def _band_kernels(conf_3d: str, conf_ng: str, dev, timed) -> dict:
     """K13 on the bench square and on nogrid_u, K1 on nogrid_u's walks,
-    and K6 on neumann3d_u's lanes, each as the tree's path calls it."""
+    the bare grid's chain path (K12), and K6 and K8 on neumann3d_u's
+    lanes, each as the tree's path calls it."""
     import inspect
 
     import torch
@@ -189,6 +196,7 @@ def _band_kernels(conf_3d: str, conf_ng: str, dev, timed) -> dict:
     a = torch.as_tensor(verts[idx[:, 0]], device=dev)
     b = torch.as_tensor(verts[idx[:, 1]], device=dev)
     out = _k13_kernels(problem, integ, a, b, "", timed)
+    out["bare_grid"] = _bare_grid(integ.eval_points, dev, timed)
     problem, integ = load_integrator(conf_ng, dev, 1)
     gs = problem.scene.dirichlet.gs
     a = gs.verts[gs.indices[:, 0]].contiguous()
@@ -220,7 +228,35 @@ def _band_kernels(conf_3d: str, conf_ng: str, dev, timed) -> dict:
     if "skip_r" in inspect.signature(QK.band_neumann_walk).parameters:
         args += (bg.skip_r, live)
     out["band_neumann_walk"] = timed(lambda: QK.band_neumann_walk(*args))
+    wide = (0.05 + 0.95 * torch.rand(n, generator=gen, device=dev))
+    skip = "skip_r" in inspect.signature(QK.band_ball).parameters
+    for key, radii in (("band_ball", R_B), ("band_ball_wide", wide)):
+        bargs = (cell, state.pos.contiguous(), radii.contiguous(), u_sel,
+                 bg.coords) + ((bg.skip_r, live, 0.0) if skip else ())
+        out[key] = timed(lambda a=bargs: QK.band_ball(*a))
     return out
+
+
+def _bare_grid(q, dev, timed) -> dict:
+    """``grid_closest_point`` over the points q on a bare candidate grid
+    of the bench square's curve (K = 64), as the tree builds and sweeps
+    it."""
+    from elaina_tpu_torch.core.problem import grid_bounds
+    from elaina_tpu_torch.geometry.grid import (build_candidate_grid,
+                                                grid_closest_point,
+                                                grid_from_numpy)
+    from elaina_tpu_torch.utils import scenes as S
+
+    verts, idx, colors = S.bench_square_scene()
+    lo, hi = grid_bounds(verts, [-100, -100], [600, 600])
+    ga = build_candidate_grid(verts, idx, lo, hi, K=64, max_res=2048,
+                              cache_dir=os.environ["ELAINA_CACHE_DIR"])
+    bare = grid_from_numpy(**{k: getattr(ga, k) for k in (
+        "cand", "meta", "row_lbound", "row_diag", "row_trunc", "origin",
+        "inv_cell", "res")}, verts=verts, indices=idx, colors=colors,
+        device=dev)
+    q = q.contiguous()
+    return timed(lambda: grid_closest_point(bare, q))
 
 
 def _resolve_kernels(conf_2d: str, conf_3d: str, dev, timed,
@@ -429,6 +465,7 @@ def _run(cmd: list, tree: str, env: dict) -> str:
 
 
 def _run_scene(tree: str, conf: str, env: dict) -> dict:
+    """One CLI run of ``conf`` in ``tree``: its rate and film digest."""
     from ..output.image_io import read_exr
 
     _run([sys.executable, "-m", "elaina_tpu_torch", "run", conf, "--device",
@@ -477,7 +514,7 @@ def main(argv=None) -> int:
     turns = []
     with tempfile.TemporaryDirectory() as root:
         env = dict(os.environ, ELAINA_CACHE_DIR=os.path.join(root, "cache"))
-        for sub in ("nogrid", "source", "wavy"):
+        for sub in ("nogrid", "source", "wavy", "unfused"):
             os.makedirs(os.path.join(root, sub))
         conf_ng = _renamed(scenes.write_scene(
             os.path.join(root, "nogrid"), SPP_NOGRID, segments=256),
@@ -490,12 +527,17 @@ def main(argv=None) -> int:
                      os.path.join(root, "source"), SPP_3D),
                  "wavy8192_u": _renamed(scenes.write_scene(
                      os.path.join(root, "wavy"), SPP_WAVY,
-                     neumann_segments=8192), "wavy8192_u")}
+                     neumann_segments=8192), "wavy8192_u"),
+                 "neumann3d_unfused": _renamed(scenes.write_config_copy(
+                     os.path.join(root, "unfused"), "neumann3d_u", SPP_3D),
+                     "neumann3d_unfused")}
+        envs = {scene: env for scene in confs}
+        envs["neumann3d_unfused"] = dict(env, ELAINA_FUSED_BAND="0")
         for i, name in enumerate(order):
             t0 = time.time()
             turn = {"turn": i, "tree": name}
             for scene, conf in confs.items():   # first: a cold _build/
-                turn[scene] = _run_scene(trees[name], conf, env)
+                turn[scene] = _run_scene(trees[name], conf, envs[scene])
             for scene, extra in (("bench_square", []),
                                  ("nogrid_u_twice", [conf_ng])):
                 out = _run([sys.executable, os.path.join(here, "ab.py"),
