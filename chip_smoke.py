@@ -16,7 +16,10 @@ and never prints its last line:
 2. 2D kernels K1-K3 and K10 against their plain PyTorch versions, on the
    card, at the 2D main path's shapes: 1024^2 lanes, the synthetic scene's
    candidate rows, lanes whose FinePack need bits fired after a few depth
-   steps (K10: every pixel's row through ``grid_row_index``).  K1 also
+   steps (K10: every pixel's row through ``grid_row_index``, bit for bit,
+   with that lookup and the whole ``grid_closest_point`` timed; then on a
+   tie table: one segment at several slots of a row, a row whose every
+   d^2 overflows, rows -1: the smallest tied slot, slot 0).  K1 also
    back to back on 1024^2, 65,536 and 1024^2 lanes, with its edge cases
    (a cap below the count and of 1, N off its tile, a mask off 16 bytes,
    all-clear and all-set masks), ids and count exact.  K2 as
@@ -55,8 +58,9 @@ and never prints its last line:
    ``configs/data/ladybug_source.nvdb`` as its source (a real NanoVDB
    file over the scene's frame) and the channels DIRICHLET_SDF,
    NEUMANN_SDF, SOURCE and SOLUTION, through ``run_expr``: K10 must
-   launch, the SOURCE film equals a plain bilinear sample of the grid and
-   the DIRICHLET_SDF film is finite and >= 0.
+   launch, the SOURCE film equals a plain bilinear sample of the grid,
+   the DIRICHLET_SDF film is finite and >= 0 and K10 equals its plain
+   version bit for bit on the frame's pixels.
 4c. No candidate grid, through ``run_expr``: bench.py's curve cut into 256
    segments (the largest set ``Problem`` leaves without a grid) in the
    4-segment box, 1024^2, depth 64, eps 1, 8 spp, SOLUTION and
@@ -83,8 +87,9 @@ and never prints its last line:
    its grids (each build's seconds printed), 65,536 lanes after a few
    depth steps (K4 with K2's cases and its launches apart, its corners
    exact; K11: the frame's 65,536 plane points through
-   ``grid_row_index``); K6 on that step's live lanes and star radii from
-   ``_separate``, with its skip (the share of lanes it took printed) and
+   ``grid_row_index``, and its tie table, as K10's); K6 on that step's
+   live lanes and star radii from ``_separate``, with its skip (the share
+   of lanes it took printed) and
    without; K7 with its skip (reach tmax + eps) on the step's live lanes,
    without a mask, on every lane, on none and on lane N - 1 alone (slots
    exact, t within TOL), and equal bit for bit to the unskipped kernel on
@@ -115,7 +120,7 @@ and never prints its last line:
    mean low (the FinePack's cell-wide bounds slow the walks near the
    surface, as the reference's do; PERF.md).  The DIRICHLET_SDF film is
    finite and equals the row's lower bound on truncated-row pixels, and
-   K11 equals its plain version on the 2-level grid.
+   K11 equals its plain version bit for bit on the 2-level grid.
 8. The 3D main path, neumann3d_u, through ``exec.run_expr`` from a copy
    of ``configs/neumann3d_u.json`` with its channels and exports (256^2,
    depth 64, eps 0.01, 64 spp, SOLUTION and DIRICHLET_SDF): finite, mean
@@ -556,46 +561,104 @@ def resolve_split(dim: int, need, row, q, g) -> dict:
     return out
 
 
+def check_band_bits(name: str, out, ref, label: str) -> None:
+    """K10 / K11's (d^2, slot, corners) equal to the plain version's bit
+    for bit on every lane, the fill of lanes without a row included."""
+    import torch
+
+    for what, a, b in zip(("d^2", "slots", "corners"), out, ref):
+        if not torch.equal(a, b):
+            bad = (a != b) if a.dim() == 1 else (a != b).any(1)
+            raise RuntimeError(f"{name} on {label}: {int(bad.sum())} lanes' "
+                               f"{what} differ from the plain version's")
+
+
 def check_grid_band(name: str, row, q, g, kernels: Kernels | None,
                     label: str) -> None:
     """K10 / K11 on every lane's candidate row against the plain version:
-    d^2 within TOL, the same slot, prim and corners except at an exact tie
-    of d^2.  With ``kernels``, its record (times and bound) is added."""
+    d^2, slot (the smallest on equal d^2, the plain argmin's first
+    minimum, so the prim id too) and corners equal bit for bit.  With
+    ``kernels``, its record (times, bound, and the row lookup
+    ``grid_row_index`` and the whole chain path ``grid_closest_point``
+    timed at the same points) is added."""
+    from elaina_tpu_torch.geometry.grid import (grid_closest_point,
+                                                grid_row_index)
+    from elaina_tpu_torch.ops import resolve as R
+    from elaina_tpu_torch.utils.timing import cuda_ms, device_ms
+
+    kern, plain = getattr(R, name), getattr(R, name + "_plain")
+    args = (row.contiguous(), q.contiguous(), g.coords)
+    out = kern(*args)
+    check_band_bits(name, out, plain(*args), label)
+    v = row >= 0
+    K = g.cand.shape[1]
+    n = int(v.sum())
+    rows = n_unique(row[v])
+    log(f"    {name} on {label}: {n} lanes over {rows} rows of K = {K}, "
+        f"bit-equal")
+    if kernels is None:
+        return
+    dim, Kp = q.shape[1], g.coords.shape[2]
+    lookup = {}
+    for key, fn in (("row_index", lambda: grid_row_index(g, q)),
+                    ("chain", lambda: grid_closest_point(g, q))):
+        lookup[f"{key}_ms"] = cuda_ms(fn)
+        (lookup[f"{key}_device_ms"], lookup[f"{key}_host_us"],
+         _) = device_ms(fn)
+    log(f"    {label}: grid_row_index {lookup['row_index_ms']:.4f} ms "
+        f"(device {lookup['row_index_device_ms']:.4f} ms, host "
+        f"{lookup['row_index_host_us']:.1f} us), grid_closest_point "
+        f"{lookup['chain_ms']:.4f} ms (device "
+        f"{lookup['chain_device_ms']:.4f} ms, host "
+        f"{lookup['chain_host_us']:.1f} us) ({kernels.card})")
+    kernels.add(name, 0.0, lambda: kern(*args), lambda: plain(*args), None,
+                n * (4 + 4 * dim + 4 + 4 + 4 * dim * dim)
+                + rows * dim * dim * Kp * 4,
+                (20.0 if dim == 2 else 120.0) * n * K,
+                f"{label}: {n} lanes over {rows} rows of K = {K}", **lookup)
+
+
+TIE_SLOTS = (5, 6, 8, 9, 12, 37, 66, 130)   # the tie case's repeated slots
+
+
+def check_grid_band_ties(name: str, Kp: int, device) -> None:
+    """K10 / K11 on a made-up table of Kp slots: row 0 holds one segment
+    (triangle) at TIE_SLOTS and slot Kp - 1, slots in other threads'
+    strides (at 4 threads a lane, slot 5 falls to the second thread, 8
+    to the third, 66 and 130 to the first), among candidates 100 units
+    away; every slot of row 1 holds a
+    prim at 1e20, whose d^2 overflows.  4,096 points within a unit of the
+    repeated prim, on rows 0, 1 and -1: d^2, slot and corners bit-equal
+    to the plain version's, slot 5 (the smallest tied) on row 0, slot 0
+    on row 1."""
     import torch
 
     from elaina_tpu_torch.ops import resolve as R
 
-    kern, plain = getattr(R, name), getattr(R, name + "_plain")
-    args = (row.contiguous(), q.contiguous(), g.coords)
-    d2, slot, c = kern(*args)
-    d2_p, slot_p, c_p = plain(*args)
-    v = row >= 0
-    err = float((d2[v] - d2_p[v]).abs().max())
-    if not torch.allclose(d2[v], d2_p[v], rtol=TOL, atol=TOL):
-        raise RuntimeError(f"{name} d^2 differs on {label}: {err}")
-    differ = v & (slot != slot_p)
-    if bool((differ & (d2 != d2_p)).any()):
-        raise RuntimeError(f"{name} picked another slot on {label}")
-    same = v & ~differ
-    K = g.cand.shape[1]
-    pid = g.cand[row.long(), slot.long().clamp(max=K - 1)]
-    pid_p = g.cand[row.long(), slot_p.long().clamp(max=K - 1)]
-    if not (torch.equal(c[same], c_p[same])
-            and torch.equal(pid[same], pid_p[same])):
-        raise RuntimeError(f"{name} corners or ids differ on {label}")
-    n = int(v.sum())
-    rows = n_unique(row[v])
-    log(f"    {name} on {label}: {n} lanes over {rows} rows of K = {K}, "
-        f"{int(differ.sum())} exact ties took another slot")
-    if kernels is None:
-        return
-    dim = q.shape[1]
-    Kp = g.coords.shape[2]
-    kernels.add(name, err, lambda: kern(*args), lambda: plain(*args), None,
-                n * (4 + 4 * dim + 4 + 4 + 4 * dim * dim)
-                + rows * dim * dim * Kp * 4,
-                (20.0 if dim == 2 else 120.0) * n * K,
-                f"{label}: {n} lanes over {rows} rows of K = {K}")
+    dim = 2 if name == "grid_band_2d" else 3
+    npl = dim * dim
+    rng = np.random.default_rng(5)
+    tab = rng.uniform(100.0, 110.0, (2, npl, Kp)).astype(np.float32)
+    tied = [s for s in TIE_SLOTS if s < Kp] + [Kp - 1]
+    tab[0][:, tied] = rng.uniform(0.0, 1.0, (npl, 1)).astype(np.float32)
+    tab[1] = 1e20
+    n = 4096
+    row = np.array([0, 0, 1, 0, -1, 0, 0, 1], np.int32)[np.arange(n) % 8]
+    q = rng.uniform(0.0, 1.0, (n, dim)).astype(np.float32)
+    coords = torch.as_tensor(tab, device=device)
+    args = (torch.as_tensor(row, device=device),
+            torch.as_tensor(q, device=device), coords)
+    out = getattr(R, name)(*args)
+    ref = getattr(R, name + "_plain")(*args)
+    check_band_bits(name, out, ref, f"the tie table (Kp = {Kp})")
+    slot = out[1].cpu().numpy()
+    if not ((slot[row == 0] == min(tied)).all()
+            and (slot[row != 0] == 0).all()
+            and np.isinf(out[0].cpu().numpy()[row != 0]).all()):
+        raise RuntimeError(f"{name}: a tie or an overflow took another slot")
+    log(f"    {name} on the tie table (Kp = {Kp}, slots {tied} tied, a row "
+        f"that overflows, rows -1): bit-equal, slot {min(tied)} on every "
+        f"tied lane")
 
 
 def bilinear_np(data, origin, inv_voxel, p):
@@ -684,6 +747,7 @@ def phase_kernels(conf_path: str, device, kernels: Kernels) -> None:
     q_pix = integ.eval_points
     check_grid_band("grid_band_2d", grid_row_index(g, q_pix), q_pix, g,
                     kernels, "the 1024^2 pixels")
+    check_grid_band_ties("grid_band_2d", g.coords.shape[2], device)
 
 
 def check_bits(name: str, d, d_p, ids, ids_p) -> None:
@@ -1129,6 +1193,12 @@ def phase_channels_2d(root: str, card: str) -> dict:
         f"{len(nsdf)} pixels (every pixel lies inside the convex box)")
     if not np.isinf(nsdf).all():
         raise RuntimeError("a box corner was a silhouette from inside")
+    # K10 as the DIRICHLET_SDF channel ran it, against its plain version
+    from elaina_tpu_torch.geometry.grid import grid_row_index
+
+    g, q_pix = integ.problem.scene.d_grid, integ.eval_points
+    check_grid_band("grid_band_2d", grid_row_index(g, q_pix), q_pix, g, None,
+                    "the channels' 256^2 pixels")
     return launches
 
 
@@ -1603,6 +1673,7 @@ def phase_kernels_3d(conf_path: str, device, kernels: Kernels) -> None:
     q_pix = integ.eval_points
     check_grid_band("grid_band_3d", grid_row_index(g, q_pix), q_pix, g,
                     kernels, "neumann3d's 256^2 plane points")
+    check_grid_band_ties("grid_band_3d", g.coords.shape[2], device)
     phase_fused_vs_unfused(scene, integ, eps)
     phase_skip_step(scene, state, eps)
 

@@ -359,6 +359,12 @@ __device__ __forceinline__ float dot3(const float* u, const float* v) {
   return u[0] * v[0] + u[1] * v[1] + u[2] * v[2];
 }
 
+// Component j of a float4 (j a constant once unrolled).
+__device__ __forceinline__ float f4_at(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+template <bool CLIP = false>  // CLIP: clip01_div's (K11)
 __device__ __forceinline__ float edge_d2(const float* q, const float* p0,
                                          const float* p1) {
   float e[3], w[3], dd[3];
@@ -367,14 +373,14 @@ __device__ __forceinline__ float edge_d2(const float* q, const float* p0,
     e[k] = p1[k] - p0[k];
     w[k] = q[k] - p0[k];
   }
-  const float t = fminf(fmaxf(dot3(w, e) / fmaxf(dot3(e, e), 1e-30f), 0.f),
-                        1.f);
+  const float t = clip01_div<CLIP>(dot3(w, e), fmaxf(dot3(e, e), 1e-30f));
 #pragma unroll
   for (int k = 0; k < 3; ++k) dd[k] = w[k] - t * e[k];
   return dot3(dd, dd);
 }
 
 // c: corners a = c[0..2], b = c[3..5], c = c[6..8]
+template <bool CLIP = false>
 __device__ __forceinline__ float tri_d2(const float* q, const float* c) {
   float e1[3], e2[3], w[3], diff[3];
 #pragma unroll
@@ -396,8 +402,9 @@ __device__ __forceinline__ float tri_d2(const float* q, const float* c) {
     for (int k = 0; k < 3; ++k) diff[k] = w[k] - u * e1[k] - v * e2[k];
     return dot3(diff, diff);
   }
-  return fminf(fminf(edge_d2(q, c, c + 3), edge_d2(q, c + 3, c + 6)),
-               edge_d2(q, c + 6, c));
+  return fminf(fminf(edge_d2<CLIP>(q, c, c + 3),
+                     edge_d2<CLIP>(q, c + 3, c + 6)),
+               edge_d2<CLIP>(q, c + 6, c));
 }
 
 __global__ void __launch_bounds__(SWEEP_THREADS) sweep_resolve_3d_kernel(
@@ -438,9 +445,7 @@ __global__ void __launch_bounds__(SWEEP_THREADS) sweep_resolve_3d_kernel(
       for (int j = 0; j < 4; ++j) {
         float c[9];
 #pragma unroll
-        for (int pl = 0; pl < 9; ++pl)
-          c[pl] = j == 0 ? c4[pl].x : j == 1 ? c4[pl].y
-                : j == 2 ? c4[pl].z : c4[pl].w;
+        for (int pl = 0; pl < 9; ++pl) c[pl] = f4_at(c4[pl], j);
         const float d2 = tri_d2(qv, c);
         if (d2 < best) {
           best = d2;
@@ -486,68 +491,110 @@ int64_t sweep_blocks(F kernel, int64_t n) {
 // K10 / K11: the chain path's exact closest segment (DIM 2) or triangle
 // (DIM 3) over the candidate row of every lane with row >= 0, no mask and
 // no compaction (grid_closest_point_detail, elaina_tpu/geometry/
-// grid.py:1226).  K2's and K4's sweep and distance functions: one warp
-// per lane over the row's DIM*DIM corner planes (R, DIM*DIM, Kp), a
-// lexicographic (d^2, slot) argmin by warp shuffle (the TPU kernels'
-// strict < per column, then the smallest flat slot among equal d^2), and
-// the winner's corners reloaded from L1 by slot.  Bound by the row loads:
-// 16 (2D) or 36 (3D) bytes per candidate of each distinct row.  Lanes
-// with row < 0 get d^2 = +inf, slot 0 and zero corners.
+// grid.py:1226), over the row's DIM*DIM corner planes (R, DIM*DIM, Kp).
+// BAND_T threads a lane: each reads four neighbouring slots of each plane
+// as one float4 (Kp % 32 == 0 and the wrapper's check that the table
+// starts on 16 bytes keep every plane row on 16 bytes), keeps its first
+// least d^2 in slot order (strict <) with that candidate's corners in
+// registers, and the lane's threads meet in a lexicographic (d^2, slot)
+// min by shuffle: the smallest slot among equal d^2, as the TPU kernel's
+// strict < per column and its least flat slot give.  The thread that
+// swept the winning slot writes it, so no corner is read twice.
+// Neighbouring lanes (pixels of one frame row) mostly share a candidate
+// row, so L1 and L2 serve its later reads and the instructions of each
+// candidate set the time, not the bytes: ~20 flops and an IEEE division
+// in 2D, ~120 flops and up to five divisions in 3D.  So t's clip to
+// [0, 1] is decided before the division wherever it can be (CLIP of
+// segment.cuh): a candidate whose projection falls past an end of the
+// segment, or of a triangle's edge, does not divide, and d^2 keeps its
+// bits.  1, 2, 4 and 8 threads a lane, with and without that clip, were
+// timed at the main paths' shapes (PERF.md): 4 with the clip was the
+// fastest in 2D and in 3D.  Lanes with row < 0 get d^2 = +inf, slot 0
+// and zero corners; a lane whose every d^2 overflowed gets slot 0 and
+// that slot's corners, as the plain version's argmin gives.
 // --------------------------------------------------------------------------
 
+constexpr int BAND_T = 4;  // threads a lane
+
 template <int DIM>
-__global__ void grid_band_kernel(const int32_t* __restrict__ row,
-                                 const float* __restrict__ q,
-                                 const float* __restrict__ coords, int64_t n,
-                                 int32_t Kp, float* __restrict__ d2_out,
-                                 int32_t* __restrict__ slot_out,
-                                 float* __restrict__ corners_out) {
+__global__ void __launch_bounds__(SWEEP_THREADS) grid_band_kernel(
+    const int32_t* __restrict__ row, const float* __restrict__ q,
+    const float* __restrict__ coords, int64_t n, int32_t Kp,
+    float* __restrict__ d2_out, int32_t* __restrict__ slot_out,
+    float* __restrict__ corners_out) {
   constexpr int NP = DIM * DIM;
   const int64_t i =
-      ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (i >= n) return;
-  const int64_t r = row[i];
-  if (r < 0) {
-    if (lane == 0) {
-      d2_out[i] = __int_as_float(0x7f800000);
-      slot_out[i] = 0;
-    }
-    if (lane < NP) corners_out[NP * i + lane] = 0.f;
-    return;
-  }
-  float qv[DIM];
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) qv[d] = q[DIM * i + d];
-  const float* base = coords + r * NP * Kp;
+      ((int64_t)blockIdx.x * SWEEP_THREADS + threadIdx.x) / BAND_T;
+  const int sub = threadIdx.x % BAND_T;
+  // every thread stays to the shuffle; those past n hold no row
+  const int64_t r = i < n ? row[i] : -1;
+  const float* base = coords + (r >= 0 ? r : 0) * NP * Kp;
 
-  float best_d2 = __int_as_float(0x7f800000);  // +inf
-  int best_slot = Kp;
-  for (int k = lane; k < Kp; k += 32) {
-    float d2;
-    if constexpr (DIM == 2) {
-      const float ax = base[k];
-      const float ay = base[Kp + k];
-      float t;
-      d2 = seg_d2(qv[0] - ax, qv[1] - ay, base[2 * Kp + k] - ax,
-                  base[3 * Kp + k] - ay, &t);
-    } else {
-      float c[9];
+  float best = __int_as_float(0x7f800000);  // +inf
+  int slot = Kp;
+  float bc[NP];
 #pragma unroll
-      for (int p = 0; p < 9; ++p) c[p] = base[p * Kp + k];
-      d2 = tri_d2(qv, c);
-    }
-    if (d2 < best_d2) {
-      best_d2 = d2;
-      best_slot = k;
+  for (int p = 0; p < NP; ++p) bc[p] = 0.f;
+  if (r >= 0) {
+    float qv[DIM];
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) qv[d] = q[DIM * i + d];
+    for (int k = 4 * sub; k < Kp; k += 4 * BAND_T) {  // Kp % 16 == 0
+      float4 c4[NP];
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        c4[p] = __ldg(reinterpret_cast<const float4*>(base + p * Kp + k));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float c[NP];
+#pragma unroll
+        for (int p = 0; p < NP; ++p) c[p] = f4_at(c4[p], j);
+        float d2;
+        if constexpr (DIM == 2) {
+          float t;
+          d2 = seg_d2<true>(qv[0] - c[0], qv[1] - c[1], c[2] - c[0],
+                            c[3] - c[1], &t);
+        } else {
+          d2 = tri_d2<true>(qv, c);
+        }
+        if (d2 < best) {
+          best = d2;
+          slot = k + j;
+#pragma unroll
+          for (int p = 0; p < NP; ++p) bc[p] = c[p];
+        }
+      }
     }
   }
-  warp_argmin(&best_d2, &best_slot);
-  best_slot = best_slot < Kp ? best_slot : 0;     // every d^2 overflowed
-  if (lane < NP) corners_out[NP * i + lane] = base[lane * Kp + best_slot];
-  if (lane == 0) {
-    d2_out[i] = best_d2;
-    slot_out[i] = best_slot;
+  const int mine = slot;
+#pragma unroll
+  for (int o = BAND_T / 2; o > 0; o >>= 1) {  // within the lane's threads
+    const float od2 = __shfl_xor_sync(FULL, best, o);
+    const int os = __shfl_xor_sync(FULL, slot, o);
+    if (od2 < best || (od2 == best && os < slot)) {
+      best = od2;
+      slot = os;
+    }
+  }
+  if (i >= n) return;
+  if (slot >= Kp) {  // no row, or every d^2 overflowed: slot 0
+    if (sub == 0) {
+      d2_out[i] = best;
+      slot_out[i] = 0;
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        corners_out[NP * i + p] = r >= 0 ? base[p * Kp] : 0.f;
+    }
+  } else if (mine == slot) {  // the thread that swept the winner
+    d2_out[i] = best;
+    slot_out[i] = slot;
+    if constexpr (DIM == 2) {
+      reinterpret_cast<float4*>(corners_out)[i] =
+          make_float4(bc[0], bc[1], bc[2], bc[3]);
+    } else {
+#pragma unroll
+      for (int p = 0; p < NP; ++p) corners_out[NP * i + p] = bc[p];
+    }
   }
 }
 
@@ -556,8 +603,7 @@ int grid_band_dim(const void* row, const void* q, const void* coords,
                   int64_t n, int32_t Kp, void* d2, void* slot, void* corners,
                   void* stream) {
   if (n == 0) return 0;
-  const int lanes_per_block = SWEEP_THREADS / 32;
-  const int64_t blocks = (n + lanes_per_block - 1) / lanes_per_block;
+  const int64_t blocks = (n * BAND_T + SWEEP_THREADS - 1) / SWEEP_THREADS;
   grid_band_kernel<DIM><<<(unsigned)blocks, SWEEP_THREADS, 0,
                           (cudaStream_t)stream>>>(
       (const int32_t*)row, (const float*)q, (const float*)coords, n, Kp,

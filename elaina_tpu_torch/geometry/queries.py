@@ -50,7 +50,8 @@ def _no_bvh(gs: GeomSet, what: str):
     raise NotImplementedError(
         f"{what} over a {gs.dim}D set of {gs.n_prims} prims without a grid: "
         f"above {CHUNKED_DENSE_MAX} prims the reference traverses its BVH, "
-        f"which the port has not (ROADMAP Queue 1 item 13)")
+        f"which the port has not yet: it arrives with the ROADMAP item "
+        f"'BVH'")
 
 
 def _prim_verts_all(gs: GeomSet):

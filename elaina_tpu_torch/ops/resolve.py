@@ -45,8 +45,9 @@ Contracts (from the TPU kernels, minus the bitmask words):
   ``grid_band_3d(row, q, coords) -> (d2, slot, corners (N, 9))``: on every
   lane with row >= 0, the exact closest segment / triangle of the row
   (K2's and K4's distances, the smallest slot on equal d^2): its squared
-  distance, slot in [0, Kp) and corners.  Lanes with row < 0 give +inf,
-  slot 0 and zero corners.
+  distance, slot in [0, Kp) and corners; slot 0 where every d^2
+  overflows.  Lanes with row < 0 give +inf, slot 0 and zero corners.
+  ``coords`` must start on 16 bytes on the card.
 """
 
 from __future__ import annotations
@@ -425,6 +426,9 @@ def _grid_band(wrapper, fn: str, row, q, coords, dim: int):
         raise ValueError(f"coords has {Kp} slots per row")
     if dev.type == "cpu":
         return _grid_band_plain(row, q, coords, dim)
+    if coords.data_ptr() % 16:
+        raise ValueError("coords must start on 16 bytes (the kernel reads "
+                         "its planes as float4)")
     d2 = torch.empty((n,), dtype=torch.float32, device=dev)
     slot = torch.empty((n,), dtype=torch.int32, device=dev)
     corners = torch.empty((n, npl), dtype=torch.float32, device=dev)

@@ -53,11 +53,16 @@ turn of ``--order`` the named tree runs, each in a process of its own:
    form's wrapper on the gathered lanes, the lane-list form's launch over
    K1's list, which in that form also runs over the list sorted by row
    and shuffled, ``_list_orders``: whether the rows' re-reads set its
-   time).
+   time); then the DIRICHLET_SDF channel (``render_dirichlet_sdf``: the
+   chain path, K10 or K11, and the film) of lobed channels (the lobed
+   scene at 256^2, ``chip_smoke.py`` [4b]'s frame), lobed_u (1024^2, K10
+   at [2]'s shape), neumann3d_u and bumpy3d_u as shipped
+   (``dirichlet_sdf_*``), timed, with a digest of each film.
 
 Each CLI run also records a digest of its SOLUTION film (the exported
-float32 ``solution.exr``), so the medians line can say whether the trees'
-films are equal bit for bit.
+float32 ``solution.exr``), and each DIRICHLET_SDF case one of its film,
+so the medians line can say whether the trees' films are equal bit for
+bit (``films_equal``).
 
 The trees share one grid cache, so only the first run of a scene builds
 its grids (before the solve's clock in both trees).  One JSON line per
@@ -259,6 +264,21 @@ def _bare_grid(q, dev, timed) -> dict:
     return timed(lambda: grid_closest_point(bare, q))
 
 
+def _dirichlet_sdf(confs: dict, dev, timed) -> dict:
+    """The DIRICHLET_SDF channel (``render_dirichlet_sdf``: the chain
+    path, K10 in 2D and K11 in 3D, and the film) of each config, as the
+    tree renders it: its times and a SHA-256 of its film."""
+    out = {}
+    for key, conf in confs.items():
+        problem, integ = load_integrator(conf, dev, 1)
+        rec = timed(integ.render_dirichlet_sdf)
+        film = integ.films["DIRICHLET_SDF"].pixels()
+        rec["film_sha256"] = hashlib.sha256(film.tobytes()).hexdigest()
+        out[f"dirichlet_sdf_{key}"] = rec
+        del problem, integ
+    return out
+
+
 def _resolve_kernels(conf_2d: str, conf_3d: str, dev, timed,
                      gathered: bool) -> dict:
     """K2 on lobed_u's and K4 on neumann3d_u's need lanes after 3 depth
@@ -395,12 +415,14 @@ def _list_orders(name: str, need, row, q, g, timed) -> dict:
     return out
 
 
-def _kernel_times(conf_2d: str, conf_3d: str, conf_ng: str,
-                  form: str) -> dict:
+def _kernel_times(conf_2d: str, conf_3d: str, conf_ng: str, form: str,
+                  conf_channels: str, conf_bumpy: str) -> dict:
     """K1, K3 and K5 of the tree in the working directory, on seeded
-    inputs, then K13 and K6 (``_band_kernels``) and K2 and K4
-    (``_resolve_kernels``, in the ``gathered`` or ``listed`` form); run
-    as a file there: ``timing`` is this file's neighbour."""
+    inputs, then K13 and K6 (``_band_kernels``), K2 and K4
+    (``_resolve_kernels``, in the ``gathered`` or ``listed`` form) and the
+    DIRICHLET_SDF channel of lobed channels, lobed_u, neumann3d_u and
+    bumpy3d_u (``_dirichlet_sdf``); run as a file there: ``timing`` is
+    this file's neighbour."""
     sys.path.insert(0, os.getcwd())
     import torch
     from timing import cuda_ms, device_ms
@@ -444,7 +466,10 @@ def _kernel_times(conf_2d: str, conf_3d: str, conf_ng: str,
             out[name] = timed(fn)
     return {**out, **_band_kernels(conf_3d, conf_ng, dev, timed),
             **_resolve_kernels(conf_2d, conf_3d, dev, timed,
-                               form == "gathered")}
+                               form == "gathered"),
+            **_dirichlet_sdf({"lobed_channels": conf_channels,
+                              "lobed_u": conf_2d, "neumann3d_u": conf_3d,
+                              "bumpy3d_u": conf_bumpy}, dev, timed)}
 
 
 def _card() -> str:
@@ -514,7 +539,8 @@ def main(argv=None) -> int:
     turns = []
     with tempfile.TemporaryDirectory() as root:
         env = dict(os.environ, ELAINA_CACHE_DIR=os.path.join(root, "cache"))
-        for sub in ("nogrid", "source", "wavy", "unfused"):
+        for sub in ("nogrid", "source", "wavy", "unfused", "channels",
+                    "bumpy"):
             os.makedirs(os.path.join(root, sub))
         conf_ng = _renamed(scenes.write_scene(
             os.path.join(root, "nogrid"), SPP_NOGRID, segments=256),
@@ -531,6 +557,10 @@ def main(argv=None) -> int:
                  "neumann3d_unfused": _renamed(scenes.write_config_copy(
                      os.path.join(root, "unfused"), "neumann3d_u", SPP_3D),
                      "neumann3d_unfused")}
+        conf_channels = scenes.write_scene(os.path.join(root, "channels"),
+                                           1, frame=256)
+        conf_bumpy = scenes.write_config_copy(os.path.join(root, "bumpy"),
+                                              "bumpy3d_u", 1)
         envs = {scene: env for scene in confs}
         envs["neumann3d_unfused"] = dict(env, ELAINA_FUSED_BAND="0")
         for i, name in enumerate(order):
@@ -546,7 +576,7 @@ def main(argv=None) -> int:
             out = _run([sys.executable, os.path.join(here, "ab.py"),
                         "--kernels", confs["lobed_u"], confs["neumann3d_u"],
                         conf_ng, "gathered" if name in args.gathered
-                        else "listed"],
+                        else "listed", conf_channels, conf_bumpy],
                        trees[name], env)
             turn["kernels"] = json.loads(out.strip().splitlines()[-1])
             turn["seconds"] = time.time() - t0
@@ -569,9 +599,14 @@ def main(argv=None) -> int:
     films = {scene: {name: sorted({t[scene]["solution_sha256"]
                                    for t in turns if t["tree"] == name})
                      for name in trees} for scene in confs}
+    sdf = {k: {name: sorted({t["kernels"][k]["film_sha256"]
+                             for t in turns if t["tree"] == name})
+               for name in trees}
+           for k in turns[0]["kernels"] if k.startswith("dirichlet_sdf_")}
     equal = {scene: len({d for ds in by.values() for d in ds}) == 1
-             for scene, by in films.items()}
+             for scene, by in {**films, **sdf}.items()}
     lines.append(json.dumps({"medians": summary, "solution_sha256": films,
+                             "dirichlet_sdf_sha256": sdf,
                              "films_equal": equal}))
     print(lines[-1], flush=True)
     if args.out:
@@ -583,7 +618,7 @@ def main(argv=None) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--kernels"]:
-        print(json.dumps(_kernel_times(*sys.argv[2:6])))
+        print(json.dumps(_kernel_times(*sys.argv[2:8])))
     elif sys.argv[1:2] == ["--solve-twice"]:
         print(json.dumps(_solve_twice(sys.argv[2] if sys.argv[2:] else None)))
     else:

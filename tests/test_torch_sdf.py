@@ -157,6 +157,50 @@ def test_grid_band_matches_pallas(dim, grids):
     assert (cp[~m] == 0).all()
 
 
+@pytest.mark.parametrize("dim", [2, 3])
+def test_grid_band_ties_take_smallest_slot(dim):
+    """K10 / K11's tie rule: on a grid whose every prim is listed three
+    times (the copies at other slots of a row), the JAX kernel and the
+    port give the smallest of the tied slots and its corners wherever the
+    least d^2 is held only by copies of one prim, which is most lanes."""
+    verts, idx = _lobed(200) if dim == 2 else _soup(60, seed=23)
+    idx3 = np.concatenate([idx, idx, idx])
+    lo = np.full(dim, -5 if dim == 2 else -4, np.float32)
+    g = attach_coords(build_candidate_grid(verts, idx3, lo, -lo, K=48,
+                                           max_res=16 if dim == 2 else 8),
+                      verts, idx3)
+    gp = _port_grid(g, verts, idx3)
+    q = _points(g, 400, 31 + dim)
+    row = np.asarray(jax_row_index(g, jnp.asarray(q))).astype(np.int32)
+    kern = grid_band_dma_2d if dim == 2 else grid_band_dma_3d
+    d2j, sj, cj = kern(jnp.asarray(row), jnp.asarray(q), g.coords,
+                       -(-g.cand.shape[1] // 128), interpret=True)
+    sj = np.asarray(sj)
+    cj = np.stack([np.asarray(c) for c in cj], axis=1)
+    band = R.grid_band_2d if dim == 2 else R.grid_band_3d
+    d2p, sp, cp = (a.numpy() for a in band(_t(row), _t(q), gp.coords))
+    np.testing.assert_allclose(d2p, np.asarray(d2j), rtol=1e-5, atol=1e-7)
+
+    planes = gp.coords[_t(row).long()]                     # (n, npl, Kp)
+    dist = R._segment_d2_planes if dim == 2 else R.tri_d2_planes
+    all_d2 = dist(tuple(_t(q[:, k:k + 1]) for k in range(dim)),
+                  planes.unbind(1)).numpy()
+    least = all_d2.min(axis=1, keepdims=True)
+    tied = all_d2 <= least * (1 + 1e-6) + 1e-12            # near-equal too
+    first = tied.argmax(axis=1)
+    lane = np.arange(len(q))
+    same = (planes.numpy() == planes.numpy()[lane, :, first][..., None]
+            ).all(axis=1)                    # slots holding that very prim
+    pure = (tied <= same).all(axis=1)        # every near tie is a copy
+    copies = (tied & same).sum(axis=1)
+    assert pure.mean() > 0.5 and (copies[pure] >= 2).mean() > 0.9
+    np.testing.assert_array_equal(sp[pure], first[pure])
+    np.testing.assert_array_equal(sj[pure], first[pure])
+    np.testing.assert_array_equal(cp[pure], cj[pure])
+    np.testing.assert_array_equal(
+        cp[pure], planes.numpy()[lane, :, first][pure])
+
+
 def test_trunc_fallback_keeps_lower_bound(monkeypatch):
     """Truncated rows (K = 8, the segment cluster of
     tests/test_grid.py:584 on two levels, the last one truncated) return
