@@ -49,11 +49,30 @@ and never prints its last line:
 3. The mixed Dirichlet/Neumann square, u = (x + 1) / 2, through
    ``UniformIntegrator``: 256 walks of depth 64 at three points (64 lanes
    a point, 4 samples), each point within 0.07 of u.
+3b. The same square through ``GuidedIntegrator``: 32 training samples
+   (each followed by ``train_on_records``) then 96 guided ones, depth 48,
+   eps 0.02, tests/test_guided.py's small network, at seven points of 256
+   lanes each, each point within 0.07 of u; the loss finite.
 4. The 2D main path at full scale through ``exec.run_expr`` (the code of
    ``python -m elaina_tpu_torch run``): a 65,536-segment Dirichlet
    boundary (a lobed outline and 62 lobed spots inside it) in a 4-segment
    Neumann box, 1024^2 frame, depth 64, eps 1.  The kernels' launch counts
    are zeroed just before it and K1-K3's must rise.
+4g. The 2D guided main path, lobed_n: the scene of phase 4 with the
+   guided integrator and network of ``configs/ladybug_n.json``
+   (``utils/scenes.write_lobed_n``; DenseGrid 8 x 4, MLP 64 x 3, Adam +
+   EMA, uniform fraction 0.5, max guided depth 10) at 1024^2, depth 64,
+   eps 1, SPP samples of which 8 train (the config: 1,024 of which 256),
+   through ``run_expr``: K1-K3 launch; each phase's walk-steps/s, the
+   depth-capped share, the loss history's ends and the peak memory are
+   printed; the SOLUTION film agrees with phase 4's at equal spp within 4
+   combined standard errors on >= 99% of pixel channels (the guided /
+   uniform variance of the mean printed as a reading).  Then, two
+   training-phase depth steps into a sample: one guided inference
+   (encoding, MLP, mixture sample, two pdfs) over the frame's lanes and
+   one ``train_on_records`` batch of the solve's 524,288 records timed
+   (call ms and device ms), and the PyTorch ops of each and of one guided
+   depth step with and without records counted (torch.profiler).
 4b. The 2D channels: the same scene at 256^2, depth 64, 4 spp, with
    ``configs/data/ladybug_source.nvdb`` as its source (a real NanoVDB
    file over the scene's frame) and the channels DIRICHLET_SDF,
@@ -137,7 +156,9 @@ and never prints its last line:
 8d. One depth step each of lobed_u, neumann3d_u, neumann3d_u with a
    source and wavy8192_u (1 spp, after one step outside the probe) under
    ``torch.cuda.set_sync_debug_mode("error")``: the phase fails where a
-   step makes the host wait for the device.
+   step makes the host wait for the device.  Then lobed_n: one guided
+   depth step in the training phase (records on), one in the guiding
+   phase and one ``train_on_records`` batch, the same way.
 
 Each phase ends with a line of its wall seconds (``[4d]: 3.2 s wall``),
 and ``[9]`` gives the whole run's.  The lines before the last hold the card's name and power limit and one
@@ -173,6 +194,14 @@ SOURCE_CUBE_DEPTH = 128      # the source cube's depth (phase 6b): a walk
 #                              that crosses a Neumann face drifts away
 #                              geometrically, and past depth ~240 its
 #                              R^2 / 6 source weight overflows to inf
+GUIDED_TRAIN_SPP = 8         # lobed_n's training samples of its SPP
+#                              (phase 4g; the config: 256 of 1,024)
+SQUARE_SPP, SQUARE_TRAIN_SPP = 128, 32   # the guided square (phase 3b)
+SQUARE_NET = {"encoding": {"base_resolution": 4, "n_levels": 4,
+                           "n_features_per_level": 2,
+                           "per_level_scale": 1.5},
+              "network": {"n_neurons": 32, "n_hidden_layers": 2}}
+#                              (tests/test_guided.py's network)
 NOGRID_SPP = 8               # samples of the no-grid run (phase 4c)
 ROUTE_DEPTH = 256            # depth of the grid / no-grid comparison (4c)
 AGREE_SPP = 16               # samples a side of the chunked / band check (4e)
@@ -1026,8 +1055,9 @@ def solve_points(problem, pts: np.ndarray, reps: int, spp: int, depth: int,
     return u.mean(1), ms, integ.total_capped / (len(lanes) * spp)
 
 
-def phase_analytic(device, card: str) -> None:
-    """Dirichlet u = (x+1)/2 on two walls, zero Neumann on the others."""
+def square_problem(device):
+    """Dirichlet u = (x+1)/2 on two walls, zero Neumann on the others,
+    with a candidate grid (the K1-K3 resolve)."""
     from elaina_tpu_torch.core.problem import (Problem, grid_bounds,
                                                grid_size_for,
                                                scene_from_numpy)
@@ -1045,6 +1075,12 @@ def phase_analytic(device, card: str) -> None:
         aabb_lo=[-1, -1], aabb_hi=[1, 1], device=device,
         dirichlet=(dv, di, dc), neumann=(nv, ni, np.zeros((len(nv), 2, 3))),
         grid=vars(ga))
+    return problem
+
+
+def phase_analytic(device, card: str) -> None:
+    """Dirichlet u = (x+1)/2 on two walls, zero Neumann on the others."""
+    problem = square_problem(device)
     pts = np.array([[0.0, 0.0], [0.5, 0.8], [-0.5, -0.8]], np.float32)
     u, ms, _ = solve_points(problem, pts, 64, 4, 64, 0.02)
     want = (pts[:, 0] + 1) / 2
@@ -1052,6 +1088,46 @@ def phase_analytic(device, card: str) -> None:
         f"{want.tolist()} (atol 0.07), {ms} ms ({card})")
     if not np.all(np.abs(u - want) <= 0.07):
         raise RuntimeError("analytic square out of bound")
+
+
+def phase_analytic_guided(device, card: str) -> None:
+    """[3b] The mixed-BC square through GuidedIntegrator: online training
+    (SQUARE_TRAIN_SPP samples, each followed by the optimizer on its
+    records), then guiding, at seven points of 256 lanes each, depth 48,
+    eps 0.02 (tests/test_guided.py:35 runs three points of one lane, 256
+    samples)."""
+    import torch
+
+    from elaina_tpu_torch.core.config import IntegratorSettings
+    from elaina_tpu_torch.solver.guided import GuidedIntegrator
+
+    problem = square_problem(device)
+    pts = np.array([[0.0, 0.0], [0.5, 0.8], [-0.5, -0.8], [0.8, 0.0],
+                    [-0.8, 0.3], [0.2, -0.5], [-0.3, 0.6]], np.float32)
+    reps = 256
+    lanes = torch.as_tensor(np.repeat(pts, reps, axis=0), device=device)
+    settings = IntegratorSettings(
+        frameSize=(len(lanes), 1), samplesPerPixel=SQUARE_SPP,
+        maxWalkingDepth=48, epsilonShell=0.02,
+        trainSppCount=SQUARE_TRAIN_SPP)
+    integ = GuidedIntegrator(problem, settings, "unused", points=lanes)
+    integ.reset_network(SQUARE_NET)
+    ms = integ.solve()
+    u = integ.films["SOLUTION"].pixels()[0, :, 0].reshape(len(pts),
+                                                          reps).mean(1)
+    want = (pts[:, 0] + 1) / 2
+    loss = integ.loss_history
+    log(f"[3b] guided mixed-BC square: u {np.round(u, 4).tolist()} vs "
+        f"{want.tolist()} (atol 0.07), {SQUARE_SPP} samples of which "
+        f"{SQUARE_TRAIN_SPP} train, {reps} lanes a point, {ms} ms; loss "
+        f"{loss[0]:.4f} -> {loss[-1]:.4f} ({card})")
+    if integ.sum.device.type != "cuda":
+        raise RuntimeError("the guided square did not run on the card")
+    if not (integ._net_trained and np.isfinite(loss).all()
+            and len(loss) == SQUARE_TRAIN_SPP):
+        raise RuntimeError(f"the guided square's training: {loss}")
+    if not np.all(np.abs(u - want) <= 0.07):
+        raise RuntimeError("guided analytic square out of bound")
 
 
 def check_solution(conf_path: str) -> tuple:
@@ -1136,13 +1212,171 @@ def run_main(conf_path: str, expect: tuple, label: str, card: str) -> tuple:
     return launches, result, made[-1]
 
 
-def phase_main(conf_path: str, card: str) -> dict:
+def phase_main(conf_path: str, card: str, keep: dict) -> dict:
+    """[4] lobed_u through run_expr; keeps its per-pixel mean and standard
+    error in ``keep`` for [4g]."""
     log("[4] 2D main path")
-    launches, _, _ = run_main(conf_path, MAIN_2D, "lobed_u", card)
+    launches, _, integ = run_main(conf_path, MAIN_2D, "lobed_u", card)
     m_in, n_in, m_out, n_out = check_solution(conf_path)
     log(f"    mean |u| inside the curve {m_in:.4f} ({n_in} px), in the "
         f"Neumann region {m_out:.4f} ({n_out} px)")
+    keep["lobed_u"] = ((integ.sum / integ.spp).cpu().numpy(),
+                       integ.standard_error())
     return launches
+
+
+def phase_guided(conf_path: str, card: str, keep: dict) -> dict:
+    """[4g] lobed_n, the 2D guided main path, through run_expr: the
+    walk-steps/s of each phase, the depth-capped share, the training loss;
+    its SOLUTION film against lobed_u's at equal spp (4 combined standard
+    errors on >= 99% of pixel channels; the guided / uniform mean
+    variance as a reading); then the guide's own costs at the frame's
+    lanes."""
+    log("[4g] 2D guided main path (lobed_n)")
+    launches, result, integ = run_main(conf_path, MAIN_2D, "lobed_n", card)
+    check_solution(conf_path)
+    ps = result["phase_stats"]
+    loss = result["loss_history"]
+    log(f"    training phase {ps['train_steps']} walk steps in "
+        f"{ps['train_s']:.3f} s ({ps['train_steps'] / ps['train_s']:.6g} "
+        f"walk-steps/s), guiding phase {ps['guide_steps']} in "
+        f"{ps['guide_s']:.3f} s ({ps['guide_steps'] / ps['guide_s']:.6g} "
+        f"walk-steps/s) ({card})")
+    log(f"    loss history: {len(loss)} values, first {loss[0]:.6g}, last "
+        f"{loss[-1]:.6g}")
+    if len(loss) != GUIDED_TRAIN_SPP or not np.isfinite(loss).all():
+        raise RuntimeError(f"lobed_n's training loss: {loss}")
+    mean_u, se_u = keep.pop("lobed_u")
+    mean_g = (integ.sum / integ.spp).cpu().numpy()
+    se_g = integ.standard_error()
+    within = np.abs(mean_g - mean_u) <= 4.0 * np.hypot(se_g, se_u) + 1e-6
+    ratio = float(np.mean(se_g ** 2) / np.mean(se_u ** 2))
+    log(f"    against lobed_u at {integ.spp} spp: {within.mean():.5f} of "
+        f"pixel channels within 4 combined standard errors; guided / "
+        f"uniform mean variance of the mean {ratio:.4f}")
+    if within.mean() < 0.99:
+        raise RuntimeError("lobed_n disagrees with lobed_u")
+    guide_costs(integ, card)
+    return launches
+
+
+def device_split(fn, top: int = 10) -> list:
+    """The device time of one call of ``fn`` by CUDA kernel
+    (torch.profiler, after a warm call): the ``top`` kernels by total
+    time, each with its launches, and the sum over all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=lambda e: -e.device_time_total)
+    total = sum(e.device_time_total for e in kernels) / 1e3
+    lines = [f"{e.device_time_total / 1e3:.4f} ms, {e.count} x "
+             f"{e.key[:90]}" for e in kernels[:top]]
+    return lines + [f"{total:.4f} ms in all over {len(kernels)} kernels"]
+
+
+def gather_and_scan_forms(integ, card: str) -> None:
+    """The two PyTorch forms behind the guide's layout, at the frame's
+    lanes: one corner's gather of the encoding (8 levels x 4 features a
+    lane) as ``torch.take`` of the flat table (the port's) and as
+    ``index_select`` of its rows, and the mixture's CDF scan over 8
+    components along a leading axis (the port's) and along the innermost
+    one; call ms, and the two scans' largest difference."""
+    import torch
+
+    from elaina_tpu_torch.utils.timing import cuda_ms
+
+    table = integ.trainer.params["table"]
+    n, nl, nf = integ.n_pixels, integ.spec.encoding.n_levels, table.shape[1]
+    g = torch.Generator(device=table.device).manual_seed(0)
+    rows = torch.randint(0, table.shape[0], (n, nl), generator=g,
+                         device=table.device)
+    ids = torch.arange(nf, device=table.device)
+    flat = table.reshape(-1)
+    w = torch.rand((n, 8), generator=g, device=table.device)
+    forms = {
+        "corner gather, take": lambda: torch.take(flat,
+                                                  rows[..., None] * nf + ids),
+        "corner gather, index_select": lambda: torch.index_select(
+            table, 0, rows.reshape(-1)),
+        "CDF scan, leading axis": lambda: torch.cumsum(
+            w.movedim(-1, 0).contiguous(), dim=0),
+        "CDF scan, innermost axis": lambda: torch.cumsum(w, dim=-1)}
+    log("    " + ", ".join(f"{k} {cuda_ms(f):.4f} ms" for k, f in forms.items())
+        + f" ({n} lanes; {card})")
+    scan_gap = (forms["CDF scan, leading axis"]().movedim(0, -1)
+                - forms["CDF scan, innermost axis"]()).abs().max()
+    log(f"    CDF scans' largest difference {float(scan_gap):.6g}")
+
+
+def guide_costs(integ, card: str) -> None:
+    """The guide's costs at the frame's lanes, two training-phase depth
+    steps in: one guided inference (encoding, MLP, mixture, sample, the
+    two pdfs), one ``train_on_records`` batch of the solve's batch size
+    (call ms and device ms, ``utils/timing.py``), and the PyTorch ops that
+    one guided depth step enqueues in each phase, beside the uniform
+    step's."""
+    from elaina_tpu_torch.solver import guided as G
+    from elaina_tpu_torch.solver.wost import (_sample_direction,
+                                              init_walk_state,
+                                              wost_depth_step)
+    from elaina_tpu_torch.utils.ab import top_ops
+    from elaina_tpu_torch.utils.rng import sample_generators
+    from elaina_tpu_torch.utils.timing import cuda_ms, device_ms
+
+    scene, s = integ.problem.scene, integ.settings
+    eps, n = float(s.epsilonShell), integ.n_pixels
+    uf = float(s.uniformFractionInTrainingPhase)
+    mgd = int(s.maxGuidedDepthInTrainingPhase)
+    params = integ.trainer.ema_params
+    gens = sample_generators(0, 1, integ.device)
+    state = init_walk_state(integ.eval_points, integ.mask)
+    records = G.init_records(n, 2, integ.device)
+    for depth in range(2):
+        state, records, _, _ = G.guided_depth_step(
+            scene, integ.spec, params, integ.box, state, records, gens,
+            depth, True, True, uf, mgd, eps=eps)
+    d_uni, pdf_uni, _ = _sample_direction(gens["uniform"], state, 2, True)
+    batch, n_batches = G._train_batch_policy(n)
+
+    def infer():
+        return G.guided_direction(integ.spec, params, integ.box, state,
+                                  d_uni, pdf_uni, gens, uf, True)
+
+    def train():
+        return G.train_on_records(integ.trainer, integ.spec, integ.adam_cfg,
+                                  integ.box, records, batch_size=batch,
+                                  n_batches=1)
+
+    def step(training: bool):
+        return lambda: G.guided_depth_step(
+            scene, integ.spec, params, integ.box, state,
+            records if training else None, gens, 2, True, training, uf, mgd,
+            eps=eps)
+
+    for label, fn in ((f"guided inference, {n} lanes", infer),
+                      (f"train_on_records, one batch of {batch}", train)):
+        ms = cuda_ms(fn)
+        dev_ms, host_us, hidden = device_ms(fn)
+        log(f"    {label}: {ms:.4f} ms a call, device {dev_ms:.4f} ms, "
+            f"host {host_us:.1f} us{'' if hidden else ' (not hidden)'} "
+            f"({card})")
+    for label, fn in (("inference", infer), ("batch", train)):
+        for line in device_split(fn):
+            log(f"    {label}, device time by kernel: {line}")
+    gather_and_scan_forms(integ, card)
+    log(f"    aten ops: guided inference {top_ops(infer)}, one batch "
+        f"{top_ops(train)} (the solve runs {n_batches} a training sample), "
+        f"guided depth step with records {top_ops(step(True))}, without "
+        f"{top_ops(step(False))}, uniform depth step "
+        f"{top_ops(lambda: wost_depth_step(scene, state, gens, eps))}")
 
 
 def phase_channels_2d(root: str, card: str) -> dict:
@@ -2064,6 +2298,62 @@ def phase_syncs(paths: dict, device) -> None:
         del problem, integ, state
 
 
+def phase_syncs_guided(conf_path: str, device) -> None:
+    """[8d] lobed_n: one guided depth step in the training phase (records
+    on), one in the guiding phase and one ``train_on_records`` batch under
+    ``torch.cuda.set_sync_debug_mode("error")``, after one training step
+    and one batch outside it."""
+    import traceback
+
+    import torch
+
+    from elaina_tpu_torch.solver import guided as G
+    from elaina_tpu_torch.solver.wost import init_walk_state
+    from elaina_tpu_torch.utils.ab import load_integrator
+    from elaina_tpu_torch.utils.rng import sample_generators
+
+    problem, integ = load_integrator(conf_path, device, 1)
+    scene, s, spec, box = problem.scene, integ.settings, integ.spec, integ.box
+    eps = float(s.epsilonShell)
+    params = integ.trainer.ema_params
+    gens = sample_generators(0, 1, device)
+    batch, _ = G._train_batch_policy(integ.n_pixels)
+    state = init_walk_state(integ.eval_points, integ.mask)
+    records = G.init_records(integ.n_pixels, 2, device)
+    state, records, _, _ = G.guided_depth_step(
+        scene, spec, params, box, state, records, gens, 0, True, True, 0.5,
+        10, eps=eps)
+    G.train_on_records(integ.trainer, spec, integ.adam_cfg, box, records,
+                       batch_size=batch, n_batches=1)
+    calls = (
+        ("training-phase step", lambda: G.guided_depth_step(
+            scene, spec, params, box, state, records, gens, 1, True, True,
+            0.5, 10, eps=eps)),
+        ("guiding-phase step", lambda: G.guided_depth_step(
+            scene, spec, params, box, state, None, gens, 1, True, False,
+            0.5, 10, eps=eps)),
+        ("train_on_records batch", lambda: G.train_on_records(
+            integ.trainer, spec, integ.adam_cfg, box, records,
+            batch_size=batch, n_batches=1)))
+    for label, fn in calls:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        except RuntimeError as e:
+            where = [f"{os.path.relpath(f.filename)}:{f.lineno} {f.line}"
+                     for f in traceback.extract_tb(e.__traceback__)
+                     if "elaina_tpu_torch" in f.filename]
+            raise RuntimeError(f"lobed_n {label} waits for the device at "
+                               f"{where}: {e}") from None
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        log(f"[8d] lobed_n: one {label} on {integ.n_pixels} lanes "
+            f"({int(state.active.sum())} live) without a host sync")
+    del problem, integ, state, records
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -2093,12 +2383,18 @@ def main() -> int:
         syncs = os.path.join(root, "syncs")
         os.makedirs(syncs)
         source_conf = scenes.write_neumann3d_source(syncs, 1)
+        guided = os.path.join(root, "lobed_n")
+        os.makedirs(guided)
+        conf_n = scenes.write_lobed_n(guided, SPP, GUIDED_TRAIN_SPP)
+        keep = {}
         for label, key, fn, args in (
                 ("[2]", None, phase_kernels, (conf_2d, device, kernels)),
                 ("[2c]", "bare_grid", phase_kernels_2c,
                  (conf_2d, conf_wavy, device, kernels)),
                 ("[3]", None, phase_analytic, (device, card)),
-                ("[4]", "lobed_u", phase_main, (conf_2d, card)),
+                ("[3b]", None, phase_analytic_guided, (device, card)),
+                ("[4]", "lobed_u", phase_main, (conf_2d, card, keep)),
+                ("[4g]", "lobed_n", phase_guided, (conf_n, card, keep)),
                 ("[4b]", "channels_2d", phase_channels_2d, (root, card)),
                 ("[4c]", "nogrid_u", phase_nogrid, (root, device, card)),
                 ("[4d]", None, phase_bench_square, (device, card)),
@@ -2115,7 +2411,8 @@ def main() -> int:
                 ("[8d]", None, phase_syncs,
                  ({"lobed_u": conf_2d, "neumann3d_u": conf_3d,
                    "neumann3d_source": source_conf,
-                   "wavy8192_u": conf_wavy}, device))):
+                   "wavy8192_u": conf_wavy}, device)),
+                ("[8d] guided", None, phase_syncs_guided, (conf_n, device))):
             out = timed_phase(label, fn, *args)
             if key is not None:
                 runs[key] = out

@@ -2,11 +2,12 @@
 
 Port of ``elaina_tpu/exec.py`` (reference: exec.cu run_expr): copies the
 config next to the outputs, loads the CUDA kernels (``prepare``), runs
-the uniform integrator's channels, performs the export list and writes
-``result.json`` with the solve duration, the walk steps, the exactly
-resolved lane-steps and the walks that met the depth cap, the scene
-tables' sizes, the solve's peak device memory on CUDA, and a
-timestamp.
+the uniform or (in 2D) the guided integrator's channels, performs the
+export list and writes ``result.json`` with the solve duration, the walk
+steps, the exactly resolved lane-steps and the walks that met the depth
+cap, for a guided run the training loss of each training sample and each
+phase's seconds and walk steps, the scene tables' sizes, the solve's peak
+device memory on CUDA, and a timestamp.
 
 The device is the caller's: ``"cuda"`` (the default; ``CUDA_VISIBLE_DEVICES``
 picks the card) or ``"cpu"``, the counterpart of the JAX runner's platform
@@ -21,11 +22,13 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from .core.config import ExperimentConfig
 from .core.logger import log_error, log_info, log_success
 from .core.problem import Problem
+from .solver.guided import GuidedIntegrator, no_guided_3d
 from .solver.integrator import CHANNELS, UniformIntegrator
 
 
@@ -50,10 +53,11 @@ def run_expr(conf_path: str, device: str = "cuda") -> dict:
         log_error("Configuration file does not exist: %s", conf_path)
         return {}
     cfg = ExperimentConfig.from_file(conf_path)
-    if cfg.integrator_type != "uniform":
-        raise NotImplementedError(
-            f"integrator {cfg.integrator_type!r}: the guided integrator "
-            f"arrives with the ROADMAP item 'guided'")
+    if cfg.integrator_type not in ("uniform", "guided"):
+        raise ValueError(f"unrecognized integrator type "
+                         f"{cfg.integrator_type!r}")
+    if cfg.integrator_type == "guided" and cfg.dimensionality != 2:
+        raise no_guided_3d()
     for channel in set(cfg.channels) | {e.channel for e in cfg.exports}:
         if channel not in CHANNELS:
             raise ValueError(f"unknown channel {channel!r}: one of "
@@ -69,7 +73,11 @@ def run_expr(conf_path: str, device: str = "cuda") -> dict:
 
     problem = Problem(cfg.dimensionality, dev).load_config(
         cfg.scene, base_dir=os.getcwd(), cache_dir=_cache_dir())
-    integrator = UniformIntegrator(problem, cfg.settings, out_dir)
+    if cfg.integrator_type == "guided":
+        integrator = GuidedIntegrator(problem, cfg.settings, out_dir)
+        integrator.reset_network(cfg.network)
+    else:
+        integrator = UniformIntegrator(problem, cfg.settings, out_dir)
     # build and load the kernels before any timed channel, so that
     # result.json's duration measures walking (on every CUDA run; the JAX
     # runner's ELAINA_PREPARE is opt-in because its compile is optional)
@@ -92,6 +100,8 @@ def run_expr(conf_path: str, device: str = "cuda") -> dict:
             integrator.render_silhouette_sdf()
         else:
             integrator.render_source()
+    if cfg.print_network and cfg.integrator_type == "guided":
+        integrator.query_network(np.zeros(2, np.float32))
     for e in cfg.exports:
         if e.type == "image":
             integrator.export_image(e.channel, e.file_name)
@@ -99,6 +109,12 @@ def run_expr(conf_path: str, device: str = "cuda") -> dict:
             integrator.export_energy(e.channel, e.tone, e.file_name)
         else:
             log_error("Unrecognized export type %r, skipping...", e.type)
+    # the guided integrator's training curve and per-phase breakdown, as
+    # the JAX runner exports them
+    if getattr(integrator, "loss_history", None):
+        result["loss_history"] = [float(v) for v in integrator.loss_history]
+    if getattr(integrator, "phase_stats", None):
+        result["phase_stats"] = integrator.phase_stats
     result["device"] = str(problem.device)
     result["table_bytes"] = problem.table_bytes()
     if problem.device.type == "cuda":

@@ -78,6 +78,19 @@ class BaseIntegrator:
         self.mask = torch.ones((self.n_pixels,), dtype=torch.bool,
                                device=self.device)
 
+    def prepare(self) -> None:
+        """Load the CUDA kernel libraries before the solve's clock starts
+        (the JAX integrator's ``prepare`` compiles its programs there): on
+        a CUDA device both ``ops/resolve`` and ``ops/queries``, which
+        builds them if ``_build/`` holds no library of these sources.  On
+        the CPU there is nothing to load."""
+        if self.device.type != "cuda":
+            return
+        from ..ops import queries, resolve
+
+        resolve.library()
+        queries.library()
+
     def _put(self, channel: str, vals: np.ndarray):
         film = self.films[channel]
         film.reset()
@@ -131,21 +144,16 @@ class BaseIntegrator:
         film.save(os.path.join(base, stem + ".exr"))
         film.save(os.path.join(base, stem + ".png"))
 
+    def standard_error(self) -> np.ndarray:
+        """Per-pixel Monte Carlo standard error of the mean, (N, 3)."""
+        n = self.spp
+        mean = self.sum / n
+        var = torch.clamp(self.sum_sq / n - mean * mean, min=0.0) * (
+            n / max(n - 1, 1))
+        return torch.sqrt(var / n).cpu().numpy()
+
 
 class UniformIntegrator(BaseIntegrator):
-    def prepare(self) -> None:
-        """Load the CUDA kernel libraries before the solve's clock starts
-        (the JAX integrator's ``prepare`` compiles its programs there): on
-        a CUDA device both ``ops/resolve`` and ``ops/queries``, which
-        builds them if ``_build/`` holds no library of these sources.  On
-        the CPU there is nothing to load."""
-        if self.device.type != "cuda":
-            return
-        from ..ops import queries, resolve
-
-        resolve.library()
-        queries.library()
-
     def solve(self) -> int:
         """Run every sample; returns wall-clock milliseconds.  Leaves the
         mean in the SOLUTION film, the per-pixel sums in ``sum`` /
@@ -190,11 +198,3 @@ class UniformIntegrator(BaseIntegrator):
 
         self._put("SOLUTION", total.cpu().numpy() / max(spp, 1))
         return duration_ms
-
-    def standard_error(self) -> np.ndarray:
-        """Per-pixel Monte Carlo standard error of the mean, (N, 3)."""
-        n = self.spp
-        mean = self.sum / n
-        var = torch.clamp(self.sum_sq / n - mean * mean, min=0.0) * (
-            n / max(n - 1, 1))
-        return torch.sqrt(var / n).cpu().numpy()

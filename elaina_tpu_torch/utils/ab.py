@@ -114,8 +114,9 @@ def bench_square(dev, spp: int):
 
 
 def load_integrator(conf: str, dev, spp: int | None = None):
-    """The problem and a UniformIntegrator of a config, as ``run_expr``
-    makes them (``spp`` overrides its samples per pixel)."""
+    """The problem and the integrator of a config (uniform, or guided with
+    its network reset), as ``run_expr`` makes them (``spp`` overrides its
+    samples per pixel)."""
     import dataclasses
 
     from elaina_tpu_torch.core.config import ExperimentConfig
@@ -127,7 +128,27 @@ def load_integrator(conf: str, dev, spp: int | None = None):
         cfg.settings, samplesPerPixel=spp)
     problem = Problem(cfg.dimensionality, dev, verbose=False).load_config(
         cfg.scene, cache_dir=os.environ["ELAINA_CACHE_DIR"])
+    if cfg.integrator_type == "guided":
+        # imported here: a tree from before the guided port runs this
+        # module's uniform paths in its A/B turns
+        from elaina_tpu_torch.solver.guided import GuidedIntegrator
+
+        integ = GuidedIntegrator(problem, settings, "unused")
+        integ.reset_network(cfg.network)
+        return problem, integ
     return problem, UniformIntegrator(problem, settings, "unused")
+
+
+def top_ops(fn) -> int:
+    """The PyTorch ops that one call of ``fn`` enqueues (torch.profiler on
+    the host: aten ops not inside another); also ``chip_smoke.py``'s."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return sum(1 for e in prof.events() if e.name.startswith("aten::")
+               and (e.cpu_parent is None
+                    or not e.cpu_parent.name.startswith("aten::")))
 
 
 def warm_state(problem, integ, steps: int):
@@ -289,8 +310,6 @@ def _resolve_kernels(conf_2d: str, conf_3d: str, dev, timed,
     device."""
     import torch
 
-    from torch.profiler import ProfilerActivity, profile
-
     from elaina_tpu_torch.geometry.grid import fine_decode
     from elaina_tpu_torch.ops import resolve as R
     from elaina_tpu_torch.solver import wost as W
@@ -310,15 +329,6 @@ def _resolve_kernels(conf_2d: str, conf_3d: str, dev, timed,
         finally:
             torch.cuda.set_sync_debug_mode(0)
         return None
-
-    def top_ops(fn) -> int:
-        """The PyTorch ops that one call of ``fn`` enqueues (torch.profiler
-        on the host: aten ops not inside another)."""
-        with profile(activities=[ProfilerActivity.CPU]) as prof:
-            fn()
-        return sum(1 for e in prof.events() if e.name.startswith("aten::")
-                   and (e.cpu_parent is None
-                        or not e.cpu_parent.name.startswith("aten::")))
 
     def gather(need, row, q):
         """K1 and the gather of the parent's form: (lanes, the valid

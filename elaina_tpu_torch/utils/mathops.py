@@ -40,6 +40,11 @@ def frame_from_normal(dim: int, n: torch.Tensor):
     return n, t, b
 
 
+def frame_from_tangent_2d(t: torch.Tensor):
+    """(N, T) from a 2D tangent, N = perp(t) (util/transformation.h:47-50)."""
+    return perp2(t), t
+
+
 def to_world(dim: int, frame, v_local: torch.Tensor) -> torch.Tensor:
     if dim == 2:
         n, t = frame
@@ -47,6 +52,12 @@ def to_world(dim: int, frame, v_local: torch.Tensor) -> torch.Tensor:
     n, t, b = frame
     return (t * v_local[..., 0:1] + b * v_local[..., 1:2]
             + n * v_local[..., 2:3])
+
+
+def reflect(v: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Mirror ``v`` across the plane of normal ``n``
+    (util/transformation.h:69-72)."""
+    return v - 2.0 * torch.sum(v * n, dim=-1, keepdim=True) * n
 
 
 def geometric_interpolate(dim: int, values, uv: torch.Tensor):

@@ -10,7 +10,10 @@ parity tests feed identical numpy uniforms to both sides instead.
 
 ``ELAINA_SEED=<int>`` sets the run seed (default 0), as in the reference.
 A stage's stream depends on its index in ``STAGES``: new stages go at the
-end, so the streams of the existing ones (and a run's images) stay.
+end, so the streams of the existing ones (and a run's images) stay.  The
+guided depth step adds three: "route" (the guided-or-uniform choice),
+"guide" (the mixture sample) and "uniform" (the uniform direction it
+draws before the route is chosen).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import os
 
 import torch
 
-STAGES = ("neumann", "walk", "source")
+STAGES = ("neumann", "walk", "source", "route", "guide", "uniform")
 _MASK64 = (1 << 64) - 1
 
 

@@ -1,6 +1,7 @@
 """The scenes of ``chip_smoke.py``: a full-scale synthetic 2D scene (its
 Neumann box straight or traced as a wavy curve of many segments, its
-Dirichlet set cut down to bench.py's curve alone), bench.py's own scene,
+Dirichlet set cut down to bench.py's curve alone), the same scene with
+the guided integrator of ``configs/ladybug_n.json``, bench.py's own scene,
 the repository's 3D configs with their data in the checkout (as shipped,
 or neumann3d_u with a volumetric source), and the mixed Dirichlet/Neumann
 cube (with or without a unit source).
@@ -160,6 +161,33 @@ def write_scene(root: str, spp: int, segments: int = SEGMENTS,
         },
     }
     path = os.path.join(root, "lobed_u.json")
+    with open(path, "w") as f:
+        json.dump(conf, f, indent=2)
+    return path
+
+
+def write_lobed_n(root: str, spp: int, train_spp: int,
+                  segments: int = SEGMENTS, frame: int = FRAME,
+                  network: dict | None = None) -> str:
+    """lobed_n: the scene of ``write_scene`` with the guided integrator
+    and the network of ``configs/ladybug_n.json`` (the reference's own
+    ``n.json``: DenseGrid 8 levels x 4 features, MLP 64 x 3, Adam + EMA,
+    uniform fraction 0.5 and max guided depth 10 in both phases).  Cut:
+    ``spp`` samples of which ``train_spp`` train (the config: 1,024 and
+    256); ``segments``, ``frame`` and ``network`` (its blocks replacing
+    the config's) cut it further for tests.  Returns the config's path."""
+    path = write_scene(root, spp, segments=segments, frame=frame)
+    with open(path) as f:
+        conf = json.load(f)
+    with open(os.path.join(REPO_DIR, "configs", "ladybug_n.json")) as f:
+        ref = json.load(f)
+    guided = {k: v for k, v in ref["integrator"]["setting"].items()
+              if k.startswith(("uniformFraction", "maxGuidedDepth"))}
+    conf["exp_name"] = "lobed_n"
+    conf["integrator"]["type"] = "guided"
+    conf["integrator"]["setting"].update(guided, trainSppCount=train_spp)
+    conf["network"] = dict(ref["network"], **(network or {}))
+    path = os.path.join(root, "lobed_n.json")
     with open(path, "w") as f:
         json.dump(conf, f, indent=2)
     return path

@@ -11,8 +11,10 @@ shows on the CPU is patched to raise (``torch.tensor``,
 the host (``Tensor.item``, ``.tolist``, ``.numpy`` and a tensor's
 ``bool``, ``int`` or ``float``) while ``fine_decode``, ``band_cell``,
 ``grid_cell_index``, ``grid_row_index``, ``grid_closest_silhouette``,
-``band_ray_intersect`` and one ``wost_depth_step`` run, and their outputs
-equal the ones taken before the patch.  A ``.to(device)`` of a host
+``band_ray_intersect``, one ``wost_depth_step``, two guided depth steps
+(the training phase with its walk records, and the guiding phase) and
+two ``train_on_records`` batches run, and their outputs equal the ones
+taken before the patch.  A ``.to(device)`` of a host
 tensor cannot show here, where every tensor is on the CPU.  Two scenes on the CPU: the lobed curve (512 segments,
 with its candidate grid and FinePack) in a wavy Neumann box of 256
 segments with its 2D SilGrid and prim-band grid, and the mixed-BC cube
@@ -182,3 +184,84 @@ def test_depth_step_builds_no_host_tensor(which, fused, request,
     assert bool(want["state"][2].any())
     _no_host_tensor(monkeypatch)
     _assert_same(_step(scene, q, eps, active), want)
+
+
+TINY_NET = {"encoding": {"base_resolution": 4, "n_levels": 3,
+                         "n_features_per_level": 2, "per_level_scale": 1.5},
+            "network": {"n_neurons": 16, "n_hidden_layers": 1}}
+
+
+def _guide(scene):
+    """The network's spec and first weights and the scene's box on the
+    device, made once with the integrator (not per step)."""
+    from elaina_tpu_torch.nn.network import init_trainer, make_network
+    from elaina_tpu_torch.solver import guided as G
+
+    spec = make_network(2, 33, TINY_NET)
+    return spec, init_trainer(spec, CPU), G.guide_box(scene, CPU)
+
+
+def _guided_steps(scene, q, eps, active, training, guide):
+    """Two guided depth steps of the wavy box from fresh generators: the
+    training phase fills records, the guiding phase has none."""
+    from elaina_tpu_torch.solver import guided as G
+
+    spec, trainer, box = guide
+    params = trainer.ema_params
+    state = W.init_walk_state(q, active)
+    records = G.init_records(q.shape[0], 2, CPU) if training else None
+    gens = sample_generators(11, 0, CPU)
+    out = {}
+    for depth in range(2):
+        state, records, contrib, need = G.guided_depth_step(
+            scene, spec, params, box, state, records, gens, depth, True,
+            training, 0.5, 10, eps=eps)
+        out[f"contrib{depth}"] = contrib
+    out["state"] = (state.pos, state.thp, state.active, state.on_neumann,
+                    state.n_normal)
+    out["need"] = need
+    if training:
+        out["records"] = tuple(vars(records).values())
+    return out, records
+
+
+@pytest.mark.parametrize("training", [True, False])
+def test_guided_depth_step_builds_no_host_tensor(training, wavy2d,
+                                                 monkeypatch):
+    """Two guided depth steps (the network, the mixture sample and the
+    MIS pdf on every lane; in the training phase the record backfill and
+    the vertex writes) with host values refused: the same outputs."""
+    scene, q, eps = wavy2d
+    active = torch.as_tensor(np.arange(q.shape[0]) % 5 != 0)
+    guide = _guide(scene)
+    want, _ = _guided_steps(scene, q, eps, active, training, guide)
+    _no_host_tensor(monkeypatch)
+    got, _ = _guided_steps(scene, q, eps, active, training, guide)
+    _assert_same(got, want)
+
+
+def test_train_on_records_builds_no_host_tensor(wavy2d, monkeypatch):
+    """Two optimizer batches on the records of two training steps, with
+    host values refused: the same trainer and metric (a batch that is
+    dropped, for too few records or a nonfinite gradient, is dropped by
+    ``torch.where``)."""
+    from elaina_tpu_torch.nn.network import AdamConfig
+    from elaina_tpu_torch.solver import guided as G
+
+    scene, q, eps = wavy2d
+    active = torch.ones(q.shape[0], dtype=torch.bool)
+    guide = _guide(scene)
+    spec, trainer, box = guide
+    _, records = _guided_steps(scene, q, eps, active, True, guide)
+
+    def train():
+        tr, metric = G.train_on_records(trainer, spec,
+                                        AdamConfig(), box, records,
+                                        batch_size=1024, n_batches=2)
+        return {"params": tr.params, "ema": tr.ema_params, "mu": tr.opt.mu,
+                "nu": tr.opt.nu, "count": tr.opt.count, "metric": metric}
+
+    want = train()
+    assert int(want["count"]) == 2
+    _no_host_tensor(monkeypatch)
+    _assert_same(train(), want)
