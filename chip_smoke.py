@@ -48,23 +48,28 @@ and never prints its last line:
    lane.
 3. The mixed Dirichlet/Neumann square, u = (x + 1) / 2, through
    ``UniformIntegrator``: 256 walks of depth 64 at three points (64 lanes
-   a point, 4 samples), each point within 0.07 of u.
+   a point, 4 samples), each point within 0.07 of u, on the balanced
+   route (the default) and on the per-sample one (``spp_chunk``).
 3b. The same square through ``GuidedIntegrator``: 32 training samples
-   (each followed by ``train_on_records``) then 96 guided ones, depth 48,
-   eps 0.02, tests/test_guided.py's small network, at seven points of 256
-   lanes each, each point within 0.07 of u; the loss finite.
+   then 96 guided ones, depth 48, eps 0.02, tests/test_guided.py's small
+   network, at seven points of 256 lanes each, each point within 0.07 of
+   u, the loss finite, on the balanced route (the optimizer every 10
+   iterations) and on the per-sample one (metric frames asked for, none
+   written: ``train_on_records`` after each training sample).
 4. The 2D main path at full scale through ``exec.run_expr`` (the code of
-   ``python -m elaina_tpu_torch run``): a 65,536-segment Dirichlet
-   boundary (a lobed outline and 62 lobed spots inside it) in a 4-segment
-   Neumann box, 1024^2 frame, depth 64, eps 1.  The kernels' launch counts
+   ``python -m elaina_tpu_torch run``, its default balanced route, whose
+   rounds, iterations, host checks and occupancy are printed): a
+   65,536-segment Dirichlet boundary (a lobed outline and 62 lobed spots
+   inside it) in a 4-segment Neumann box, 1024^2 frame, depth 64, eps 1.  The kernels' launch counts
    are zeroed just before it and K1-K3's must rise.
 4g. The 2D guided main path, lobed_n: the scene of phase 4 with the
    guided integrator and network of ``configs/ladybug_n.json``
    (``utils/scenes.write_lobed_n``; DenseGrid 8 x 4, MLP 64 x 3, Adam +
    EMA, uniform fraction 0.5, max guided depth 10) at 1024^2, depth 64,
    eps 1, SPP samples of which 8 train (the config: 1,024 of which 256),
-   through ``run_expr``: K1-K3 launch; each phase's walk-steps/s, the
-   depth-capped share, the loss history's ends and the peak memory are
+   through ``run_expr`` (the balanced route): K1-K3 launch; each phase's
+   walk-steps/s, rounds and occupancy, the depth-capped share, the loss
+   history's ends (one value a training round) and the peak memory are
    printed; the SOLUTION film agrees with phase 4's at equal spp within 4
    combined standard errors on >= 99% of pixel channels (the guided /
    uniform variance of the mean printed as a reading).  Then, two
@@ -125,11 +130,13 @@ and never prints its last line:
    lane.
 6. The mixed cube, u = (x + 1) / 2 (Dirichlet x = +-1, zero Neumann on the
    other faces), through ``Problem.load_config`` and ``UniformIntegrator``:
-   1,024 walks at each of three points, depth 256 (walks stall by the
-   Neumann-Neumann edges), each within 0.07 of u.  It runs K6 and K9 too.
+   1,024 lanes of CUBE_SPP samples at each of three points, depth 256
+   (walks stall by the Neumann-Neumann edges), each within 0.07 of u, on
+   both routes.  It runs K6 and K9 too.
 6b. The mixed cube with a unit source, u = (x + 1) / 2 + (1 - x^2) / 2,
-   the same way at depth 128, fused and unfused (``ELAINA_FUSED_BAND=0``):
-   each point within 0.07; the source term's K7 launches in both runs.
+   the same way at depth 128, fused and unfused (``ELAINA_FUSED_BAND=0``),
+   on both routes: each point within 0.07; the source term's K7 launches
+   in every run.
 7. bumpy3d_u through ``exec.run_expr`` from a copy of
    ``configs/bumpy3d_u.json`` with its channels and exports (20,480
    triangles, 256^2, eps 0.01, 64 spp, SOLUTION and DIRICHLET_SDF), at the
@@ -153,12 +160,23 @@ and never prints its last line:
    K6) and fused, 8 spp each: both walk-steps/s printed, K8 must launch,
    and the two means agree within 4 combined standard errors on >= 99%
    of the pixels.
+8r. lobed_u, lobed_n and neumann3d_u on the per-sample route (copies of
+   their configs with metric frames asked for and none written) at the
+   spp of [4], [4g] and [8]: each film within 4 combined standard errors
+   of its balanced film on >= 99% of pixel channels; both routes'
+   walk-steps/s, depth-capped share and peak memory printed, and for
+   lobed_n each phase's walk-steps/s, the loss and the guided / uniform
+   variance of the mean on each route (a reading).
 8d. One depth step each of lobed_u, neumann3d_u, neumann3d_u with a
    source and wavy8192_u (1 spp, after one step outside the probe) under
    ``torch.cuda.set_sync_debug_mode("error")``: the phase fails where a
    step makes the host wait for the device.  Then lobed_n: one guided
    depth step in the training phase (records on), one in the guiding
-   phase and one ``train_on_records`` batch, the same way.
+   phase and one ``train_on_records`` batch, the same way.  Then a whole
+   balanced chunk of lobed_u and one of lobed_n's training phase (an
+   optimizer pass every 4 iterations), the probe lifted only around the
+   host's reads of the loop condition (one every CHECK_EVERY
+   iterations): no iteration waits for the device between them.
 
 Each phase ends with a line of its wall seconds (``[4d]: 3.2 s wall``),
 and ``[9]`` gives the whole run's.  The lines before the last hold the card's name and power limit and one
@@ -190,6 +208,11 @@ SPP = 32                     # samples of the 2D main path (phase 4)
 SPP_3D = 64                  # samples of bumpy3d_u and neumann3d_u (the
 #                              configs')
 BUMPY_DEPTH = 256            # bumpy3d_u's depth in phase 7 (the config: 64)
+CUBE_SPP = 8                 # samples of each of the cubes' 1,024 lanes a
+#                              point (phases 6, 6b): the source cube's
+#                              standard error at one sample (~0.019) left
+#                              its depth-128 mean (~0.03 under u) ~2 SE
+#                              from the 0.07 bound
 SOURCE_CUBE_DEPTH = 128      # the source cube's depth (phase 6b): a walk
 #                              that crosses a Neumann face drifts away
 #                              geometrically, and past depth ~240 its
@@ -1035,8 +1058,9 @@ def square_side(sides, n_per_side=6):
 
 
 def solve_points(problem, pts: np.ndarray, reps: int, spp: int, depth: int,
-                 eps: float):
-    """Means at ``pts`` over reps x spp walks through UniformIntegrator."""
+                 eps: float, spp_chunk: int | None = None):
+    """Means at ``pts`` over reps x spp walks through UniformIntegrator, on
+    the balanced route, or with ``spp_chunk`` the per-sample one."""
     import torch
 
     from elaina_tpu_torch.core.config import IntegratorSettings
@@ -1048,7 +1072,7 @@ def solve_points(problem, pts: np.ndarray, reps: int, spp: int, depth: int,
                                   samplesPerPixel=spp, maxWalkingDepth=depth,
                                   epsilonShell=eps)
     integ = UniformIntegrator(problem, settings, "unused", points=lanes)
-    ms = integ.solve()
+    ms = integ.solve(spp_chunk)
     if integ.sum.device.type != "cuda":
         raise RuntimeError("the analytic solve did not run on the card")
     u = integ.films["SOLUTION"].pixels()[0, :, 0].reshape(len(pts), reps)
@@ -1079,15 +1103,18 @@ def square_problem(device):
 
 
 def phase_analytic(device, card: str) -> None:
-    """Dirichlet u = (x+1)/2 on two walls, zero Neumann on the others."""
+    """Dirichlet u = (x+1)/2 on two walls, zero Neumann on the others, on
+    the balanced and on the per-sample route."""
     problem = square_problem(device)
     pts = np.array([[0.0, 0.0], [0.5, 0.8], [-0.5, -0.8]], np.float32)
-    u, ms, _ = solve_points(problem, pts, 64, 4, 64, 0.02)
     want = (pts[:, 0] + 1) / 2
-    log(f"[3] mixed-BC square: u {np.round(u, 4).tolist()} vs "
-        f"{want.tolist()} (atol 0.07), {ms} ms ({card})")
-    if not np.all(np.abs(u - want) <= 0.07):
-        raise RuntimeError("analytic square out of bound")
+    for route, chunk in (("balanced", None), ("per-sample", 1)):
+        u, ms, _ = solve_points(problem, pts, 64, 4, 64, 0.02, chunk)
+        log(f"[3] mixed-BC square, {route} route: u "
+            f"{np.round(u, 4).tolist()} vs {want.tolist()} (atol 0.07), "
+            f"{ms} ms ({card})")
+        if not np.all(np.abs(u - want) <= 0.07):
+            raise RuntimeError(f"analytic square out of bound ({route})")
 
 
 def phase_analytic_guided(device, card: str) -> None:
@@ -1106,28 +1133,38 @@ def phase_analytic_guided(device, card: str) -> None:
                     [-0.8, 0.3], [0.2, -0.5], [-0.3, 0.6]], np.float32)
     reps = 256
     lanes = torch.as_tensor(np.repeat(pts, reps, axis=0), device=device)
-    settings = IntegratorSettings(
-        frameSize=(len(lanes), 1), samplesPerPixel=SQUARE_SPP,
-        maxWalkingDepth=48, epsilonShell=0.02,
-        trainSppCount=SQUARE_TRAIN_SPP)
-    integ = GuidedIntegrator(problem, settings, "unused", points=lanes)
-    integ.reset_network(SQUARE_NET)
-    ms = integ.solve()
-    u = integ.films["SOLUTION"].pixels()[0, :, 0].reshape(len(pts),
-                                                          reps).mean(1)
     want = (pts[:, 0] + 1) / 2
-    loss = integ.loss_history
-    log(f"[3b] guided mixed-BC square: u {np.round(u, 4).tolist()} vs "
-        f"{want.tolist()} (atol 0.07), {SQUARE_SPP} samples of which "
-        f"{SQUARE_TRAIN_SPP} train, {reps} lanes a point, {ms} ms; loss "
-        f"{loss[0]:.4f} -> {loss[-1]:.4f} ({card})")
-    if integ.sum.device.type != "cuda":
-        raise RuntimeError("the guided square did not run on the card")
-    if not (integ._net_trained and np.isfinite(loss).all()
-            and len(loss) == SQUARE_TRAIN_SPP):
-        raise RuntimeError(f"the guided square's training: {loss}")
-    if not np.all(np.abs(u - want) <= 0.07):
-        raise RuntimeError("guided analytic square out of bound")
+    # the per-sample route: metric frames asked for, none written
+    for route, frames in (("balanced", {}),
+                          ("per-sample", {"saveSppMetricsDuration": 1,
+                                          "saveSppMetricsUntil": 0})):
+        settings = IntegratorSettings(
+            frameSize=(len(lanes), 1), samplesPerPixel=SQUARE_SPP,
+            maxWalkingDepth=48, epsilonShell=0.02,
+            trainSppCount=SQUARE_TRAIN_SPP, **frames)
+        integ = GuidedIntegrator(problem, settings, "unused", points=lanes)
+        integ.reset_network(SQUARE_NET)
+        ms = integ.solve()
+        u = integ.films["SOLUTION"].pixels()[0, :, 0].reshape(
+            len(pts), reps).mean(1)
+        loss = integ.loss_history
+        log(f"[3b] guided mixed-BC square, {route} route: u "
+            f"{np.round(u, 4).tolist()} vs {want.tolist()} (atol 0.07), "
+            f"{SQUARE_SPP} samples of which {SQUARE_TRAIN_SPP} train, "
+            f"{reps} lanes a point, {ms} ms; loss {len(loss)} values, "
+            f"{loss[0]:.4f} -> {loss[-1]:.4f}; optimizer steps "
+            f"{int(integ.trainer.opt.count)} ({card})")
+        if integ.sum.device.type != "cuda":
+            raise RuntimeError("the guided square did not run on the card")
+        # one loss a training sample on the per-sample route, one a
+        # training round on the balanced one
+        if not (integ._net_trained and np.isfinite(loss).all() and (
+                len(loss) == SQUARE_TRAIN_SPP if frames else loss)):
+            raise RuntimeError(f"the guided square's training ({route}): "
+                               f"{loss}")
+        if not np.all(np.abs(u - want) <= 0.07):
+            raise RuntimeError(f"guided analytic square out of bound "
+                               f"({route})")
 
 
 def check_solution(conf_path: str) -> tuple:
@@ -1212,16 +1249,55 @@ def run_main(conf_path: str, expect: tuple, label: str, card: str) -> tuple:
     return launches, result, made[-1]
 
 
+def route_keep(result: dict, integ) -> dict:
+    """What the route comparison ([8r]) reads of a run: its per-pixel mean
+    and standard error, walk-steps/s, depth-capped share, peak device
+    memory, and the guided run's phases and loss and the balanced run's
+    round records."""
+    walks = integ.n_pixels * integ.spp
+    return {"mean": (integ.sum / integ.spp).cpu().numpy(),
+            "se": integ.standard_error(),
+            "rate": result["walk_steps"] / (result["duration"] / 1e3),
+            "capped": result["capped_walks"] / walks,
+            "peak": result["peak_device_bytes"],
+            "phase_stats": result.get("phase_stats"),
+            "loss": result.get("loss_history"),
+            "rounds": getattr(integ, "balance_rounds", None)}
+
+
+def solve_steps(integ) -> int:
+    """The depth steps the last solve ran: its iterations on the balanced
+    route (``balance_rounds``), spp x depth on the per-sample route.  A
+    kernel of the step launches at least once each."""
+    rounds = getattr(integ, "balance_rounds", None)
+    if rounds is None:
+        return integ.spp * int(integ.settings.maxWalkingDepth)
+    if isinstance(rounds, dict):
+        rounds = [r for phase in rounds.values() for r in phase]
+    return sum(r["iters"] for r in rounds)
+
+
+def log_rounds(label: str, rounds: list) -> None:
+    """A balanced run's rounds: iterations, host checks and each round's
+    occupancy, steps / (iterations x lanes)."""
+    log(f"    {label}: {len(rounds)} rounds, "
+        f"{sum(r['iters'] for r in rounds)} iterations, "
+        f"{sum(r['checks'] for r in rounds)} host checks; by round "
+        f"(lanes, cap, iterations, occupancy): "
+        + ", ".join(f"({r['lanes']}, {r['cap']}, {r['iters']}, "
+                    f"{r['occupancy']:.4f})" for r in rounds))
+
+
 def phase_main(conf_path: str, card: str, keep: dict) -> dict:
-    """[4] lobed_u through run_expr; keeps its per-pixel mean and standard
-    error in ``keep`` for [4g]."""
+    """[4] lobed_u through run_expr (the balanced route); keeps its
+    per-pixel mean and standard error in ``keep`` for [4g] and [8r]."""
     log("[4] 2D main path")
-    launches, _, integ = run_main(conf_path, MAIN_2D, "lobed_u", card)
+    launches, result, integ = run_main(conf_path, MAIN_2D, "lobed_u", card)
     m_in, n_in, m_out, n_out = check_solution(conf_path)
     log(f"    mean |u| inside the curve {m_in:.4f} ({n_in} px), in the "
         f"Neumann region {m_out:.4f} ({n_out} px)")
-    keep["lobed_u"] = ((integ.sum / integ.spp).cpu().numpy(),
-                       integ.standard_error())
+    keep["lobed_u"] = route_keep(result, integ)
+    log_rounds("balanced route", integ.balance_rounds)
     return launches
 
 
@@ -1235,6 +1311,9 @@ def phase_guided(conf_path: str, card: str, keep: dict) -> dict:
     log("[4g] 2D guided main path (lobed_n)")
     launches, result, integ = run_main(conf_path, MAIN_2D, "lobed_n", card)
     check_solution(conf_path)
+    keep["lobed_n"] = route_keep(result, integ)
+    for phase, rounds in integ.balance_rounds.items():
+        log_rounds(f"balanced {phase} phase", rounds)
     ps = result["phase_stats"]
     loss = result["loss_history"]
     log(f"    training phase {ps['train_steps']} walk steps in "
@@ -1242,11 +1321,12 @@ def phase_guided(conf_path: str, card: str, keep: dict) -> dict:
         f"walk-steps/s), guiding phase {ps['guide_steps']} in "
         f"{ps['guide_s']:.3f} s ({ps['guide_steps'] / ps['guide_s']:.6g} "
         f"walk-steps/s) ({card})")
-    log(f"    loss history: {len(loss)} values, first {loss[0]:.6g}, last "
-        f"{loss[-1]:.6g}")
-    if len(loss) != GUIDED_TRAIN_SPP or not np.isfinite(loss).all():
+    log(f"    loss history (one value a training round): {len(loss)} "
+        f"values, first {loss[0]:.6g}, last {loss[-1]:.6g}; optimizer "
+        f"steps {int(integ.trainer.opt.count)}")
+    if not (loss and np.isfinite(loss).all() and integ._net_trained):
         raise RuntimeError(f"lobed_n's training loss: {loss}")
-    mean_u, se_u = keep.pop("lobed_u")
+    mean_u, se_u = keep["lobed_u"]["mean"], keep["lobed_u"]["se"]
     mean_g = (integ.sum / integ.spp).cpu().numpy()
     se_g = integ.standard_error()
     within = np.abs(mean_g - mean_u) <= 4.0 * np.hypot(se_g, se_u) + 1e-6
@@ -1489,7 +1569,7 @@ def phase_nogrid(root: str, device, card: str) -> dict:
                                   card)
     problem = integ.problem
     scene = problem.scene
-    steps = NOGRID_SPP * S.DEPTH
+    steps = solve_steps(integ)
     log(f"    {problem.stats['dirichlet_grid']}; K13 launches "
         f"{launches['closest_point_dense']} for {steps} depth steps and one "
         f"DIRICHLET_SDF render")
@@ -1537,7 +1617,6 @@ def phase_bench_square(device, card: str) -> None:
     """[4d] bench.py's own scene, as bench builds it."""
     import torch
 
-    from elaina_tpu_torch.utils import scenes as S
     from elaina_tpu_torch.utils.ab import bench_square
 
     log("[4d] bench.py's scene: 2,048 segments, no grid, no Neumann set")
@@ -1547,10 +1626,10 @@ def phase_bench_square(device, card: str) -> None:
     torch.cuda.synchronize()
     n_k13 = read_counts()["closest_point_dense"]
     film = integ.films["SOLUTION"].pixels()
-    log(f"    K13 launches {n_k13} for {4 * S.DEPTH} depth steps, "
+    log(f"    K13 launches {n_k13} for {solve_steps(integ)} depth steps, "
         f"{integ.total_walk_steps} live lane-steps; film mean "
         f"{float(film.mean()):.5f}")
-    if n_k13 < 4 * S.DEPTH or not np.isfinite(film).all():
+    if n_k13 < solve_steps(integ) or not np.isfinite(film).all():
         raise RuntimeError("bench.py's scene")
 
 
@@ -1609,7 +1688,6 @@ def phase_neumann2d_band(path: str, card: str) -> dict:
     import torch
 
     from elaina_tpu_torch.geometry import queries as Q
-    from elaina_tpu_torch.utils import scenes as S
     from elaina_tpu_torch.utils.ab import warm_state
 
     log("[4f] 2D Neumann set of 8,192 segments: the 2D band grids")
@@ -1619,7 +1697,7 @@ def phase_neumann2d_band(path: str, card: str) -> dict:
     problem = integ.problem
     for key in ("neumann_sil_grid", "neumann_band_grid"):
         log(f"    build {key}: {problem.stats[key]}")
-    steps = WAVY_SPP * S.DEPTH
+    steps = solve_steps(integ)
     if launches["sil_band_2d"] < steps:
         raise RuntimeError(f"K9-2D launched {launches['sil_band_2d']} times "
                            f"in {steps} depth steps")
@@ -2101,13 +2179,15 @@ def phase_analytic_3d(root: str, device, card: str) -> None:
         S.write_mixed_cube(root), cache_dir=os.environ["ELAINA_CACHE_DIR"])
     pts = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, -0.5], [-0.6, 0.3, 0.4]],
                    np.float32)
-    u, ms, capped = solve_points(problem, pts, 1024, 1, 256, 0.02)
     want = (pts[:, 0] + 1) / 2
-    log(f"[6] mixed-BC cube: u {np.round(u, 4).tolist()} vs "
-        f"{want.tolist()} (atol 0.07), {ms} ms, depth-capped share "
-        f"{capped:.4f} ({card})")
-    if not np.all(np.abs(u - want) <= 0.07):
-        raise RuntimeError("analytic cube out of bound")
+    for route, chunk in (("balanced", None), ("per-sample", 1)):
+        u, ms, capped = solve_points(problem, pts, 1024, CUBE_SPP, 256,
+                                     0.02, chunk)
+        log(f"[6] mixed-BC cube, {route} route: u "
+            f"{np.round(u, 4).tolist()} vs {want.tolist()} (atol 0.07), "
+            f"{ms} ms, depth-capped share {capped:.4f} ({card})")
+        if not np.all(np.abs(u - want) <= 0.07):
+            raise RuntimeError(f"analytic cube out of bound ({route})")
 
     # 6b: the same cube with a unit source, fused and unfused
     problem = Problem(3, device, verbose=False).load_config(
@@ -2115,21 +2195,25 @@ def phase_analytic_3d(root: str, device, card: str) -> None:
         cache_dir=os.environ["ELAINA_CACHE_DIR"])
     want = (pts[:, 0] + 1) / 2 + (1 - pts[:, 0] ** 2) / 2
     for on in (True, False):
-        with fused_band(on):
-            reset_counts()
-            u, ms, capped = solve_points(problem, pts, 1024, 1,
-                                         SOURCE_CUBE_DEPTH, 0.02)
-            counts = read_counts()
-        step = "band_neumann_walk" if on else "band_ball"
-        log(f"[6b] mixed-BC cube with a unit source, "
-            f"{'fused' if on else 'unfused'}: u {np.round(u, 4).tolist()} "
-            f"vs {np.round(want, 4).tolist()} (atol 0.07), {ms} ms, "
-            f"depth-capped share {capped:.4f}; launches band_ray "
-            f"{counts['band_ray']}, {step} {counts[step]} ({card})")
-        if not (counts["band_ray"] and counts[step]):
-            raise RuntimeError("the source cube did not launch its kernels")
-        if not np.all(np.abs(u - want) <= 0.07):
-            raise RuntimeError("analytic source cube out of bound")
+        for route, chunk in (("balanced", None), ("per-sample", 1)):
+            with fused_band(on):
+                reset_counts()
+                u, ms, capped = solve_points(problem, pts, 1024, CUBE_SPP,
+                                             SOURCE_CUBE_DEPTH, 0.02, chunk)
+                counts = read_counts()
+            step = "band_neumann_walk" if on else "band_ball"
+            log(f"[6b] mixed-BC cube with a unit source, "
+                f"{'fused' if on else 'unfused'}, {route} route: u "
+                f"{np.round(u, 4).tolist()} vs {np.round(want, 4).tolist()}"
+                f" (atol 0.07), {ms} ms, depth-capped share {capped:.4f}; "
+                f"launches band_ray {counts['band_ray']}, {step} "
+                f"{counts[step]} ({card})")
+            if not (counts["band_ray"] and counts[step]):
+                raise RuntimeError("the source cube did not launch its "
+                                   "kernels")
+            if not np.all(np.abs(u - want) <= 0.07):
+                raise RuntimeError(f"analytic source cube out of bound "
+                                   f"({route})")
 
 
 def bumpy_errors(conf_path: str) -> tuple[float, float]:
@@ -2190,9 +2274,12 @@ def phase_bumpy(conf_path: str, card: str) -> None:
         raise RuntimeError("bumpy3d_u out of its analytic bounds")
 
 
-def phase_main_3d(conf_path: str, card: str) -> dict:
+def phase_main_3d(conf_path: str, card: str, keep: dict) -> dict:
     log("[8] 3D main path")
-    launches, _, integ = run_main(conf_path, MAIN_3D, "neumann3d_u", card)
+    launches, result, integ = run_main(conf_path, MAIN_3D, "neumann3d_u",
+                                       card)
+    keep["neumann3d_u"] = route_keep(result, integ)
+    log_rounds("balanced route", integ.balance_rounds)
     mean = float(read_solution(conf_path).mean())
     log(f"    mean u {mean:.5f} (within (0.2, 0.8))")
     if not 0.2 < mean < 0.8:
@@ -2260,6 +2347,136 @@ def phase_unfused_3d(conf_path: str, card: str) -> dict:
         raise RuntimeError("the unfused image disagrees with the fused one")
     return lu
 
+
+def phase_routes(confs: dict, keep: dict, card: str) -> None:
+    """[8r] lobed_u, lobed_n and neumann3d_u on the per-sample route (the
+    metric-frames switch, no frame written) at the spp of [4], [4g] and
+    [8], held to those balanced films: within 4 combined standard errors
+    on >= 99% of pixel channels.  Prints both routes' walk-steps/s,
+    depth-capped share and peak memory, and for lobed_n each phase's
+    walk-steps/s, the loss and the guided / uniform variance of the mean
+    on each route (a reading)."""
+    from elaina_tpu_torch.utils import scenes as S
+
+    log("[8r] the per-sample route beside the balanced one")
+    for label, conf in confs.items():
+        path = S.write_per_sample(conf, label + "_per_sample")
+        _, result, integ = run_main(path, MAIN_3D if "3d" in label
+                                    else MAIN_2D, label + " per-sample", card)
+        if getattr(integ, "balance_rounds", None) is not None:
+            raise RuntimeError(f"{label} per-sample ran the balanced route")
+        ps, bal = route_keep(result, integ), keep[label]
+        keep[label + "_per_sample"] = ps
+        del integ
+        within = np.abs(ps["mean"] - bal["mean"]) <= 4.0 * np.hypot(
+            ps["se"], bal["se"]) + 1e-6
+        for route, r in (("balanced", bal), ("per-sample", ps)):
+            log(f"    {label} {route}: {r['rate']:.6g} walk-steps/s, "
+                f"depth-capped share {r['capped']:.4f}, peak device "
+                f"memory {r['peak']} bytes ({card})")
+        if label == "lobed_n":
+            for route, r in (("balanced", bal), ("per-sample", ps)):
+                st = r["phase_stats"]
+                ratio = float(np.mean(r["se"] ** 2) / np.mean(
+                    keep["lobed_u" + ("" if route == "balanced"
+                                      else "_per_sample")]["se"] ** 2))
+                log(f"    lobed_n {route}: training phase "
+                    f"{st['train_steps'] / st['train_s']:.6g} walk-steps/s,"
+                    f" guiding phase {st['guide_steps'] / st['guide_s']:.6g}"
+                    f"; loss {len(r['loss'])} values, {r['loss'][0]:.6g} -> "
+                    f"{r['loss'][-1]:.6g}; guided / uniform variance of the "
+                    f"mean {ratio:.4f} (a reading)")
+        log(f"    {label}: the routes' films within 4 combined standard "
+            f"errors on {within.mean():.5f} of the pixel channels (>= 0.99)")
+        if within.mean() < 0.99:
+            raise RuntimeError(f"{label}: the per-sample film disagrees with "
+                               f"the balanced one")
+    for label in confs:
+        keep.pop(label + "_per_sample")
+        keep.pop(label)
+
+
+def phase_syncs_balanced(conf_2d: str, conf_n: str, device) -> None:
+    """[8d] A whole balanced chunk of lobed_u (2 samples a lane) and of
+    lobed_n's training phase (2 samples a lane, an optimizer pass every 4
+    iterations) under ``torch.cuda.set_sync_debug_mode("error")``, lifted
+    only around the host's reads of the loop condition (``balanced.
+    read_flag``, every CHECK_EVERY iterations), after a short chunk
+    outside it: no iteration waits for the device between the host's
+    checks."""
+    import traceback
+
+    import torch
+
+    from elaina_tpu_torch.solver import balanced as B
+    from elaina_tpu_torch.solver import guided as G
+    from elaina_tpu_torch.solver.wost import wost_depth_step
+    from elaina_tpu_torch.utils.ab import load_integrator
+    from elaina_tpu_torch.utils.rng import stage_generators
+
+    read = B.read_flag
+    reads = []
+
+    def lifted(flag):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            reads.append(read(flag))
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+        return reads[-1]
+
+    for label, conf in (("lobed_u", conf_2d), ("lobed_n", conf_n)):
+        problem, integ = load_integrator(conf, device, 2)
+        integ.prepare()
+        rd0, _, _, resolved = integ._balanced_inputs()
+        pix, quota = B.identity_pieces(integ.n_pixels,
+                                       np.where(resolved, 0, 2))
+        pieces = B.make_pieces(integ.eval_points, rd0, pix, quota)
+        eps = float(integ.settings.epsilonShell)
+        gens = stage_generators(device)
+
+        def run(cap):
+            if label == "lobed_u":
+                return B.run_chunk(
+                    lambda sc, ex, st, g, w, s0: wost_depth_step(
+                        sc, st, g, eps, step0=s0),
+                    problem.scene, None, pieces, max_depth=64, iter_cap=cap,
+                    round_seed=1, gens=gens)
+            loop = G.TrainLoop(integ, integ.trainer, integ.n_pixels, 4)
+            return B.run_chunk(loop.step, problem.scene, None, pieces,
+                               max_depth=64, iter_cap=cap, round_seed=1,
+                               gens=gens, hooks=loop)
+
+        run(2)
+        reads.clear()
+        torch.cuda.synchronize()
+        B.read_flag = lifted
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = run(B.ITER_CAP_MAX)
+        except RuntimeError as e:
+            where = [f"{os.path.relpath(f.filename)}:{f.lineno} {f.line}"
+                     for f in traceback.extract_tb(e.__traceback__)
+                     if "elaina_tpu_torch" in f.filename]
+            raise RuntimeError(f"{label}: the balanced chunk waits for the "
+                               f"device at {where}: {e}") from None
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            B.read_flag = read
+        torch.cuda.synchronize()
+        iters = int(out.iters)
+        if not (out.checks == len(reads) > 1 and not reads[-1]
+                and int(out.done.sum()) == int(quota.sum())):
+            raise RuntimeError(f"{label}: the probed chunk did not drain: "
+                               f"{out.checks} checks, reads {reads}")
+        log(f"[8d] {label}: a balanced "
+            f"{'uniform' if label == 'lobed_u' else 'training'} chunk of "
+            f"{iters} iterations over {integ.n_pixels} lanes "
+            f"({int(out.steps)} live lane-steps"
+            f"{', an optimizer pass every 4 iterations' if label == 'lobed_n' else ''}"
+            f") with no host sync but its {out.checks} reads of the loop "
+            f"condition, one every {B.CHECK_EVERY} iterations")
+        del problem, integ, pieces, out
 
 def phase_syncs(paths: dict, device) -> None:
     """[8d] One depth step of each main path under
@@ -2404,15 +2621,20 @@ def main() -> int:
                 ("[5]", None, phase_kernels_3d, (conf_3d, device, kernels)),
                 ("[6]", None, phase_analytic_3d, (root, device, card)),
                 ("[7]", None, phase_bumpy, (conf_bumpy, card)),
-                ("[8]", "neumann3d_u", phase_main_3d, (conf_3d, card)),
+                ("[8]", "neumann3d_u", phase_main_3d, (conf_3d, card, keep)),
                 ("[8b]", "neumann3d_source", phase_source_3d, (root, card)),
                 ("[8c]", "neumann3d_unfused", phase_unfused_3d,
                  (conf_3d, card)),
+                ("[8r]", None, phase_routes,
+                 ({"lobed_u": conf_2d, "lobed_n": conf_n,
+                   "neumann3d_u": conf_3d}, keep, card)),
                 ("[8d]", None, phase_syncs,
                  ({"lobed_u": conf_2d, "neumann3d_u": conf_3d,
                    "neumann3d_source": source_conf,
                    "wavy8192_u": conf_wavy}, device)),
-                ("[8d] guided", None, phase_syncs_guided, (conf_n, device))):
+                ("[8d] guided", None, phase_syncs_guided, (conf_n, device)),
+                ("[8d] balanced", None, phase_syncs_balanced,
+                 (conf_2d, conf_n, device))):
             out = timed_phase(label, fn, *args)
             if key is not None:
                 runs[key] = out

@@ -1,12 +1,15 @@
-"""Uniform integrator: the per-sample solve loop and the exports.
+"""Uniform integrator: the solve's two routes and the exports.
 
 Port of ``BaseIntegrator`` / ``UniformIntegrator`` of
-``elaina_tpu/solver/integrator.py`` along the reference's per-sample path
-(integrator.py:188-249): each sample walks every pixel's lane to the
-maximum depth, and the loop accumulates the samples, dumping per-spp
-frames when the config asks.  The balanced persistent solve, which runs
-the same estimator with lanes restarting as their walks die, is a later
-port.  The one-shot channels fill their films from one query over the
+``elaina_tpu/solver/integrator.py``.  The solve takes the JAX package's
+default route, the balanced persistent solve (``solver/balanced.py``,
+integrator.py:250-372): lanes restart with their next sample as their
+walks die, over cost-balanced worklists.  It takes the per-sample route
+(integrator.py:188-249) exactly where the JAX package does: when the
+config asks for per-spp or timed metric frames, or when the caller passes
+``spp_chunk``; there each sample walks every pixel's lane to the maximum
+depth, and the loop accumulates the samples and dumps the frames.  The
+one-shot channels fill their films from one query over the
 frame's points (integrator.py:96-131): DIRICHLET_SDF the distance to the
 Dirichlet boundary (the chain path, K10 / K11; without a grid
 ``closest_point``, K13 in 2D), NEUMANN_SDF the exact
@@ -30,7 +33,9 @@ from ..geometry.grid import build_fine_pack
 from ..geometry import queries as Q
 from ..output.film import Film
 from ..utils.rng import run_seed, sample_generators
-from .wost import dirichlet_distance, run_one_sample
+from .balanced import balanced_solve
+from .wost import (check_neumann, compute_step0, dirichlet_distance,
+                   run_one_sample, wost_depth_step)
 
 # ExportImageChannel order (the film slots of the reference)
 CHANNELS = ("DIRICHLET_SDF", "NEUMANN_SDF", "SOURCE", "SOLUTION")
@@ -79,17 +84,43 @@ class BaseIntegrator:
                                device=self.device)
 
     def prepare(self) -> None:
-        """Load the CUDA kernel libraries before the solve's clock starts
-        (the JAX integrator's ``prepare`` compiles its programs there): on
-        a CUDA device both ``ops/resolve`` and ``ops/queries``, which
-        builds them if ``_build/`` holds no library of these sources.  On
-        the CPU there is nothing to load."""
-        if self.device.type != "cuda":
-            return
-        from ..ops import queries, resolve
+        """Work before the solve's clock starts (the JAX integrator's
+        ``prepare`` compiles its programs there): on a CUDA device load
+        both kernel libraries, ``ops/resolve`` and ``ops/queries``, which
+        builds them if ``_build/`` holds no library of these sources (on
+        the CPU there is nothing to load); then each pixel's first
+        separation (``_step0``), which the balanced route reuses."""
+        if self.device.type == "cuda":
+            from ..ops import queries, resolve
 
-        resolve.library()
-        queries.library()
+            resolve.library()
+            queries.library()
+        self._step0()
+
+    def _step0(self):
+        """Each pixel's first separation, (rd0, in_shell0, contrib0), once
+        an integrator (reference integrator.py:265-273)."""
+        if getattr(self, "_step0_cache", None) is None:
+            self._step0_cache = compute_step0(
+                self.problem.scene, self.eval_points, self.mask,
+                float(self.settings.epsilonShell))
+        return self._step0_cache
+
+    def _balanced_inputs(self):
+        """The step-0 tables and the host mask of the pixels the balanced
+        route bakes analytically (in the shell at step 0, or masked)."""
+        rd0, in_shell0, contrib0 = self._step0()
+        resolved = (in_shell0 | ~self.mask).cpu().numpy()
+        return rd0, in_shell0, contrib0, resolved
+
+    def _cost_cache(self) -> tuple[dict, tuple]:
+        """The per-pixel cost cache kept on the problem (reference
+        integrator.py:345): a later solve of the same frame, eps and depth
+        starts balanced without the probe round.  Returns (cache, key)."""
+        s = self.settings
+        cache = self.problem.__dict__.setdefault("_cost_cache", {})
+        return cache, (self.n_pixels, float(s.epsilonShell),
+                       int(s.maxWalkingDepth))
 
     def _put(self, channel: str, vals: np.ndarray):
         film = self.films[channel]
@@ -153,14 +184,69 @@ class BaseIntegrator:
         return torch.sqrt(var / n).cpu().numpy()
 
 
+def metrics_on(settings) -> bool:
+    """Whether the config asks for per-spp or timed metric frames, which
+    only the per-sample route writes."""
+    return (settings.saveSppMetricsDuration > 0
+            or settings.saveTimeMetricsDuration > 0)
+
+
 class UniformIntegrator(BaseIntegrator):
-    def solve(self) -> int:
+    def solve(self, spp_chunk: int | None = None) -> int:
         """Run every sample; returns wall-clock milliseconds.  Leaves the
         mean in the SOLUTION film, the per-pixel sums in ``sum`` /
         ``sum_sq``, the live lane-steps in ``total_walk_steps``, the
         lane-steps whose Dirichlet distance was resolved exactly (the
         K2 / K4 sweep's lanes) in ``total_resolved`` and the walks that
-        met the depth cap alive in ``total_capped``."""
+        met the depth cap alive in ``total_capped``.
+
+        The route is the JAX package's choice (integrator.py:185-189):
+        the balanced persistent solve, unless the config asks for metric
+        frames or the caller passes ``spp_chunk``, which take the
+        per-sample route (the port dispatches it one sample at a time,
+        so the value of ``spp_chunk`` sets nothing else)."""
+        if metrics_on(self.settings) or spp_chunk is not None:
+            return self._solve_per_sample()
+        return self._solve_persistent()
+
+    def _solve_persistent(self) -> int:
+        """The balanced persistent solve (reference integrator.py:325-372):
+        the probe round measures each pixel's cost, which is cached on
+        the problem for later solves; ``balance_rounds`` keeps each
+        round's record (lanes, cap, iterations, steps, host checks,
+        occupancy)."""
+        s = self.settings
+        scene = self.problem.scene
+        check_neumann(scene)
+        eps = float(s.epsilonShell)
+        spp = int(s.samplesPerPixel)
+        start = time.time()
+        rd0, in_shell0, contrib0, resolved = self._balanced_inputs()
+        cache, key = self._cost_cache()
+
+        def step(scene, extra, state, gens, wstep, step0):
+            return wost_depth_step(scene, state, gens, eps, step0=step0)
+
+        out = balanced_solve(
+            step, scene, None, self.eval_points, rd0, resolved, contrib0,
+            in_shell0, spp=spp, max_depth=int(s.maxWalkingDepth),
+            seed=run_seed(), phase=0, cost0=cache.get(key),
+            cost_sink=lambda c: cache.__setitem__(key, c),
+            progress=_progress)
+        self.sum, self.sum_sq, self.spp = out.image, out.image_sq, spp
+        self.total_walk_steps = out.steps
+        self.total_resolved = out.resolved
+        self.total_capped = out.capped
+        self.balance_rounds = out.rounds
+        sol = out.image.cpu().numpy()              # waits for the device
+        duration_ms = int((time.time() - start) * 1000)
+        self._put("SOLUTION", sol / max(spp, 1))
+        return duration_ms
+
+    def _solve_per_sample(self) -> int:
+        """The per-sample route (reference integrator.py:188-249): each
+        sample walks every lane to the depth cap; writes the metric
+        frames the config asks for."""
         s = self.settings
         scene = self.problem.scene
         spp = int(s.samplesPerPixel)

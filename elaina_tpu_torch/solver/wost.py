@@ -95,16 +95,21 @@ def dirichlet_distance(scene: Scene, q):
     return grid_closest_point(scene.d_grid, q)
 
 
-def _dense_dirichlet(scene: Scene, q, active, eps: float):
+def _dense_dirichlet(scene: Scene, q, active, eps: float, step0=None):
     """Dirichlet resolve of a set without a grid (the reference's
     ``dirichlet_distance_masked`` without a grid, wost.py:129-138, and
     ``_separate``'s shell test, :340-352): the exact distance on every
     active lane, need = active; in 2D K13 sweeps only those (K1 compacts
     them), and the others get R_D = +inf, which nothing downstream reads
-    (their walks are dead).  Returns (R_D, in_shell, color (N, 3), need);
-    the color is the winner's side-selected, interpolated color."""
+    (their walks are dead).  ``step0`` = (fresh (N,), rd0 (N,)): the
+    lanes at their walk's first step leave need, are not swept and take
+    R_D = rd0 (their pixel's distance, computed once).  Returns (R_D,
+    in_shell, color (N, 3), need); the color is the winner's
+    side-selected, interpolated color."""
     dim = scene.dim
     gs = scene.dirichlet.gs
+    if step0 is not None:
+        active = active & ~step0[0]
     d, pid, uv, side = Q.closest_point_detail(gs, q, active)
     if dim == 2:
         interior = (uv > 0.0) & (uv < 1.0)
@@ -113,6 +118,8 @@ def _dense_dirichlet(scene: Scene, q, active, eps: float):
                                                           < 1.0)
     in_shell = active & (d < eps) & interior
     color = _surface_color(dim, scene.dirichlet.colors, gs, pid, side, uv)
+    if step0 is not None:
+        d = torch.where(step0[0], step0[1], d)
     return d, in_shell, color, active
 
 
@@ -140,7 +147,7 @@ def _resolve_3d(g, need, row, q, eps: float):
     return d_e, geometric_interpolate(3, (ca, cb, cc), uv), ins
 
 
-def _fast_dirichlet(scene: Scene, q, active, eps: float):
+def _fast_dirichlet(scene: Scene, q, active, eps: float, step0=None):
     """Dirichlet resolve on the FinePack and the resolve kernels.
 
     One FinePack load per lane gives the candidate row, the need bit and a
@@ -148,7 +155,10 @@ def _fast_dirichlet(scene: Scene, q, active, eps: float):
     force) fired are swept exactly over their row (K2 / K4: the wrapper
     lists them with K1 and the sweep writes by lane id, so nothing is
     gathered or scattered here), and the in-shell ones fetch their
-    boundary colors (K3 / K5).  Returns (R_D, in_shell, color (N, 3),
+    boundary colors (K3 / K5).  ``step0`` = (fresh (N,), rd0 (N,)): the
+    lanes at their walk's first step leave need before K1 lists the
+    lanes, so no sweep reads their row, and take R_D = rd0 (reference
+    wost.py:213-215, :309-310).  Returns (R_D, in_shell, color (N, 3),
     need).
     """
     g = scene.d_grid
@@ -158,6 +168,8 @@ def _fast_dirichlet(scene: Scene, q, active, eps: float):
                          f"{None if fp is None else fp.eps}, not {eps}")
     row, need_f, rl, outside = fine_decode(fp, q)
     need = active & (need_f | outside)
+    if step0 is not None:
+        need &= ~step0[0]
     resolve = _resolve_2d if scene.dim == 2 else _resolve_3d
     d_e, col, in_shell = resolve(g, need, row, q, eps)
 
@@ -168,15 +180,21 @@ def _fast_dirichlet(scene: Scene, q, active, eps: float):
         # the valid star radius there (reference wost.py:295-307)
         tr = need & ~outside & g.row_trunc[row.long()]
         R_D = torch.where(tr, g.row_lbound[row.long()], R_D)
+    if step0 is not None:
+        R_D = torch.where(step0[0], step0[1], R_D)
     in_shell &= R_D < eps
     color = torch.where(in_shell[:, None], col, 0.0)
     return R_D, in_shell, color, need
 
 
-def _separate(scene: Scene, state: WalkState, eps: float, shrink: bool):
+def _separate(scene: Scene, state: WalkState, eps: float, shrink: bool,
+              step0=None):
     """Star radius and epsilon-shell classification: (in_shell, R_B,
     bcolor, R_D, need), bcolor the interpolated Dirichlet color (unscaled)
-    and need the lanes whose Dirichlet distance was resolved exactly."""
+    and need the lanes whose Dirichlet distance was resolved exactly.
+    ``step0`` = (fresh, rd0) reuses each pixel's first Dirichlet query on
+    the lanes at their walk's first step (the balanced solve's restarts;
+    None on the per-sample route)."""
     q = state.pos
     n = q.shape[0]
     dev = q.device
@@ -187,11 +205,11 @@ def _separate(scene: Scene, state: WalkState, eps: float, shrink: bool):
         bcolor = torch.zeros((n, 3), device=dev)
         need = in_shell
     elif scene.d_grid is None:
-        R_D, in_shell, bcolor, need = _dense_dirichlet(scene, q,
-                                                       state.active, eps)
+        R_D, in_shell, bcolor, need = _dense_dirichlet(
+            scene, q, state.active, eps, step0)
     else:
-        R_D, in_shell, bcolor, need = _fast_dirichlet(scene, q,
-                                                      state.active, eps)
+        R_D, in_shell, bcolor, need = _fast_dirichlet(
+            scene, q, state.active, eps, step0)
     if scene.neumann is None:
         R_N = inf
     else:
@@ -434,11 +452,12 @@ def fused_band_available(scene: Scene) -> bool:
 
 
 def wost_depth_step(scene: Scene, state: WalkState, gens: dict,
-                    eps: float):
+                    eps: float, step0=None):
     """One depth iteration for every lane: (state', contrib (N, 3), the
-    number of lanes resolved exactly as a 0-dim device tensor)."""
+    number of lanes resolved exactly as a 0-dim device tensor).
+    ``step0``: see ``_separate``."""
     in_shell, R_B, bcolor, _, need = _separate(scene, state, eps,
-                                               shrink=True)
+                                               shrink=True, step0=step0)
     in_shell &= state.active
     contrib = torch.zeros((state.pos.shape[0], 3), device=state.pos.device)
     if scene.dirichlet is not None:
@@ -470,6 +489,24 @@ def check_neumann(scene: Scene):
             and scene.neumann.gs.n_prims > Q.CHUNKED_DENSE_MAX):
         raise ValueError(f"a 2D Neumann set above {Q.CHUNKED_DENSE_MAX} "
                          f"prims needs its prim-band grid")
+
+
+def compute_step0(scene: Scene, eval_points, mask, eps: float):
+    """Each pixel's first separation, computed once (reference
+    wost.py:1426-1447): (rd0 (N,), in_shell0 (N,), contrib0 (N, 3)).
+    Every sample of a pixel starts at its evaluation point, so its first
+    Dirichlet query is the same each time: the balanced solve hands rd0
+    to the restarting lanes, and bakes the pixels in the shell at their
+    first step analytically (contrib0, throughput 1) so they never walk."""
+    state = init_walk_state(eval_points, mask)
+    in_shell, _, bcolor, R_D, _ = _separate(scene, state, eps, shrink=True)
+    in_shell &= mask
+    if scene.dirichlet is not None:
+        contrib0 = _boundary_term(scene, state, in_shell, bcolor)
+    else:
+        contrib0 = torch.zeros((eval_points.shape[0], 3),
+                               device=eval_points.device)
+    return R_D, in_shell, contrib0
 
 
 def run_one_sample(scene: Scene, eval_points, mask, gens: dict, *,

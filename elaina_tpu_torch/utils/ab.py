@@ -59,10 +59,19 @@ turn of ``--order`` the named tree runs, each in a process of its own:
    at [2]'s shape), neumann3d_u and bumpy3d_u as shipped
    (``dirichlet_sdf_*``), timed, with a digest of each film.
 
-Each CLI run also records a digest of its SOLUTION film (the exported
-float32 ``solution.exr``), and each DIRICHLET_SDF case one of its film,
-so the medians line can say whether the trees' films are equal bit for
-bit (``films_equal``).
+Each CLI scene also runs from a copy of its config that takes the
+per-sample route (``utils/scenes.write_per_sample``: metric frames asked
+for, none written; ``<scene>_per_sample``), so a tree whose default
+route is the balanced one is timed on both.  Each CLI run records a
+digest of its SOLUTION film (the exported float32 ``solution.exr``), and
+each DIRICHLET_SDF case one of its film, so the medians line can say
+whether the trees' films are equal bit for bit (``films_equal``): the
+per-sample films of every tree, and a tree's default film where its
+default is the per-sample route.  In its first turn a tree whose
+``UniformIntegrator.solve`` takes ``spp_chunk`` (the balanced route is
+its default) also solves the six CLI configs in one process on both
+routes (``routes``): both walk-steps/s and the share of pixel channels
+whose means agree within 4 combined standard errors.
 
 The trees share one grid cache, so only the first run of a scene builds
 its grids (before the solve's clock in both trees).  One JSON line per
@@ -177,11 +186,44 @@ def _solve_twice(conf: str | None) -> dict:
                 else load_integrator(conf, dev))
     integ.prepare()
     ms = integ.solve()
-    warm_ms = integ.solve()
     steps = integ.total_walk_steps
+    warm_ms = integ.solve()
+    warm_steps = integ.total_walk_steps
     return {"walk_steps": steps, "duration_ms": ms,
             "walk_steps_s": steps / (ms / 1e3), "warm_duration_ms": warm_ms,
-            "warm_walk_steps_s": steps / (warm_ms / 1e3)}
+            "warm_walk_steps_s": warm_steps / (warm_ms / 1e3)}
+
+
+def _routes(confs: dict) -> dict:
+    """Each config solved in this tree on its default route and on the
+    per-sample one (``solve(spp_chunk=1)``): both walk-steps/s, and the
+    share of pixel channels where the two means agree within 4 combined
+    standard errors.  ``confs``: scene -> (config, ELAINA_FUSED_BAND)."""
+    sys.path.insert(0, os.getcwd())
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    out = {}
+    for scene, (conf, fused) in confs.items():
+        os.environ["ELAINA_FUSED_BAND"] = fused
+        _, integ = load_integrator(conf, dev)
+        integ.prepare()
+        got = []
+        for kw in ({}, {"spp_chunk": 1}):
+            ms = integ.solve(**kw)
+            got.append(((integ.sum / integ.spp).cpu().numpy(),
+                        integ.standard_error(),
+                        integ.total_walk_steps / (ms / 1e3)))
+        (ma, sa, ra), (mb, sb, rb) = got
+        within = np.abs(ma - mb) <= 4.0 * np.hypot(sa, sb) + 1e-6
+        out[scene] = {"walk_steps_s": ra, "per_sample_walk_steps_s": rb,
+                      "within_4se": float(within.mean())}
+        del integ
+        torch.cuda.empty_cache()
+    os.environ["ELAINA_FUSED_BAND"] = "1"
+    return out
 
 
 def _k13_kernels(problem, integ, a, b, tag: str, timed) -> dict:
@@ -573,11 +615,28 @@ def main(argv=None) -> int:
                                               "bumpy3d_u", 1)
         envs = {scene: env for scene in confs}
         envs["neumann3d_unfused"] = dict(env, ELAINA_FUSED_BAND="0")
+        per_sample = {scene + "_per_sample": scenes.write_per_sample(
+            conf, scene + "_per_sample") for scene, conf in confs.items()}
+        for scene in confs:
+            envs[scene + "_per_sample"] = envs[scene]
+        routes_done = set()
         for i, name in enumerate(order):
             t0 = time.time()
             turn = {"turn": i, "tree": name}
-            for scene, conf in confs.items():   # first: a cold _build/
+            for scene, conf in {**confs, **per_sample}.items():
+                # the first: a cold _build/
                 turn[scene] = _run_scene(trees[name], conf, envs[scene])
+            if name not in routes_done:
+                routes_done.add(name)
+                out = _run([sys.executable, os.path.join(here, "ab.py"),
+                            "--routes", json.dumps(
+                                {s: (c, envs[s].get("ELAINA_FUSED_BAND",
+                                                    "1"))
+                                 for s, c in confs.items()})],
+                           trees[name], env)
+                routes = json.loads(out.strip().splitlines()[-1])
+                if routes:
+                    turn["routes"] = routes
             for scene, extra in (("bench_square", []),
                                  ("nogrid_u_twice", [conf_ng])):
                 out = _run([sys.executable, os.path.join(here, "ab.py"),
@@ -598,7 +657,8 @@ def main(argv=None) -> int:
         mine = [t for t in turns if t["tree"] == name]
         summary[name] = {
             scene: statistics.median(t[scene]["walk_steps_s"] for t in mine)
-            for scene in (*confs, "bench_square", "nogrid_u_twice")}
+            for scene in (*confs, *per_sample, "bench_square",
+                          "nogrid_u_twice")}
         for scene in ("bench_square", "nogrid_u_twice"):
             summary[name][f"{scene}_warm"] = statistics.median(
                 t[scene]["warm_walk_steps_s"] for t in mine)
@@ -608,16 +668,24 @@ def main(argv=None) -> int:
                     t["kernels"][k][key] for t in mine)
     films = {scene: {name: sorted({t[scene]["solution_sha256"]
                                    for t in turns if t["tree"] == name})
-                     for name in trees} for scene in confs}
+                     for name in trees} for scene in per_sample}
+    for scene in confs:   # a tree whose default is the per-sample route
+        for name in trees:
+            mine = [t for t in turns if t["tree"] == name]
+            if "routes" not in mine[0]:
+                films[scene + "_per_sample"][name] = sorted(
+                    set(films[scene + "_per_sample"][name])
+                    | {t[scene]["solution_sha256"] for t in mine})
     sdf = {k: {name: sorted({t["kernels"][k]["film_sha256"]
                              for t in turns if t["tree"] == name})
                for name in trees}
            for k in turns[0]["kernels"] if k.startswith("dirichlet_sdf_")}
     equal = {scene: len({d for ds in by.values() for d in ds}) == 1
              for scene, by in {**films, **sdf}.items()}
+    routes = {t["tree"]: t["routes"] for t in turns if "routes" in t}
     lines.append(json.dumps({"medians": summary, "solution_sha256": films,
                              "dirichlet_sdf_sha256": sdf,
-                             "films_equal": equal}))
+                             "films_equal": equal, "routes": routes}))
     print(lines[-1], flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -629,6 +697,15 @@ def main(argv=None) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--kernels"]:
         print(json.dumps(_kernel_times(*sys.argv[2:8])))
+    elif sys.argv[1:2] == ["--routes"]:
+        import inspect
+
+        sys.path.insert(0, os.getcwd())
+        from elaina_tpu_torch.solver.integrator import UniformIntegrator
+
+        has = "spp_chunk" in inspect.signature(
+            UniformIntegrator.solve).parameters
+        print(json.dumps(_routes(json.loads(sys.argv[2])) if has else {}))
     elif sys.argv[1:2] == ["--solve-twice"]:
         print(json.dumps(_solve_twice(sys.argv[2] if sys.argv[2:] else None)))
     else:

@@ -14,6 +14,13 @@ end, so the streams of the existing ones (and a run's images) stay.  The
 guided depth step adds three: "route" (the guided-or-uniform choice),
 "guide" (the mixture sample) and "uniform" (the uniform direction it
 draws before the route is chosen).
+
+The balanced persistent solve (``solver/balanced.py``) has no per-sample
+streams: every lane restarts with its next sample when its walk dies.
+Each of its iterations seeds the stage generators from (run seed,
+phase, round, iteration) under a root of its own (``balanced_seed``),
+so its streams never meet the per-sample route's.  Each lane draws its
+own numbers, so the lanes that share a pixel sample independently.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 
 STAGES = ("neumann", "walk", "source", "route", "guide", "uniform")
 _MASK64 = (1 << 64) - 1
+BALANCED_ROOT = 0xBA1A9CED   # mixed into every balanced-solve seed
 
 
 def run_seed() -> int:
@@ -53,4 +61,28 @@ def sample_generators(seed: int, sample: int,
         g = torch.Generator(device=device)
         g.manual_seed(stream_seed(seed, sample, i))
         gens[name] = g
+    return gens
+
+
+def balanced_seed(seed: int, phase: int, round_i: int) -> int:
+    """The seed of one round of a balanced solve's ``phase`` (the uniform
+    solve, the guided training or guiding phase), from which
+    ``reseed`` draws each iteration's stage streams."""
+    h = _splitmix64(_splitmix64(seed & _MASK64) ^ BALANCED_ROOT)
+    h = _splitmix64(h ^ (phase & _MASK64))
+    return _splitmix64(h ^ (round_i & _MASK64)) >> 1
+
+
+def stage_generators(device: torch.device) -> dict[str, torch.Generator]:
+    """One generator a stage, to be seeded with ``reseed``."""
+    return {name: torch.Generator(device=device) for name in STAGES}
+
+
+def reseed(gens: dict[str, torch.Generator], round_seed: int,
+           iteration: int) -> dict[str, torch.Generator]:
+    """Seed the stage generators for one iteration of a round: the
+    streams of ``sample_generators`` with the iteration as the sample,
+    under the round's seed.  Seeding touches only the host."""
+    for i, g in enumerate(gens.values()):
+        g.manual_seed(stream_seed(round_seed, iteration, i))
     return gens

@@ -193,6 +193,21 @@ def write_lobed_n(root: str, spp: int, train_spp: int,
     return path
 
 
+def write_per_sample(conf_path: str, exp_name: str) -> str:
+    """A copy of a config beside it, named ``exp_name``, that takes the
+    per-sample route: metric frames asked for (saveSppMetricsDuration 1)
+    and none written (saveSppMetricsUntil 0).  Returns its path."""
+    with open(conf_path) as f:
+        conf = json.load(f)
+    conf["exp_name"] = exp_name
+    conf["integrator"]["setting"].update(saveSppMetricsDuration=1,
+                                         saveSppMetricsUntil=0)
+    path = os.path.join(os.path.dirname(conf_path), exp_name + ".json")
+    with open(path, "w") as f:
+        json.dump(conf, f, indent=2)
+    return path
+
+
 def _data_path(path: str) -> str:
     return os.path.join(REPO_DIR, "configs", "data", os.path.basename(path))
 

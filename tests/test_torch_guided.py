@@ -264,10 +264,10 @@ def test_untrained_net_fallback_in_phase(tmp_path):
 
 def test_guided_cli_matches_uniform(tmp_path, monkeypatch):
     """A small lobed_n (512 Dirichlet segments, 16^2, 16 samples of which 6
-    train, the tiny network) and its uniform config through ``run_expr``
-    on the CPU: result.json carries the guided keys, and the two films
-    agree within 4 combined standard errors on >= 99% of pixel
-    channels."""
+    train, the tiny network) on the per-sample route and its uniform
+    config (the balanced route) through ``run_expr`` on the CPU:
+    result.json carries the guided keys, and the two films agree within 4
+    combined standard errors on >= 99% of pixel channels."""
     from elaina_tpu_torch.exec import run_expr
     from elaina_tpu_torch.solver import integrator as I
 
@@ -275,6 +275,9 @@ def test_guided_cli_matches_uniform(tmp_path, monkeypatch):
     monkeypatch.setenv("ELAINA_CACHE_DIR", str(tmp_path / "cache"))
     conf_n = S.write_lobed_n(str(tmp_path), 16, 6, segments=512, frame=16,
                              network=TINY)
+    # one loss a training sample is the per-sample route's: ask for it
+    # with the metric-frames switch (saveSppMetricsUntil 0: no frame)
+    conf_n = S.write_per_sample(conf_n, "lobed_n")
     conf_u = os.path.join(str(tmp_path), "lobed_u.json")
     made = []
     init = I.BaseIntegrator.__init__

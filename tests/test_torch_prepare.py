@@ -2,7 +2,8 @@
 
 ``UniformIntegrator.prepare`` loads the CUDA kernel libraries (building
 them when ``_build/`` holds none of these sources) on a CUDA device and
-does nothing on the CPU, and ``exec.run_expr`` calls it before any
+loads nothing on the CPU (on both it also computes the step-0 tables of
+the balanced route), and ``exec.run_expr`` calls it before any
 channel, so ``result.json``'s duration never counts nvcc.  Nothing here
 builds a kernel: the library loader is replaced by one that records the
 names it is asked for.
@@ -37,8 +38,11 @@ def loads(monkeypatch):
 
 
 def _integrator_on(device):
+    """A bare integrator on ``device`` whose step-0 tables (the rest of
+    ``prepare``'s work) are already there, so only the loads remain."""
     integ = UniformIntegrator.__new__(UniformIntegrator)
     integ.device = torch.device(device)
+    integ._step0_cache = ()
     return integ
 
 
