@@ -147,6 +147,15 @@ and never prints its last line:
    surface, as the reference's do; PERF.md).  The DIRICHLET_SDF film is
    finite and equals the row's lower bound on truncated-row pixels, and
    K11 equals its plain version bit for bit on the 2-level grid.
+7g. bumpy3d_n, the 3D guided path, through ``exec.run_expr`` from a copy
+   of ``configs/bumpy3d_n.json`` as shipped (256^2, depth 64, eps 0.01,
+   64 spp of which 16 train, DenseGrid 8 x 4 as tri-plane levels, MLP 64
+   x 3), on the balanced route: K1, K4 and K5 launch; each phase's
+   walk-steps/s, rounds and occupancy, the loss history and the peak
+   memory are printed, the RMSE and mean error against h of its film and
+   of [7]'s depth-64 bumpy3d_u film, and the guided / uniform variance of
+   the mean (a reading); the film agrees with bumpy3d_u's within 4
+   combined standard errors on >= 99% of pixel channels.
 8. The 3D main path, neumann3d_u, through ``exec.run_expr`` from a copy
    of ``configs/neumann3d_u.json`` with its channels and exports (256^2,
    depth 64, eps 0.01, 64 spp, SOLUTION and DIRICHLET_SDF): finite, mean
@@ -160,19 +169,30 @@ and never prints its last line:
    K6) and fused, 8 spp each: both walk-steps/s printed, K8 must launch,
    and the two means agree within 4 combined standard errors on >= 99%
    of the pixels.
-8r. lobed_u, lobed_n and neumann3d_u on the per-sample route (copies of
-   their configs with metric frames asked for and none written) at the
-   spp of [4], [4g] and [8]: each film within 4 combined standard errors
-   of its balanced film on >= 99% of pixel channels; both routes'
-   walk-steps/s, depth-capped share and peak memory printed, and for
-   lobed_n each phase's walk-steps/s, the loss and the guided / uniform
-   variance of the mean on each route (a reading).
+8g. neumann3d_n, the 3D guided path with a Neumann set
+   (``utils/scenes.write_neumann3d_n``: neumann3d_u's scene, channels and
+   exports with bumpy3d_n's integrator settings and network, 64 spp of
+   which 16 train), as [7g] against [8]'s neumann3d_u film, with [8]'s
+   DIRICHLET_SDF bound; K1, K4, K5, K6, K9 and K11 launch.  Then one
+   guiding-phase depth step of the trained guide on the frame's lanes,
+   GUIDED_WARM_STEPS guided steps in: K6 launches once, on the guide's
+   directions, and equals its plain version on that launch's inputs (as
+   [5]); and the guide's costs at the 65,536 lanes, as [4g]'s.
+8r. lobed_u, lobed_n, neumann3d_u and bumpy3d_n on the per-sample route
+   (copies of their configs with metric frames asked for and none
+   written) at the spp of [4], [4g], [8] and [7g]: each film within 4
+   combined standard errors of its balanced film on >= 99% of pixel
+   channels; both routes' walk-steps/s, depth-capped share and peak
+   memory printed, and for the guided paths each phase's walk-steps/s,
+   the loss and the guided / uniform variance of the mean on each route
+   (a reading).
 8d. One depth step each of lobed_u, neumann3d_u, neumann3d_u with a
    source and wavy8192_u (1 spp, after one step outside the probe) under
    ``torch.cuda.set_sync_debug_mode("error")``: the phase fails where a
-   step makes the host wait for the device.  Then lobed_n: one guided
-   depth step in the training phase (records on), one in the guiding
-   phase and one ``train_on_records`` batch, the same way.  Then a whole
+   step makes the host wait for the device.  Then lobed_n and
+   neumann3d_n (the fused band step on the guide's directions): one
+   guided depth step in the training phase (records on), one in the
+   guiding phase and one ``train_on_records`` batch, the same way.  Then a whole
    balanced chunk of lobed_u and one of lobed_n's training phase (an
    optimizer pass every 4 iterations), the probe lifted only around the
    host's reads of the loop condition (one every CHECK_EVERY
@@ -219,6 +239,9 @@ SOURCE_CUBE_DEPTH = 128      # the source cube's depth (phase 6b): a walk
 #                              R^2 / 6 source weight overflows to inf
 GUIDED_TRAIN_SPP = 8         # lobed_n's training samples of its SPP
 #                              (phase 4g; the config: 256 of 1,024)
+GUIDED_3D_TRAIN_SPP = 16     # bumpy3d_n's and neumann3d_n's training
+#                              samples of SPP_3D (phases 7g, 8g: the
+#                              config's 16 of 64)
 SQUARE_SPP, SQUARE_TRAIN_SPP = 128, 32   # the guided square (phase 3b)
 SQUARE_NET = {"encoding": {"base_resolution": 4, "n_levels": 4,
                            "n_features_per_level": 2,
@@ -230,6 +253,8 @@ ROUTE_DEPTH = 256            # depth of the grid / no-grid comparison (4c)
 AGREE_SPP = 16               # samples a side of the chunked / band check (4e)
 WAVY_SPP = 8                 # samples of the wavy box of 8,192 segments (4f)
 WARM_STEPS = 3               # depth steps before the kernel phases take lanes
+GUIDED_WARM_STEPS = 8        # guided steps before [8g]'s K6 check (below
+#                              the max guided depth, 10)
 LANES_STEPS = 16             # bench-square steps before K13's lane-list
 #                              check: ~15% of the lanes live, as on average
 K1_SIZES = (1048576, 65536, 1048576)   # K1's back-to-back edge cases: the
@@ -262,6 +287,10 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 MAIN_2D = ("compact_lanes", "sweep_resolve", "fetch_colors")
 MAIN_3D = ("compact_lanes", "sweep_resolve_3d", "fetch_colors3",
            "band_neumann_walk", "sil_band", "grid_band_3d")
+BUMPY_3D = ("compact_lanes", "sweep_resolve_3d", "fetch_colors3")
+# each guided path's uniform counterpart (the film it is held to)
+UNIFORM_OF = {"lobed_n": "lobed_u", "bumpy3d_n": "bumpy3d_u",
+              "neumann3d_n": "neumann3d_u"}
 # the run whose launches each kernel's record reports: its own path
 PATH_OF = {**{k: "lobed_u" for k in MAIN_2D},
            **{k: "neumann3d_u" for k in MAIN_3D},
@@ -1301,17 +1330,17 @@ def phase_main(conf_path: str, card: str, keep: dict) -> dict:
     return launches
 
 
-def phase_guided(conf_path: str, card: str, keep: dict) -> dict:
-    """[4g] lobed_n, the 2D guided main path, through run_expr: the
-    walk-steps/s of each phase, the depth-capped share, the training loss;
-    its SOLUTION film against lobed_u's at equal spp (4 combined standard
-    errors on >= 99% of pixel channels; the guided / uniform mean
-    variance as a reading); then the guide's own costs at the frame's
-    lanes."""
-    log("[4g] 2D guided main path (lobed_n)")
-    launches, result, integ = run_main(conf_path, MAIN_2D, "lobed_n", card)
-    check_solution(conf_path)
-    keep["lobed_n"] = route_keep(result, integ)
+def guided_run(conf_path: str, expect: tuple, label: str, card: str,
+               keep: dict) -> tuple:
+    """A guided path through ``run_main``: the walk-steps/s of each phase,
+    its rounds and occupancy, the training loss; its SOLUTION film against
+    its uniform path's kept film (``UNIFORM_OF``) at equal spp (4
+    combined standard errors on >= 99% of pixel channels; the guided /
+    uniform variance of the mean as a reading).  Keeps its own film in
+    ``keep``.  Returns run_main's (launches, result, integrator)."""
+    launches, result, integ = run_main(conf_path, expect, label, card)
+    read_solution(conf_path)
+    keep[label] = route_keep(result, integ)
     for phase, rounds in integ.balance_rounds.items():
         log_rounds(f"balanced {phase} phase", rounds)
     ps = result["phase_stats"]
@@ -1325,17 +1354,27 @@ def phase_guided(conf_path: str, card: str, keep: dict) -> dict:
         f"values, first {loss[0]:.6g}, last {loss[-1]:.6g}; optimizer "
         f"steps {int(integ.trainer.opt.count)}")
     if not (loss and np.isfinite(loss).all() and integ._net_trained):
-        raise RuntimeError(f"lobed_n's training loss: {loss}")
-    mean_u, se_u = keep["lobed_u"]["mean"], keep["lobed_u"]["se"]
-    mean_g = (integ.sum / integ.spp).cpu().numpy()
-    se_g = integ.standard_error()
+        raise RuntimeError(f"{label}'s training loss: {loss}")
+    uniform = UNIFORM_OF[label]
+    mean_u, se_u = keep[uniform]["mean"], keep[uniform]["se"]
+    mean_g, se_g = keep[label]["mean"], keep[label]["se"]
     within = np.abs(mean_g - mean_u) <= 4.0 * np.hypot(se_g, se_u) + 1e-6
     ratio = float(np.mean(se_g ** 2) / np.mean(se_u ** 2))
-    log(f"    against lobed_u at {integ.spp} spp: {within.mean():.5f} of "
+    log(f"    against {uniform} at {integ.spp} spp: {within.mean():.5f} of "
         f"pixel channels within 4 combined standard errors; guided / "
-        f"uniform mean variance of the mean {ratio:.4f}")
+        f"uniform variance of the mean {ratio:.4f} (a reading)")
     if within.mean() < 0.99:
-        raise RuntimeError("lobed_n disagrees with lobed_u")
+        raise RuntimeError(f"{label} disagrees with {uniform}")
+    return launches, result, integ
+
+
+def phase_guided(conf_path: str, card: str, keep: dict) -> dict:
+    """[4g] lobed_n, the 2D guided main path, through run_expr
+    (``guided_run``); then the guide's own costs at the frame's lanes."""
+    log("[4g] 2D guided main path (lobed_n)")
+    launches, _, integ = guided_run(conf_path, MAIN_2D, "lobed_n", card,
+                                    keep)
+    check_solution(conf_path)
     guide_costs(integ, card)
     return launches
 
@@ -1412,23 +1451,25 @@ def guide_costs(integ, card: str) -> None:
     from elaina_tpu_torch.utils.timing import cuda_ms, device_ms
 
     scene, s = integ.problem.scene, integ.settings
-    eps, n = float(s.epsilonShell), integ.n_pixels
+    eps, n, dim = float(s.epsilonShell), integ.n_pixels, integ.problem.dim
+    has_neumann = scene.neumann is not None
     uf = float(s.uniformFractionInTrainingPhase)
     mgd = int(s.maxGuidedDepthInTrainingPhase)
     params = integ.trainer.ema_params
     gens = sample_generators(0, 1, integ.device)
     state = init_walk_state(integ.eval_points, integ.mask)
-    records = G.init_records(n, 2, integ.device)
+    records = G.init_records(n, dim, integ.device)
     for depth in range(2):
         state, records, _, _ = G.guided_depth_step(
             scene, integ.spec, params, integ.box, state, records, gens,
             depth, True, True, uf, mgd, eps=eps)
-    d_uni, pdf_uni, _ = _sample_direction(gens["uniform"], state, 2, True)
+    d_uni, pdf_uni, _ = _sample_direction(gens["uniform"], state, dim,
+                                          has_neumann)
     batch, n_batches = G._train_batch_policy(n)
 
     def infer():
         return G.guided_direction(integ.spec, params, integ.box, state,
-                                  d_uni, pdf_uni, gens, uf, True)
+                                  d_uni, pdf_uni, gens, uf, has_neumann)
 
     def train():
         return G.train_on_records(integ.trainer, integ.spec, integ.adam_cfg,
@@ -1451,7 +1492,8 @@ def guide_costs(integ, card: str) -> None:
     for label, fn in (("inference", infer), ("batch", train)):
         for line in device_split(fn):
             log(f"    {label}, device time by kernel: {line}")
-    gather_and_scan_forms(integ, card)
+    if dim == 2:
+        gather_and_scan_forms(integ, card)
     log(f"    aten ops: guided inference {top_ops(infer)}, one batch "
         f"{top_ops(train)} (the solve runs {n_batches} a training sample), "
         f"guided depth step with records {top_ops(step(True))}, without "
@@ -1847,21 +1889,7 @@ def phase_kernels_3d(conf_path: str, device, kernels: Kernels) -> None:
             ("radii 0.05-1", wide, True, bg.coords),
             ("radii 0.05-1, Kp = 128", wide, True, coords128)):
         kargs = band_args(radii, skip, coords)
-        out, slot = QK.band_neumann_walk(*kargs)
-        out_p, slot_p = QK.band_neumann_walk_plain(*kargs)
-        same = inn & (slot == slot_p)
-        flips = int((inn & ~same).sum())
-        if flips > CDF_FLIPS * n_in or not torch.equal(slot[~inn],
-                                                       slot_p[~inn]):
-            raise RuntimeError(f"band_neumann_walk: {flips} CDF slots "
-                               f"differ")
-        a, b = out[same], out_p[same]
-        if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
-            raise RuntimeError("band_neumann_walk: inf / finite differ")
-        both = torch.isfinite(a)
-        e = float((a[both] - b[both]).abs().max())
-        if not torch.allclose(a[both], b[both], rtol=TOL, atol=1e-6):
-            raise RuntimeError(f"band_neumann_walk differs: {e}")
+        e, flips, out = compare_band_walk(kargs)
         err = max(err, e)
         work = (QK.band_work(cell, radii, state.on_neumann, eps, bg.skip_r,
                              live) if skip else inn)
@@ -1988,6 +2016,34 @@ def phase_kernels_3d(conf_path: str, device, kernels: Kernels) -> None:
     check_grid_band_ties("grid_band_3d", g.coords.shape[2], device)
     phase_fused_vs_unfused(scene, integ, eps)
     phase_skip_step(scene, state, eps)
+
+
+def compare_band_walk(kargs) -> tuple:
+    """K6 against its plain version on the arguments ``kargs`` of
+    ``ops.queries.band_neumann_walk``: the lanes in the grid may differ in
+    their CDF slot on at most CDF_FLIPS of them (a prefix sum's rounding
+    at a slot boundary), the rest's 15 outputs within TOL.  Returns (the
+    largest difference, the flipped slots, the kernel's out)."""
+    import torch
+
+    from elaina_tpu_torch.ops import queries as QK
+
+    out, slot = QK.band_neumann_walk(*kargs)
+    out_p, slot_p = QK.band_neumann_walk_plain(*kargs)
+    inn = kargs[0] >= 0
+    same = inn & (slot == slot_p)
+    flips = int((inn & ~same).sum())
+    if flips > CDF_FLIPS * int(inn.sum()) or not torch.equal(
+            slot[~inn], slot_p[~inn]):
+        raise RuntimeError(f"band_neumann_walk: {flips} CDF slots differ")
+    a, b = out[same], out_p[same]
+    if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+        raise RuntimeError("band_neumann_walk: inf / finite differ")
+    both = torch.isfinite(a)
+    e = float((a[both] - b[both]).abs().max())
+    if not torch.allclose(a[both], b[both], rtol=TOL, atol=1e-6):
+        raise RuntimeError(f"band_neumann_walk differs: {e}")
+    return e, flips, out
 
 
 def check_band_ray(cell, o, d, R_B, wide, live, eps: float, bg) -> float:
@@ -2226,9 +2282,9 @@ def bumpy_errors(conf_path: str) -> tuple[float, float]:
     return float(np.sqrt((err ** 2).mean())), float(err.mean())
 
 
-def phase_bumpy(conf_path: str, card: str) -> None:
-    """bumpy3d_u at the config's depth (a reading) and at BUMPY_DEPTH
-    (bounded)."""
+def phase_bumpy(conf_path: str, card: str, keep: dict) -> None:
+    """bumpy3d_u at the config's depth (a reading; its film and errors
+    kept for [7g]) and at BUMPY_DEPTH (bounded)."""
     import torch
 
     from elaina_tpu_torch.geometry.grid import grid_row_index
@@ -2241,13 +2297,16 @@ def phase_bumpy(conf_path: str, card: str) -> None:
         conf["integrator"]["setting"]["maxWalkingDepth"] = depth
         with open(conf_path, "w") as f:
             json.dump(conf, f)
-        _, _, integ = run_main(conf_path, ("sweep_resolve_3d",
-                                           "grid_band_3d"), "bumpy3d_u", card)
+        _, result, integ = run_main(conf_path, ("sweep_resolve_3d",
+                                                "grid_band_3d"), "bumpy3d_u",
+                                    card)
         rmse, bias = bumpy_errors(conf_path)
         log(f"    depth {depth} against h: RMSE {rmse:.5f}, mean error "
             f"{bias:.5f} ({card})")
         if depth == BUMPY_DEPTH:
             break
+        keep["bumpy3d_u"] = dict(route_keep(result, integ),
+                                 errors=(rmse, bias))
         # the DIRICHLET_SDF film: finite, the row's lower bound on pixels
         # in truncated rows; K11 on the 2-level grid against its plain
         g = integ.problem.scene.d_grid
@@ -2274,6 +2333,33 @@ def phase_bumpy(conf_path: str, card: str) -> None:
         raise RuntimeError("bumpy3d_u out of its analytic bounds")
 
 
+def phase_bumpy_n(conf_path: str, card: str, keep: dict) -> dict:
+    """[7g] bumpy3d_n as shipped through run_expr (``guided_run``, held to
+    [7]'s bumpy3d_u film at depth 64): both films' errors against h."""
+    log("[7g] 3D guided path (bumpy3d_n)")
+    launches, _, _ = guided_run(conf_path, BUMPY_3D, "bumpy3d_n", card,
+                                keep)
+    rmse, bias = bumpy_errors(conf_path)
+    rmse_u, bias_u = keep["bumpy3d_u"]["errors"]
+    log(f"    against h: bumpy3d_n RMSE {rmse:.5f}, mean error {bias:.5f}; "
+        f"bumpy3d_u RMSE {rmse_u:.5f}, mean error {bias_u:.5f} (depth 64, "
+        f"a reading; {card})")
+    return launches
+
+
+def check_cube_sdf(conf_path: str, integ) -> None:
+    """neumann3d's DIRICHLET_SDF film within 1e-5 of the distance to the
+    cube, 1.3 - max(|x|, |y|), at every pixel."""
+    pts = frame_points(conf_path)
+    sdf = integ.films["DIRICHLET_SDF"].pixels()[..., 0].reshape(-1)
+    want = 1.3 - np.maximum(np.abs(pts[:, 0]), np.abs(pts[:, 1]))
+    err = float(np.abs(sdf - want).max())
+    log(f"    DIRICHLET_SDF against 1.3 - max(|x|, |y|): max error {err:.3g} "
+        f"over {sdf.size} pixels (bound 1e-5)")
+    if not (np.abs(pts[:, 2]).max() == 0.0 and err <= 1e-5):
+        raise RuntimeError("neumann3d's DIRICHLET_SDF film")
+
+
 def phase_main_3d(conf_path: str, card: str, keep: dict) -> dict:
     log("[8] 3D main path")
     launches, result, integ = run_main(conf_path, MAIN_3D, "neumann3d_u",
@@ -2284,15 +2370,79 @@ def phase_main_3d(conf_path: str, card: str, keep: dict) -> dict:
     log(f"    mean u {mean:.5f} (within (0.2, 0.8))")
     if not 0.2 < mean < 0.8:
         raise RuntimeError("neumann3d_u mean out of the boundary data's hull")
-    pts = frame_points(conf_path)
-    sdf = integ.films["DIRICHLET_SDF"].pixels()[..., 0].reshape(-1)
-    want = 1.3 - np.maximum(np.abs(pts[:, 0]), np.abs(pts[:, 1]))
-    err = float(np.abs(sdf - want).max())
-    log(f"    DIRICHLET_SDF against 1.3 - max(|x|, |y|): max error {err:.3g} "
-        f"over {sdf.size} pixels (bound 1e-5)")
-    if not (np.abs(pts[:, 2]).max() == 0.0 and err <= 1e-5):
-        raise RuntimeError("neumann3d_u's DIRICHLET_SDF film")
+    check_cube_sdf(conf_path, integ)
     return launches
+
+
+def phase_neumann3d_n(conf_path: str, card: str, keep: dict) -> dict:
+    """[8g] neumann3d_n through run_expr (``guided_run``, held to [8]'s
+    neumann3d_u film), its DIRICHLET_SDF film as [8]'s, one guided
+    iteration's K6 against its plain version, and the guide's costs at
+    the frame's 65,536 lanes."""
+    log("[8g] 3D guided path with a Neumann set (neumann3d_n)")
+    launches, _, integ = guided_run(conf_path, MAIN_3D, "neumann3d_n", card,
+                                    keep)
+    check_cube_sdf(conf_path, integ)
+    check_guided_band_walk(integ, card)
+    guide_costs(integ, card)
+    return launches
+
+
+def check_guided_band_walk(integ, card: str) -> None:
+    """One guiding-phase depth step of the trained guide on the frame's
+    lanes, GUIDED_WARM_STEPS guided steps in: K6 launches once in it, on the
+    guide's directions, and that launch's inputs (the step's live lanes,
+    star radii, walk state, uniforms and directions) give K6 what they
+    give its plain version (``compare_band_walk``)."""
+    from elaina_tpu_torch.ops import queries as QK
+    from elaina_tpu_torch.solver import guided as G
+    from elaina_tpu_torch.solver.wost import init_walk_state
+    from elaina_tpu_torch.utils.rng import sample_generators
+
+    scene, s = integ.problem.scene, integ.settings
+    eps = float(s.epsilonShell)
+    uf = float(s.uniformFractionInGuidingPhase)
+    mgd = int(s.maxGuidedDepthInGuidingPhase)
+    params = integ.trainer.ema_params
+    gens = sample_generators(0, 1, integ.device)
+    state = init_walk_state(integ.eval_points, integ.mask)
+
+    def step(depth: int):
+        return G.guided_depth_step(scene, integ.spec, params, integ.box,
+                                   state, None, gens, depth, True, False, uf,
+                                   mgd, eps=eps)[0]
+
+    for depth in range(GUIDED_WARM_STEPS):
+        state = step(depth)
+    calls = []
+    launch = QK.band_neumann_walk
+
+    def spy(*args):
+        calls.append(args)
+        return launch(*args)
+
+    # the wrapper counts its launches on the module's name, the spy here
+    spy.launches = 0
+    QK.band_neumann_walk = spy
+    try:
+        step(GUIDED_WARM_STEPS)
+    finally:
+        QK.band_neumann_walk = launch
+    if not (len(calls) == 1 == spy.launches):
+        raise RuntimeError(f"a guided step launched K6 {spy.launches} "
+                           f"times in {len(calls)} calls")
+    kargs = calls[0]
+    cell, _, R, on = kargs[:4]
+    live = kargs[-1]
+    work = QK.band_work(cell, R, on, eps, kargs[10], live)
+    err, flips, out = compare_band_walk(kargs)
+    log(f"    K6 in a guided step (depth {GUIDED_WARM_STEPS}, max guided "
+        f"depth {mgd}): {int(live.sum())} live of {live.shape[0]} lanes, "
+        f"band work on {int(work.sum())}, {int(on.sum())} on the Neumann "
+        f"set, {int((out[:, 0] > 0).sum())} with a sample, "
+        f"{int((out[:, 10] > 0).sum())} walk hits; against its plain "
+        f"version: largest difference {err:.3g}, {flips} CDF slots flipped "
+        f"({card})")
 
 
 def phase_source_3d(root: str, card: str) -> dict:
@@ -2349,20 +2499,24 @@ def phase_unfused_3d(conf_path: str, card: str) -> dict:
 
 
 def phase_routes(confs: dict, keep: dict, card: str) -> None:
-    """[8r] lobed_u, lobed_n and neumann3d_u on the per-sample route (the
-    metric-frames switch, no frame written) at the spp of [4], [4g] and
-    [8], held to those balanced films: within 4 combined standard errors
-    on >= 99% of pixel channels.  Prints both routes' walk-steps/s,
-    depth-capped share and peak memory, and for lobed_n each phase's
-    walk-steps/s, the loss and the guided / uniform variance of the mean
-    on each route (a reading)."""
+    """[8r] lobed_u, lobed_n, neumann3d_u and bumpy3d_n on the per-sample
+    route (the metric-frames switch, no frame written) at the spp of [4],
+    [4g], [8] and [7g], held to those balanced films: within 4 combined
+    standard errors on >= 99% of pixel channels.  Prints both routes'
+    walk-steps/s, depth-capped share and peak memory, and for a guided
+    path each phase's walk-steps/s, the loss and the guided / uniform
+    variance of the mean on each route (a reading; against the uniform
+    path's film on the same route where this phase runs it, else its
+    balanced one)."""
     from elaina_tpu_torch.utils import scenes as S
 
     log("[8r] the per-sample route beside the balanced one")
+    expect = {"lobed_u": MAIN_2D, "lobed_n": MAIN_2D,
+              "neumann3d_u": MAIN_3D, "bumpy3d_n": BUMPY_3D}
     for label, conf in confs.items():
         path = S.write_per_sample(conf, label + "_per_sample")
-        _, result, integ = run_main(path, MAIN_3D if "3d" in label
-                                    else MAIN_2D, label + " per-sample", card)
+        _, result, integ = run_main(path, expect[label],
+                                    label + " per-sample", card)
         if getattr(integ, "balance_rounds", None) is not None:
             raise RuntimeError(f"{label} per-sample ran the balanced route")
         ps, bal = route_keep(result, integ), keep[label]
@@ -2374,13 +2528,15 @@ def phase_routes(confs: dict, keep: dict, card: str) -> None:
             log(f"    {label} {route}: {r['rate']:.6g} walk-steps/s, "
                 f"depth-capped share {r['capped']:.4f}, peak device "
                 f"memory {r['peak']} bytes ({card})")
-        if label == "lobed_n":
+        if label in UNIFORM_OF:
             for route, r in (("balanced", bal), ("per-sample", ps)):
                 st = r["phase_stats"]
+                uniform = UNIFORM_OF[label]
+                uni = keep.get(uniform + ("" if route == "balanced"
+                                          else "_per_sample"), keep[uniform])
                 ratio = float(np.mean(r["se"] ** 2) / np.mean(
-                    keep["lobed_u" + ("" if route == "balanced"
-                                      else "_per_sample")]["se"] ** 2))
-                log(f"    lobed_n {route}: training phase "
+                    uni["se"] ** 2))
+                log(f"    {label} {route}: training phase "
                     f"{st['train_steps'] / st['train_s']:.6g} walk-steps/s,"
                     f" guiding phase {st['guide_steps'] / st['guide_s']:.6g}"
                     f"; loss {len(r['loss'])} values, {r['loss'][0]:.6g} -> "
@@ -2515,9 +2671,11 @@ def phase_syncs(paths: dict, device) -> None:
         del problem, integ, state
 
 
-def phase_syncs_guided(conf_path: str, device) -> None:
-    """[8d] lobed_n: one guided depth step in the training phase (records
-    on), one in the guiding phase and one ``train_on_records`` batch under
+def phase_syncs_guided(conf_path: str, label: str, device) -> None:
+    """[8d] A guided path (lobed_n; neumann3d_n, whose steps take the
+    fused band step on the guide's directions): one guided depth step in
+    the training phase (records on), one in the guiding phase and one
+    ``train_on_records`` batch under
     ``torch.cuda.set_sync_debug_mode("error")``, after one training step
     and one batch outside it."""
     import traceback
@@ -2536,7 +2694,7 @@ def phase_syncs_guided(conf_path: str, device) -> None:
     gens = sample_generators(0, 1, device)
     batch, _ = G._train_batch_policy(integ.n_pixels)
     state = init_walk_state(integ.eval_points, integ.mask)
-    records = G.init_records(integ.n_pixels, 2, device)
+    records = G.init_records(integ.n_pixels, problem.dim, device)
     state, records, _, _ = G.guided_depth_step(
         scene, spec, params, box, state, records, gens, 0, True, True, 0.5,
         10, eps=eps)
@@ -2552,7 +2710,8 @@ def phase_syncs_guided(conf_path: str, device) -> None:
         ("train_on_records batch", lambda: G.train_on_records(
             integ.trainer, spec, integ.adam_cfg, box, records,
             batch_size=batch, n_batches=1)))
-    for label, fn in calls:
+    path = label
+    for step, fn in calls:
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -2561,12 +2720,12 @@ def phase_syncs_guided(conf_path: str, device) -> None:
             where = [f"{os.path.relpath(f.filename)}:{f.lineno} {f.line}"
                      for f in traceback.extract_tb(e.__traceback__)
                      if "elaina_tpu_torch" in f.filename]
-            raise RuntimeError(f"lobed_n {label} waits for the device at "
+            raise RuntimeError(f"{path} {step} waits for the device at "
                                f"{where}: {e}") from None
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-        log(f"[8d] lobed_n: one {label} on {integ.n_pixels} lanes "
+        log(f"[8d] {path}: one {step} on {integ.n_pixels} lanes "
             f"({int(state.active.sum())} live) without a host sync")
     del problem, integ, state, records
 
@@ -2597,6 +2756,10 @@ def main() -> int:
         conf_wavy = scenes.write_scene(wavy, WAVY_SPP, neumann_segments=8192)
         conf_3d = scenes.write_config_copy(root, "neumann3d_u", SPP_3D)
         conf_bumpy = scenes.write_config_copy(root, "bumpy3d_u", SPP_3D)
+        conf_bumpy_n = scenes.write_config_copy(root, "bumpy3d_n", SPP_3D,
+                                                GUIDED_3D_TRAIN_SPP)
+        conf_3d_n = scenes.write_neumann3d_n(root, SPP_3D,
+                                             GUIDED_3D_TRAIN_SPP)
         syncs = os.path.join(root, "syncs")
         os.makedirs(syncs)
         source_conf = scenes.write_neumann3d_source(syncs, 1)
@@ -2620,19 +2783,27 @@ def main() -> int:
                  (conf_wavy, card)),
                 ("[5]", None, phase_kernels_3d, (conf_3d, device, kernels)),
                 ("[6]", None, phase_analytic_3d, (root, device, card)),
-                ("[7]", None, phase_bumpy, (conf_bumpy, card)),
+                ("[7]", None, phase_bumpy, (conf_bumpy, card, keep)),
+                ("[7g]", "bumpy3d_n", phase_bumpy_n,
+                 (conf_bumpy_n, card, keep)),
                 ("[8]", "neumann3d_u", phase_main_3d, (conf_3d, card, keep)),
                 ("[8b]", "neumann3d_source", phase_source_3d, (root, card)),
                 ("[8c]", "neumann3d_unfused", phase_unfused_3d,
                  (conf_3d, card)),
+                ("[8g]", "neumann3d_n", phase_neumann3d_n,
+                 (conf_3d_n, card, keep)),
                 ("[8r]", None, phase_routes,
                  ({"lobed_u": conf_2d, "lobed_n": conf_n,
-                   "neumann3d_u": conf_3d}, keep, card)),
+                   "neumann3d_u": conf_3d, "bumpy3d_n": conf_bumpy_n},
+                  keep, card)),
                 ("[8d]", None, phase_syncs,
                  ({"lobed_u": conf_2d, "neumann3d_u": conf_3d,
                    "neumann3d_source": source_conf,
                    "wavy8192_u": conf_wavy}, device)),
-                ("[8d] guided", None, phase_syncs_guided, (conf_n, device)),
+                ("[8d] guided", None, phase_syncs_guided,
+                 (conf_n, "lobed_n", device)),
+                ("[8d] guided 3D", None, phase_syncs_guided,
+                 (conf_3d_n, "neumann3d_n", device)),
                 ("[8d] balanced", None, phase_syncs_balanced,
                  (conf_2d, conf_n, device))):
             out = timed_phase(label, fn, *args)

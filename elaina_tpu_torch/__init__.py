@@ -1,10 +1,10 @@
 """elaina_tpu_torch: the Walk-on-Stars solver in PyTorch, for CUDA GPUs.
 
-A port of ``elaina_tpu`` (the JAX reference beside it).  The slice carried
-so far is 2D uniform WoSt end to end: scene load, the Dirichlet candidate
-grid and its FinePack, the depth step with the three Dirichlet-resolve
-kernels (``ops/resolve.py``, CUDA sources in ``csrc/``), the per-sample
-solve loop, film export and the CLI (``python -m elaina_tpu_torch run``).
+A port of ``elaina_tpu`` (the JAX reference beside it): uniform and
+guided WoSt in 2D and 3D end to end, from scene load and the grids
+through the depth step (its TPU kernels as CUDA sources in ``csrc/``,
+bound in ``ops/``) and the solve's routes to film export and the CLI
+(``python -m elaina_tpu_torch run``).
 
 The package imports torch and numpy, never jax.
 """

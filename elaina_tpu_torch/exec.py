@@ -2,7 +2,7 @@
 
 Port of ``elaina_tpu/exec.py`` (reference: exec.cu run_expr): copies the
 config next to the outputs, loads the CUDA kernels (``prepare``), runs
-the uniform or (in 2D) the guided integrator's channels, performs the
+the uniform or the guided integrator's channels, performs the
 export list and writes ``result.json`` with the solve duration, the walk
 steps, the exactly resolved lane-steps and the walks that met the depth
 cap, for a guided run the training loss of each training sample and each
@@ -28,7 +28,7 @@ import torch
 from .core.config import ExperimentConfig
 from .core.logger import log_error, log_info, log_success
 from .core.problem import Problem
-from .solver.guided import GuidedIntegrator, no_guided_3d
+from .solver.guided import GuidedIntegrator
 from .solver.integrator import CHANNELS, UniformIntegrator
 
 
@@ -56,8 +56,6 @@ def run_expr(conf_path: str, device: str = "cuda") -> dict:
     if cfg.integrator_type not in ("uniform", "guided"):
         raise ValueError(f"unrecognized integrator type "
                          f"{cfg.integrator_type!r}")
-    if cfg.integrator_type == "guided" and cfg.dimensionality != 2:
-        raise no_guided_3d()
     for channel in set(cfg.channels) | {e.channel for e in cfg.exports}:
         if channel not in CHANNELS:
             raise ValueError(f"unknown channel {channel!r}: one of "
@@ -101,7 +99,7 @@ def run_expr(conf_path: str, device: str = "cuda") -> dict:
         else:
             integrator.render_source()
     if cfg.print_network and cfg.integrator_type == "guided":
-        integrator.query_network(np.zeros(2, np.float32))
+        integrator.query_network(np.zeros(problem.dim, np.float32))
     for e in cfg.exports:
         if e.type == "image":
             integrator.export_image(e.channel, e.file_name)

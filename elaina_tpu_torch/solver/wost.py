@@ -389,18 +389,24 @@ def _walk(scene: Scene, state: WalkState, live, R_B, gen, eps: float,
 
 
 def _neumann_walk_fused(scene: Scene, state: WalkState, live, R_B, gens,
-                        eps: float):
+                        eps: float, guided=None):
     """3D: the Neumann term and the walk step of ``_neumann_term`` and
     ``_walk`` in one band query per lane (kernel K6): the in-ball sample,
     its visibility ray and the walk ray over the prim band of the lane's
-    cell (reference wost.py:513-574).  Returns (contrib, state')."""
+    cell (reference wost.py:513-574).  A guided caller passes its own
+    ``(direction, pdf, alpha)`` as ``guided``, and "walk" draws nothing.
+    Returns (contrib, state')."""
     dim = scene.dim
     gs = scene.neumann.gs
     n = state.pos.shape[0]
     gen_n = gens["neumann"]
     u_sel = torch.rand(n, generator=gen_n, device=gen_n.device)
     u_pt = torch.rand((n, 2), generator=gen_n, device=gen_n.device)
-    direction, pdf, alpha = _sample_direction(gens["walk"], state, dim, True)
+    if guided is None:
+        direction, pdf, alpha = _sample_direction(gens["walk"], state, dim,
+                                                  True)
+    else:
+        direction, pdf, alpha = guided
     o = Q.band_neumann_walk(scene.n_bgrid, gs, state.pos, R_B,
                             state.on_neumann, state.n_normal, u_sel, u_pt,
                             direction, eps, live=live)

@@ -59,6 +59,14 @@ turn of ``--order`` the named tree runs, each in a process of its own:
    at [2]'s shape), neumann3d_u and bumpy3d_u as shipped
    (``dirichlet_sdf_*``), timed, with a digest of each film.
 
+A tree that runs guided WoSt in 3D (``_guided_3d``) also runs, on each
+turn, bumpy3d_n (``configs/bumpy3d_n.json`` as shipped: 64 spp of which
+16 train) and neumann3d_n (``utils/scenes.write_neumann3d_n``: the
+scene of neumann3d_u with bumpy3d_n's guided integrator and network, 64
+spp of which 16 train) through the CLI, on both routes: their rates
+only (their films are not held bit-equal: the table's gradient is a
+scatter-add).
+
 Each CLI scene also runs from a copy of its config that takes the
 per-sample route (``utils/scenes.write_per_sample``: metric frames asked
 for, none written; ``<scene>_per_sample``), so a tree whose default
@@ -96,6 +104,7 @@ import traceback
 LOBED = (1048576, 187567, 72062, 65536)
 NEUMANN3D = (65536, 3876, 304, 768)
 SPP_2D, SPP_3D, SPP_SQUARE, SPP_NOGRID, SPP_WAVY = 32, 64, 4, 8, 8
+TRAIN_SPP_3D = 16            # bumpy3d_n's training samples (the config's)
 
 
 def bench_square(dev, spp: int):
@@ -558,6 +567,15 @@ def _run_scene(tree: str, conf: str, env: dict) -> dict:
             "solution_sha256": hashlib.sha256(film.tobytes()).hexdigest()}
 
 
+def _guided_3d(tree: str, env: dict) -> bool:
+    """Whether the tree's port runs guided WoSt in 3D (a tree from before
+    it raises on such a config)."""
+    out = _run([sys.executable, "-c", "import elaina_tpu_torch.solver."
+                "guided as g; print(not hasattr(g, 'no_guided_3d'))"],
+               tree, env)
+    return out.strip().splitlines()[-1] == "True"
+
+
 def _renamed(conf: str, exp_name: str) -> str:
     """The config at ``conf`` with its ``exp_name`` set; returns its path."""
     with open(conf) as f:
@@ -592,7 +610,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as root:
         env = dict(os.environ, ELAINA_CACHE_DIR=os.path.join(root, "cache"))
         for sub in ("nogrid", "source", "wavy", "unfused", "channels",
-                    "bumpy"):
+                    "bumpy", "guided"):
             os.makedirs(os.path.join(root, sub))
         conf_ng = _renamed(scenes.write_scene(
             os.path.join(root, "nogrid"), SPP_NOGRID, segments=256),
@@ -613,17 +631,28 @@ def main(argv=None) -> int:
                                            1, frame=256)
         conf_bumpy = scenes.write_config_copy(os.path.join(root, "bumpy"),
                                               "bumpy3d_u", 1)
-        envs = {scene: env for scene in confs}
+        guided = {"bumpy3d_n": scenes.write_config_copy(
+            os.path.join(root, "guided"), "bumpy3d_n", SPP_3D, TRAIN_SPP_3D),
+                  "neumann3d_n": scenes.write_neumann3d_n(
+            os.path.join(root, "guided"), SPP_3D, TRAIN_SPP_3D)}
+        envs = {scene: env for scene in (*confs, *guided)}
         envs["neumann3d_unfused"] = dict(env, ELAINA_FUSED_BAND="0")
         per_sample = {scene + "_per_sample": scenes.write_per_sample(
             conf, scene + "_per_sample") for scene, conf in confs.items()}
-        for scene in confs:
+        guided_ps = {scene + "_per_sample": scenes.write_per_sample(
+            conf, scene + "_per_sample") for scene, conf in guided.items()}
+        for scene in (*confs, *guided):
             envs[scene + "_per_sample"] = envs[scene]
+        has_guided = {name: _guided_3d(tree, env)
+                      for name, tree in trees.items()}
         routes_done = set()
         for i, name in enumerate(order):
             t0 = time.time()
             turn = {"turn": i, "tree": name}
-            for scene, conf in {**confs, **per_sample}.items():
+            runs = {**confs, **per_sample}
+            if has_guided[name]:
+                runs.update(guided, **guided_ps)
+            for scene, conf in runs.items():
                 # the first: a cold _build/
                 turn[scene] = _run_scene(trees[name], conf, envs[scene])
             if name not in routes_done:
@@ -657,8 +686,9 @@ def main(argv=None) -> int:
         mine = [t for t in turns if t["tree"] == name]
         summary[name] = {
             scene: statistics.median(t[scene]["walk_steps_s"] for t in mine)
-            for scene in (*confs, *per_sample, "bench_square",
-                          "nogrid_u_twice")}
+            for scene in (*confs, *per_sample, *guided, *guided_ps,
+                          "bench_square", "nogrid_u_twice")
+            if scene in mine[0]}
         for scene in ("bench_square", "nogrid_u_twice"):
             summary[name][f"{scene}_warm"] = statistics.median(
                 t[scene]["warm_walk_steps_s"] for t in mine)

@@ -3,8 +3,9 @@ Neumann box straight or traced as a wavy curve of many segments, its
 Dirichlet set cut down to bench.py's curve alone), the same scene with
 the guided integrator of ``configs/ladybug_n.json``, bench.py's own scene,
 the repository's 3D configs with their data in the checkout (as shipped,
-or neumann3d_u with a volumetric source), and the mixed Dirichlet/Neumann
-cube (with or without a unit source).
+neumann3d_u with a volumetric source, or neumann3d_u's scene with
+bumpy3d_n's guided integrator), and the mixed Dirichlet/Neumann cube
+(with or without a unit source).
 
 The reference's own ``u.json`` workload (configs/ladybug_u.json) runs on a
 ~61k-segment Dirichlet drawing that is not in the repository.  This scene
@@ -176,18 +177,28 @@ def write_lobed_n(root: str, spp: int, train_spp: int,
     ``spp`` samples of which ``train_spp`` train (the config: 1,024 and
     256); ``segments``, ``frame`` and ``network`` (its blocks replacing
     the config's) cut it further for tests.  Returns the config's path."""
-    path = write_scene(root, spp, segments=segments, frame=frame)
+    return _guided_copy(write_scene(root, spp, segments=segments,
+                                    frame=frame), "ladybug_n", "lobed_n",
+                        train_spp, network)
+
+
+def _guided_copy(path: str, ref_name: str, exp_name: str, train_spp: int,
+                 network: dict | None = None) -> str:
+    """The config at ``path`` with the guided integrator settings and the
+    network of ``configs/<ref_name>.json`` (``network``'s blocks replacing
+    its), ``train_spp`` training samples, written beside it as
+    ``<exp_name>.json``.  Returns that path."""
     with open(path) as f:
         conf = json.load(f)
-    with open(os.path.join(REPO_DIR, "configs", "ladybug_n.json")) as f:
+    with open(os.path.join(REPO_DIR, "configs", ref_name + ".json")) as f:
         ref = json.load(f)
     guided = {k: v for k, v in ref["integrator"]["setting"].items()
               if k.startswith(("uniformFraction", "maxGuidedDepth"))}
-    conf["exp_name"] = "lobed_n"
+    conf["exp_name"] = exp_name
     conf["integrator"]["type"] = "guided"
     conf["integrator"]["setting"].update(guided, trainSppCount=train_spp)
     conf["network"] = dict(ref["network"], **(network or {}))
-    path = os.path.join(root, "lobed_n.json")
+    path = os.path.join(os.path.dirname(path), exp_name + ".json")
     with open(path, "w") as f:
         json.dump(conf, f, indent=2)
     return path
@@ -212,10 +223,12 @@ def _data_path(path: str) -> str:
     return os.path.join(REPO_DIR, "configs", "data", os.path.basename(path))
 
 
-def write_config_copy(root: str, name: str, spp: int) -> str:
+def write_config_copy(root: str, name: str, spp: int,
+                      train_spp: int | None = None) -> str:
     """``configs/<name>.json`` as shipped, channels and exports included,
-    with its data files in this checkout, ``spp`` samples and outputs
-    under ``root``; returns the copy's path."""
+    with its data files in this checkout, ``spp`` samples (of which
+    ``train_spp`` train, where given: a guided config) and outputs under
+    ``root``; returns the copy's path."""
     with open(os.path.join(REPO_DIR, "configs", name + ".json")) as f:
         conf = json.load(f)
     mesh = conf["scene"]["mesh"]
@@ -225,10 +238,25 @@ def write_config_copy(root: str, name: str, spp: int) -> str:
         conf["scene"]["source_path"] = _data_path(conf["scene"]["source_path"])
     conf["base_path"] = os.path.join(root, "exp") + "/"
     conf["integrator"]["setting"]["samplesPerPixel"] = spp
+    if train_spp is not None:
+        conf["integrator"]["setting"]["trainSppCount"] = train_spp
     path = os.path.join(root, name + ".json")
     with open(path, "w") as f:
         json.dump(conf, f, indent=2)
     return path
+
+
+def write_neumann3d_n(root: str, spp: int, train_spp: int) -> str:
+    """neumann3d_n: ``configs/neumann3d_u.json``'s scene, channels and
+    exports (the 768-triangle Dirichlet cube, the 20,480-triangle Neumann
+    blob, SOLUTION and DIRICHLET_SDF, 256^2, depth 64, eps 0.01) with the
+    guided integrator settings and the network of
+    ``configs/bumpy3d_n.json`` (DenseGrid 8 levels x 4 features, MLP 64 x
+    3, Adam + EMA, uniform fraction 0.5 and max guided depth 10 in both
+    phases), ``spp`` samples of which ``train_spp`` train.  Returns the
+    config's path."""
+    return _guided_copy(write_config_copy(root, "neumann3d_u", spp),
+                        "bumpy3d_n", "neumann3d_n", train_spp)
 
 
 def smooth_source(res: int, lo, hi) -> dict:

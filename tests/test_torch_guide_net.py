@@ -131,13 +131,6 @@ def test_hashed_encoding_matches_gather():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
-def test_3d_encoding_raises():
-    spec = ET.make_grid_encoding(3, _ladybug_net()["encoding"])
-    with pytest.raises(NotImplementedError, match="guided 3D"):
-        ET.grid_encode(spec, torch.zeros((spec.n_params, 4)),
-                       torch.zeros((2, 3)))
-
-
 def test_apply_network_matches_jax_with_carried_weights():
     spec_j = NJ.make_network(2, 33, _ladybug_net())
     spec_t = NT.make_network(2, 33, _ladybug_net())

@@ -202,7 +202,7 @@ def test_cli_matches_jax_on_large_set_rows(tmp_path, monkeypatch):
 
 def test_unsupported_config_raises(tmp_path):
     """What the port does not carry raises, naming the ROADMAP item (a
-    mask, the guided integrator in 3D); an unknown channel is refused."""
+    mask); an unknown channel is refused."""
     obj, colors = _write_scene(tmp_path)
     conf = _conf(tmp_path, "x", 1, obj, colors)
     problem = Problem(2, CPU, verbose=False)
@@ -212,17 +212,12 @@ def test_unsupported_config_raises(tmp_path):
     with pytest.raises(ValueError):
         Problem(4, CPU)
     from elaina_tpu_torch.exec import run_expr
-    for patch, err in (({"type": "guided"}, NotImplementedError),
-                       ({"channels": ["NORMALS"]}, ValueError)):
-        c = json.loads(json.dumps(conf))
-        c["integrator"].update(patch)
-        if err is NotImplementedError:
-            c["dimensionality"] = 3
-        path = tmp_path / "bad.json"
-        path.write_text(json.dumps(c))
-        with pytest.raises(err, match="ROADMAP item 'guided 3D'"
-                           if err is NotImplementedError else "channel"):
-            run_expr(str(path), device="cpu")
+    c = json.loads(json.dumps(conf))
+    c["integrator"]["channels"] = ["NORMALS"]
+    path = tmp_path / "bad.json"
+    path.write_text(json.dumps(c))
+    with pytest.raises(ValueError, match="channel"):
+        run_expr(str(path), device="cpu")
 
 
 def test_full_scale_scene(tmp_path):

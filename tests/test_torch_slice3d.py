@@ -54,6 +54,12 @@ def _cube_sets():
 def cube_scenes():
     """The JAX banded mixed cube with its fast-path Dirichlet grid and its
     silhouette grid, and the port's scene holding the same grids."""
+    return cube_scene_pair()
+
+
+def cube_scene_pair(neumann_colors=None):
+    """``cube_scenes``' pair; ``neumann_colors`` (V, 2, 3) colors the
+    Neumann faces (default zero)."""
     from elaina_tpu.core.problem import Boundary, Scene
     from elaina_tpu.geometry.geomset import make_geom_set
     from elaina_tpu.geometry.grid import (attach_coords, attach_fine,
@@ -63,7 +69,8 @@ def cube_scenes():
                                           build_silhouette_grid)
 
     dv, dt, dc, nv, nt = _cube_sets()
-    nc = np.zeros((len(nv), 2, 3), np.float32)
+    nc = (np.zeros((len(nv), 2, 3), np.float32) if neumann_colors is None
+          else np.asarray(neumann_colors, np.float32))
     lo, hi = P.grid_bounds(dv, [-1] * 3, [1] * 3)
     K, _ = P.grid_size_for(len(dt))
     with pytest.MonkeyPatch.context() as mp:
