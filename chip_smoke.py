@@ -198,8 +198,34 @@ and never prints its last line:
    host's reads of the loop condition (one every CHECK_EVERY
    iterations): no iteration waits for the device between them.
 
+9. Equal time (the budgets of ``solve(time_budget_s=...)``, from the
+   call, after ``prepare()``; the problems and integrators made as
+   ``run_expr`` makes them, so each loads the hints the earlier runs of
+   its scene saved): each run's rounds (lanes, cap, iterations run, wall,
+   seconds an iteration and the JAX package's lanes / rate), walk-steps/s
+   and launches printed.
+9a. lobed_u under half of [4]'s solve wall: the wall within the budget
+   and its longest round and under twice the budget, every pixel not
+   baked with a completed sample, the harmonic / arithmetic mean of the
+   completed samples >= 0.9, the film within 4 combined standard errors
+   of [4]'s on >= 99% of pixel channels; then, on a fresh problem, ten
+   times [4]'s wall: the saved hints loaded, round 0 not a probe, every
+   sample completed.
+9b. lobed_n under the same budget: the training policy (skip, t_target,
+   share cap), the training samples achieved, each phase's seconds and
+   walk-steps/s; every pixel with a sample and the film within 4 combined
+   standard errors of [4g]'s on >= 99%; the equal-time variance of the
+   mean, guided over [9a]'s uniform film (a reading).
+9c. neumann3d_u under half of [8]'s solve wall, gated as [9a] against
+   [8]'s film (K1, K4, K5, K6 and K9 launch).
+9d. [3b]'s guided square on the per-sample route: 64 samples with a
+   checkpoint every 32, then a new integrator resumed from it to 128: the
+   checkpoint's trainer bit-equal to the first run's, 64 samples run
+   after the resume, each point within 0.07 of u.
+
 Each phase ends with a line of its wall seconds (``[4d]: 3.2 s wall``),
-and ``[9]`` gives the whole run's.  The lines before the last hold the card's name and power limit and one
+and ``[total]`` gives the whole run's.  The lines before the last hold
+the card's name and power limit and one
 JSON object with each kernel's launches, error, times and bound; the last
 line is ``{"ok": true, "device": {...}}``.  Each record names the inputs
 its figures were taken at (``shape``; K13's lane-list form and K6 without
@@ -298,6 +324,13 @@ PATH_OF = {**{k: "lobed_u" for k in MAIN_2D},
            "band_ball": "neumann3d_unfused", "sil_band_2d": "wavy8192_u",
            "candidate_rows": "bare_grid", "closest_point_dense": "nogrid_u"}
 CDF_FLIPS = 0.005            # K6 / K8 CDF slot flips allowed, share of lanes
+BUDGET_SHARE = 0.5           # [9]'s budgets: this share of [4]'s and [8]'s
+#                              solve walls
+GENEROUS = 10.0              # [9a]'s generous budget, times [4]'s solve wall
+RESUME_SPP, RESUME_EVERY = 64, 32   # [9d]: the samples before the resume,
+#                              and the checkpoint interval
+BUDGET_3D = ("compact_lanes", "sweep_resolve_3d", "fetch_colors3",
+             "band_neumann_walk", "sil_band")   # [9c]'s solve's kernels
 
 
 def log(msg: str) -> None:
@@ -1286,6 +1319,7 @@ def route_keep(result: dict, integ) -> dict:
     walks = integ.n_pixels * integ.spp
     return {"mean": (integ.sum / integ.spp).cpu().numpy(),
             "se": integ.standard_error(),
+            "solve_s": result["duration"] / 1e3,
             "rate": result["walk_steps"] / (result["duration"] / 1e3),
             "capped": result["capped_walks"] / walks,
             "peak": result["peak_device_bytes"],
@@ -2547,9 +2581,8 @@ def phase_routes(confs: dict, keep: dict, card: str) -> None:
         if within.mean() < 0.99:
             raise RuntimeError(f"{label}: the per-sample film disagrees with "
                                f"the balanced one")
-    for label in confs:
+    for label in confs:     # the balanced films stay for [9]
         keep.pop(label + "_per_sample")
-        keep.pop(label)
 
 
 def phase_syncs_balanced(conf_2d: str, conf_n: str, device) -> None:
@@ -2730,6 +2763,247 @@ def phase_syncs_guided(conf_path: str, label: str, device) -> None:
     del problem, integ, state, records
 
 
+# --------------------------------------------------------------------------- #
+# [9] equal time: budgeted solves and a checkpoint's resume
+# --------------------------------------------------------------------------- #
+
+
+def round_lines(rounds: list, card: str) -> str:
+    """Each round's lanes, cap, iterations run, wall, the host's part
+    before its chunk, seconds an iteration (the rest of its wall over its
+    iterations), and ``lanes / rate`` at the round's own walk-steps/s (the
+    JAX package's model of an iteration's wall)."""
+    return "; ".join(
+        f"({r['lanes']}, cap {r['cap']}, {r['ran']} run, {r['wall']:.4f} s, "
+        f"host {r['host_s']:.4f} s, "
+        f"{(r['wall'] - r['host_s']) / max(r['ran'], 1) * 1e3:.3f} ms an "
+        f"iteration, "
+        f"lanes / rate {r['lanes'] * r['wall'] / max(r['steps'], 1) * 1e3:.3f}"
+        f" ms{', probe' if r['probe'] else ''})"
+        for r in rounds) + f" ({card})"
+
+
+def flat_rounds(integ) -> list:
+    rounds = integ.balance_rounds
+    if isinstance(rounds, dict):
+        rounds = rounds["train"] + rounds["guide"]
+    return rounds
+
+
+def budgeted(conf_path: str, label: str, budget: float, expect: tuple,
+             device, card: str):
+    """A problem and an integrator as ``run_expr`` makes them (the hints of
+    the earlier runs of the scene loaded from the cache), ``prepare()``,
+    the launch counts zeroed, then ``solve(time_budget_s=budget)``.
+    Returns (integrator, the solve's seconds, launches)."""
+    import torch
+
+    from elaina_tpu_torch.utils.ab import load_integrator
+
+    problem, integ = load_integrator(conf_path, device)
+    integ.prepare()
+    reset_counts()
+    secs = integ.solve(time_budget_s=budget) / 1e3
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if integ.sum.device.type != "cuda":
+        raise RuntimeError(f"{label} did not run on the card")
+    if not all(launches[k] for k in expect):
+        raise RuntimeError(f"a kernel of {label} never launched: {launches}")
+    log(f"    {label}: budget {budget:.3f} s, solve {secs:.3f} s "
+        f"(overshoot {secs - budget:+.3f} s), {integ.total_walk_steps} walk "
+        f"steps, {integ.total_walk_steps / secs:.6g} walk-steps/s ({card}); "
+        f"launches {launches}")
+    log(f"    rounds: {round_lines(flat_rounds(integ), card)}")
+    return integ, secs, launches
+
+
+def completion(integ) -> tuple:
+    """The completed samples of the pixels not baked: (fewest, harmonic /
+    arithmetic mean)."""
+    spp = integ.spp
+    done = (np.full(integ.n_pixels, spp) if integ.done_per_pixel is None
+            else np.asarray(integ.done_per_pixel, np.float64))
+    d = done[~integ._balanced_inputs()[3]].astype(np.float64)
+    if d.size == 0:
+        return spp, 1.0
+    if d.min() < 1:
+        return 0, 0.0
+    return int(d.min()), float(d.size / (1.0 / d).sum() / d.mean())
+
+
+def against(integ, ref: dict, label: str, ref_label: str) -> float:
+    """The share of pixel channels whose means lie within 4 combined
+    standard errors of the kept film's."""
+    mean = (integ.sum / integ.spp).cpu().numpy()
+    se = integ.standard_error()
+    within = np.abs(mean - ref["mean"]) <= 4.0 * np.hypot(se, ref["se"]) \
+        + 1e-6
+    log(f"    {label} against {ref_label}: {within.mean():.5f} of pixel "
+        f"channels within 4 combined standard errors")
+    return float(within.mean())
+
+
+def budget_gates(integ, label: str, budget: float, secs: float, ref: dict,
+                 ref_label: str, card: str) -> None:
+    """[9a]'s gates: the solve within the budget and its longest round
+    and under twice the budget, every pixel not baked with a completed
+    sample, harmonic / arithmetic mean of the completed samples >= 0.9,
+    the film within 4 combined standard errors of the kept full film on
+    >= 99% of pixel channels."""
+    longest = max(r["wall"] for r in flat_rounds(integ))
+    fewest, ratio = completion(integ)
+    log(f"    {label}: wall {secs:.3f} s against budget {budget:.3f} s + "
+        f"longest round {longest:.3f} s ({card}); completed samples a "
+        f"pixel: fewest {fewest}, harmonic / arithmetic mean {ratio:.4f}, "
+        f"spp {integ.spp}")
+    share = against(integ, ref, label, ref_label)
+    if not (secs <= budget + longest and secs < 2 * budget):
+        raise RuntimeError(f"{label} overran its budget: {secs} s")
+    if fewest < 1 or ratio < 0.9:
+        raise RuntimeError(f"{label}: uneven completion ({fewest}, {ratio})")
+    if share < 0.99:
+        raise RuntimeError(f"{label} disagrees with {ref_label}")
+
+
+def phase_budget_2d(conf_2d: str, device, card: str, keep: dict) -> None:
+    """[9a] lobed_u under half of [4]'s solve wall, held to [4]'s film;
+    then a fresh problem under ten times [4]'s wall: it loads the saved
+    hints, skips the probe round and completes every sample."""
+    budget = BUDGET_SHARE * keep["lobed_u"]["solve_s"]
+    log(f"[9a] lobed_u under a budget of {BUDGET_SHARE} x [4]'s solve "
+        f"({keep['lobed_u']['solve_s']:.3f} s)")
+    integ, secs, _ = budgeted(conf_2d, "lobed_u budgeted", budget, MAIN_2D,
+                              device, card)
+    budget_gates(integ, "lobed_u budgeted", budget, secs, keep["lobed_u"],
+                 "[4]'s film", card)
+    keep["lobed_u_budget"] = {"se": integ.standard_error(), "secs": secs}
+    generous = GENEROUS * keep["lobed_u"]["solve_s"]
+    integ, secs, _ = budgeted(conf_2d, "lobed_u generous", generous,
+                              MAIN_2D, device, card)
+    problem = integ.problem
+    key = integ._cost_cache()[1]
+    r0 = integ.balance_rounds[0]
+    log(f"    fresh problem: hints loaded {problem._hints_loaded}, cost of "
+        f"this frame {key in problem._cost_cache}, rate of its lanes "
+        f"{problem._rate_cache.get(integ.n_pixels)}; round 0: {r0['lanes']} "
+        f"lanes, cap {r0['cap']}, probe {r0['probe']}, {r0['iters']} "
+        f"iterations; samples left {integ.done_per_pixel is not None}")
+    if not (problem._hints_loaded and key in problem._cost_cache
+            and not r0["probe"] and integ.done_per_pixel is None
+            and integ.spp == SPP):
+        raise RuntimeError("the hints were not used, or the generous "
+                           "budget left samples")
+
+
+def phase_budget_guided(conf_n: str, device, card: str, keep: dict) -> None:
+    """[9b] lobed_n under [9a]'s budget: the policy, the phases, its film
+    against [4g]'s; the equal-time variance of the mean, guided over
+    [9a]'s uniform film (a reading)."""
+    budget = BUDGET_SHARE * keep["lobed_u"]["solve_s"]
+    log("[9b] lobed_n under [9a]'s budget")
+    integ, secs, _ = budgeted(conf_n, "lobed_n budgeted", budget, MAIN_2D,
+                              device, card)
+    ps = integ.phase_stats
+    policy = integ.train_policy
+    log(f"    policy (skip, t_target, share_cap): ({policy['skip']}, "
+        f"{policy['t_target']}, {policy['share_cap']}), predicted training "
+        f"wall {policy['predicted_wall']}; train_spp_achieved "
+        f"{integ.train_spp_achieved:.4f}; trained {integ._net_trained}")
+    for phase in ("train", "guide"):
+        sec, steps = ps[f"{phase}_s"], ps[f"{phase}_steps"]
+        log(f"    {phase} phase: {sec:.3f} s, {steps} walk steps, "
+            f"{steps / sec if sec else 0.0:.6g} walk-steps/s ({card})")
+    longest = max(r["wall"] for r in flat_rounds(integ))
+    fewest, ratio = completion(integ)
+    log(f"    wall {secs:.3f} s against budget {budget:.3f} s (longest round "
+        f"{longest:.3f} s; {card}); completed samples a pixel: fewest "
+        f"{fewest}, harmonic / arithmetic mean {ratio:.4f}")
+    share = against(integ, keep["lobed_n"], "lobed_n budgeted",
+                    "[4g]'s film")
+    se_g, se_u = integ.standard_error(), keep["lobed_u_budget"]["se"]
+    log(f"    equal-time variance of the mean, guided / uniform: "
+        f"{float(np.mean(se_g ** 2) / np.mean(se_u ** 2)):.4f} (a reading; "
+        f"{secs:.3f} s against {keep['lobed_u_budget']['secs']:.3f} s)")
+    if fewest < 1 or share < 0.99:
+        raise RuntimeError("lobed_n under a budget: a pixel without a "
+                           "sample, or its film disagrees with [4g]'s")
+
+
+def phase_budget_3d(conf_3d: str, device, card: str, keep: dict) -> None:
+    """[9c] neumann3d_u under half of [8]'s solve wall, gated as [9a]
+    against [8]'s film."""
+    budget = BUDGET_SHARE * keep["neumann3d_u"]["solve_s"]
+    log(f"[9c] neumann3d_u under a budget of {BUDGET_SHARE} x [8]'s solve "
+        f"({keep['neumann3d_u']['solve_s']:.3f} s)")
+    integ, secs, _ = budgeted(conf_3d, "neumann3d_u budgeted", budget,
+                              BUDGET_3D, device, card)
+    budget_gates(integ, "neumann3d_u budgeted", budget, secs,
+                 keep["neumann3d_u"], "[8]'s film", card)
+
+
+def phase_resume(root: str, device, card: str) -> None:
+    """[9d] [3b]'s guided square on the per-sample route: RESUME_SPP
+    samples with a checkpoint every RESUME_EVERY, then a new integrator
+    resumed from it to SQUARE_SPP: the checkpoint's trainer bit-equal to
+    the first run's, the resumed run's new samples RESUME_SPP, each point
+    within 0.07 of u."""
+    import torch
+
+    from elaina_tpu_torch.core.checkpoint import load_trainer
+    from elaina_tpu_torch.core.config import IntegratorSettings
+    from elaina_tpu_torch.nn.network import trainer_to_numpy
+    from elaina_tpu_torch.solver.guided import GuidedIntegrator
+
+    log("[9d] checkpoint and resume of the guided square")
+    problem = square_problem(device)
+    pts = np.array([[0.0, 0.0], [0.5, 0.8], [-0.5, -0.8], [0.8, 0.0],
+                    [-0.8, 0.3], [0.2, -0.5], [-0.3, 0.6]], np.float32)
+    reps = 256
+    lanes = torch.as_tensor(np.repeat(pts, reps, axis=0), device=device)
+    want = (pts[:, 0] + 1) / 2
+    ck = os.path.join(root, "square_checkpoint.npz")
+    runs = []
+    for spp in (RESUME_SPP, SQUARE_SPP):
+        settings = IntegratorSettings(
+            frameSize=(len(lanes), 1), samplesPerPixel=spp,
+            maxWalkingDepth=48, epsilonShell=0.02,
+            trainSppCount=SQUARE_TRAIN_SPP)
+        integ = GuidedIntegrator(problem, settings, "unused", points=lanes)
+        integ.reset_network(SQUARE_NET)
+        reset_counts()
+        ms = integ.solve(checkpoint_path=ck, checkpoint_every=RESUME_EVERY)
+        launches = read_counts()
+        u = integ.films["SOLUTION"].pixels()[0, :, 0].reshape(
+            len(pts), reps).mean(1)
+        log(f"    {spp} spp ({integ.spp_done} run here): u "
+            f"{np.round(u, 4).tolist()} vs {want.tolist()} (atol 0.07), "
+            f"{ms} ms, optimizer steps {int(integ.trainer.opt.count)} "
+            f"({card}); launches {launches}")
+        if integ.sum.device.type != "cuda" or getattr(
+                integ, "balance_rounds", None) is not None:
+            raise RuntimeError("the resume did not run per-sample on the "
+                               "card")
+        if not all(launches[k] for k in MAIN_2D):
+            raise RuntimeError(f"a kernel of the square never launched: "
+                               f"{launches}")
+        if spp == RESUME_SPP:
+            saved, meta = load_trainer(ck, device)
+            a, b = trainer_to_numpy(saved), trainer_to_numpy(integ.trainer)
+            same = a["count"] == b["count"] and all(
+                np.array_equal(a[f][k], b[f][k])
+                for f in ("params", "ema_params", "mu", "nu") for k in a[f])
+            log(f"    checkpoint at {meta}: trainer bit-equal {same}")
+            if not same or meta.get("spp") != RESUME_SPP:
+                raise RuntimeError("the checkpoint's trainer differs")
+        runs.append(integ)
+        if not np.all(np.abs(u - want) <= 0.07):
+            raise RuntimeError(f"the resumed guided square out of bound "
+                               f"({spp} spp)")
+    if runs[1].spp_done != SQUARE_SPP - RESUME_SPP:
+        raise RuntimeError(f"the resume ran {runs[1].spp_done} samples")
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -2805,7 +3079,12 @@ def main() -> int:
                 ("[8d] guided 3D", None, phase_syncs_guided,
                  (conf_3d_n, "neumann3d_n", device)),
                 ("[8d] balanced", None, phase_syncs_balanced,
-                 (conf_2d, conf_n, device))):
+                 (conf_2d, conf_n, device)),
+                ("[9a]", None, phase_budget_2d, (conf_2d, device, card, keep)),
+                ("[9b]", None, phase_budget_guided,
+                 (conf_n, device, card, keep)),
+                ("[9c]", None, phase_budget_3d, (conf_3d, device, card, keep)),
+                ("[9d]", None, phase_resume, (root, device, card))):
             out = timed_phase(label, fn, *args)
             if key is not None:
                 runs[key] = out
@@ -2814,7 +3093,8 @@ def main() -> int:
         rec["launches"] = runs[PATH_OF[name]][name]
         if not rec["launches"]:
             raise RuntimeError(f"{name} never launched on its path")
-    log(f"[9] chip_smoke.py: {time.time() - t_start:.1f} s in all ({card})")
+    log(f"[total] chip_smoke.py: {time.time() - t_start:.1f} s in all "
+        f"({card})")
     print(card)
     print(json.dumps({"kernels": [kernels.records[k] for k in KERNELS
                                   if k in kernels.records]}))

@@ -15,6 +15,16 @@ dense ``.npy`` / ``.npz`` array or a NanoVDB ``.nvdb`` grid, sampled
 trilinearly).  The scene's tensors live on the device passed in; the
 solver works wherever they are.
 
+The problem keeps the balanced solve's hints (reference problem.py:
+234-300): each frame's per-pixel walk cost and the walk rates by lane
+count, and the port's seconds an iteration by phase and lane width,
+cached in memory and, for a scene loaded with a ``cache_dir``, in
+``hints_<sha1>.npz`` there (the JAX package's file format, whose loader
+skips the port's ``iter_`` keys, in the port's own cache, so that no
+rate measured on another device seeds a solve).
+They are hints only: a solve with or without them estimates the same
+solution.
+
 Every set with a grid takes the same grid and resolve: a 512-cell level 0
 in 2D (64 in 3D), and the FinePack's need bit chooses the lanes that the
 kernels resolve exactly.  Rows are as wide as the set when it has fewer
@@ -31,9 +41,12 @@ CPU).  At depth 512, or on the 512-cell level 0, it gives 0.487.
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import os
 import time
+import zipfile
+import zlib
 from dataclasses import dataclass
 from typing import Optional
 
@@ -298,6 +311,93 @@ class Problem:
         self.probe: EvaluationGrid | None = None
         self.mask = None
         self.stats: dict = {}
+        self.cache_dir: str | None = None
+
+    # -- the balanced solve's hints (reference problem.py:234-300) --------
+
+    def _hint_path(self) -> str | None:
+        """``hints_<key>.npz`` under ``cache_dir``, keyed by the first 64
+        Dirichlet vertices, their count and the dimension, as the JAX
+        package keys it, and, where the scene has them, the first 64
+        Neumann vertices and their count and the source grid's shape and
+        first 64 values: the walks' costs and rates are the whole scene's
+        (one Dirichlet set in a wavy Neumann box of 8,192 segments walks
+        several times slower an iteration than in a box of 4).  None
+        without a cache dir or a Dirichlet set."""
+        scene = self.scene
+        if not self.cache_dir or scene is None or scene.dirichlet is None:
+            return None
+
+        def head(t: torch.Tensor) -> bytes:
+            return t.reshape(t.shape[0], -1)[:64].cpu().numpy().astype(
+                np.float32).tobytes()
+
+        verts = scene.dirichlet.gs.verts
+        data = head(verts) + np.int64([verts.shape[0], self.dim]).tobytes()
+        if scene.neumann is not None:
+            nv = scene.neumann.gs.verts
+            data += head(nv) + np.int64([nv.shape[0]]).tobytes()
+        if scene.source is not None:
+            src = scene.source.data
+            data += head(src.reshape(-1, 1)) + np.int64(src.shape).tobytes()
+        key = hashlib.sha1(data).hexdigest()[:16]
+        return os.path.join(self.cache_dir, f"hints_{key}.npz")
+
+    def hint_cache_load(self) -> None:
+        """Fill the cost and rate caches from the hint file, once, without
+        replacing an entry this process measured.  A truncated or corrupt
+        file is ignored (a hint is never worth a failed solve)."""
+        path = self._hint_path()
+        if not path or not os.path.exists(path) or getattr(
+                self, "_hints_loaded", False):
+            return
+        self._hints_loaded = True
+        cost = self.__dict__.setdefault("_cost_cache", {})
+        rate = self.__dict__.setdefault("_rate_cache", {})
+        try:
+            # the members decompress as they are read: keep every read
+            # inside
+            with np.load(path, allow_pickle=False) as z:
+                for k in z.files:
+                    parts = k.split("_")
+                    if k.startswith("cost_"):
+                        cost.setdefault((int(parts[1]), float(parts[2]),
+                                         int(parts[3])), np.asarray(z[k]))
+                    elif k.startswith("ratetrain_"):
+                        rate.setdefault(("train", int(parts[1])),
+                                        float(z[k]))
+                    elif k.startswith("iter_"):
+                        rate.setdefault(("iter", int(parts[1]),
+                                         int(parts[2])), float(z[k]))
+                    elif k.startswith("rate_"):
+                        rate.setdefault(int(parts[1]), float(z[k]))
+        except (OSError, EOFError, ValueError, IndexError, KeyError,
+                zipfile.BadZipFile, zlib.error) as e:
+            log_warning("hint file %s unreadable (%s); solving without it",
+                        path, e)
+
+    def hint_cache_save(self) -> None:
+        """Write the cost and rate caches to the hint file, atomically (a
+        temporary file renamed over it)."""
+        path = self._hint_path()
+        if not path:
+            return
+        payload = {}
+        for k, v in self.__dict__.get("_cost_cache", {}).items():
+            payload[f"cost_{k[0]}_{k[1]}_{k[2]}"] = np.asarray(v, np.float32)
+        for k, v in self.__dict__.get("_rate_cache", {}).items():
+            if not isinstance(k, tuple):
+                payload[f"rate_{k}"] = np.float64(v)
+            elif k[0] == "train":
+                payload[f"ratetrain_{k[1]}"] = np.float64(v)
+            else:
+                payload[f"iter_{k[1]}_{k[2]}"] = np.float64(v)
+        if payload:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            # the temporary name keeps the .npz suffix (np.savez adds it)
+            tmp = path[:-4] + f".tmp{os.getpid()}.npz"
+            np.savez_compressed(tmp, **payload)
+            os.replace(tmp, path)
 
     def load_config(self, conf: dict, base_dir: str = ".",
                     cache_dir: str | None = None) -> "Problem":
@@ -305,6 +405,7 @@ class Problem:
             raise NotImplementedError(
                 "'mask_path' arrives with the ROADMAP item 'masks' (the "
                 "port has no PNG decoder yet)")
+        self.cache_dir = cache_dir
         aabb_min = np.asarray(json_get_or_throw(conf, "aabb/min"), np.float32)
         aabb_max = np.asarray(json_get_or_throw(conf, "aabb/max"), np.float32)
         self.probe = EvaluationGrid.from_json(

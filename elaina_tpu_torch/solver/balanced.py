@@ -30,16 +30,32 @@ sample, then the remaining samples are split into cost-balanced
 worklists (``build_balanced_pieces``), the last ones at a quarter of the
 width.  The host reads the round's counts once a round.
 
-Left out, against the JAX package: the time budget (``BudgetSlicer``,
-the drain-skip, the shuffled partition), the runtime-watchdog bounds on a
+With ``time_budget_s`` the rounds are time-sliced (``BudgetSlicer``, the
+JAX package's policy): a probe of at most 2 samples a pixel, then
+proportional round quotas over shuffled worklists, each round's cap
+bounded so that its predicted wall fits half of the budget left, and the
+partial sums rescaled by each pixel's completed samples.  The port's
+round differs from the JAX package's in what a budget must count: its
+walks in flight drain after the cap (up to ``max_depth`` iterations),
+the host partitions the worklists before it (numpy passes over every
+pixel), and on the card an iteration is host-bound, about as long at
+a quarter of the lanes as at all of them.  So the slicer predicts a
+round's wall from the seconds an iteration measured at its width and
+the host's part (the hints of earlier solves seed them), subtracts the
+drain from the slice's iterations, stops where even the shortest round
+no longer fits, and shrinks the quotas to what the cap can start.
+
+Left out, against the JAX package: the runtime-watchdog bounds on a
 round's iteration cap (a guard against the TPU runtime's kill of long
 dispatches), ``lane_cap`` (the TPU's SMEM gate on the lane-list width,
 which the port's K1 does not have), the deterministic mode (no cap here
-depends on a measured wall), the device mesh and the ``ELAINA_*`` knobs.
+depends on a measured wall unless a budget is given), the device mesh and
+the ``ELAINA_*`` knobs.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -61,7 +77,7 @@ TAIL_MIN_LANES = 4 * 32768   # tail rounds shrink to a quarter of the lanes
 
 
 def build_balanced_pieces(rem: np.ndarray, cost: np.ndarray, n_lanes: int,
-                          s: int = N_PIECES):
+                          s: int = N_PIECES, shuffle=None):
     """Cost-balanced contiguous partition of the remaining samples into
     per-lane worklists (host numpy, reference wost.py:732-789).
 
@@ -69,14 +85,18 @@ def build_balanced_pieces(rem: np.ndarray, cost: np.ndarray, n_lanes: int,
     a sample.  Lane j gets up to ``s`` contiguous (pixel, quota) pieces
     whose cost adds up to ~W / M; a heavy pixel is split across
     consecutive lanes, and pieces past ``s`` stay in ``rem`` for the next
-    round.  Returns (piece_pix (s, M) int32, piece_quota (s, M) int32),
-    quota 0 padding."""
+    round.  ``shuffle`` (a numpy Generator, budgeted rounds) permutes the
+    pixels first, so that the samples a capped round leaves are a random
+    subset of the pixels each round, not the same lists' tails.  Returns
+    (piece_pix (s, M) int32, piece_quota (s, M) int32), quota 0 padding."""
     rem = rem.astype(np.int64)
     active = np.flatnonzero(rem > 0)
     piece_pix = np.zeros((s, n_lanes), np.int32)
     piece_quota = np.zeros((s, n_lanes), np.int32)
     if active.size == 0:
         return piece_pix, piece_quota
+    if shuffle is not None:
+        active = shuffle.permutation(active)
     ra = rem[active]
     c = np.maximum(cost[active].astype(np.float64), 1.0)
     w = c * ra
@@ -98,6 +118,177 @@ def build_balanced_pieces(rem: np.ndarray, cost: np.ndarray, n_lanes: int,
         piece_pix[k] = active[ps]
         piece_quota[k] = np.where(p <= p1, np.maximum(b - a, 0), 0)
     return piece_pix, piece_quota
+
+
+class BudgetSlicer:
+    """The time-budget slicing of round-based solves (reference
+    wost.py:984-1095), shared by ``balanced_solve`` and the guided
+    training phase.  ``plan`` gives each round proportional quotas sized
+    to fill half of the budget left at the measured walk-steps/s
+    (``rate``, an EMA over the rounds seeded by ``rate0``), so that the
+    slices shrink towards the deadline; ``bound_cap`` bounds the round's
+    iteration cap to the slice.  ``plan``, ``update``'s rate, ``expired``
+    and ``solve_rate`` are the JAX package's; ``iteration_wall``,
+    ``bound_cap``, ``min_round_stop`` and ``fit_quota`` model the port's
+    round (see there).  ``plan``, ``min_round_stop`` and ``expired`` read
+    ``time.time()``, as the JAX package's slicer does."""
+
+    def __init__(self, time_budget_s, start_time, rate0=None, iter0=None):
+        self.budget = time_budget_s
+        self.start = start_time
+        self.rate = float(rate0) if rate0 else None
+        # a caller's rate0 is a prior from another solve or phase, trusted
+        # for round 1's minimum-dispatch stop; a rate measured on this
+        # solve's own round 0 is not
+        self.trusted_prior = rate0 is not None
+        self.slice_s = None
+        # seconds an iteration by lane width, seeded by ``iter0`` (the
+        # port's: the hints of earlier solves of this phase)
+        self.iter_s = dict(iter0 or {})
+        self.host_s = None      # a round's host seconds before its chunk
+        self.r0_rate = None     # round 0's own walk-steps/s
+        self.later = [0, 0.0]   # the later rounds' steps and wall
+
+    def plan(self, rem, cost, round_i: int, probe_spp: int,
+             have_cost: bool, n_lanes: int | None = None,
+             floor: int | None = None):
+        """The round's quotas: (rem_round, stop).  Without a budget, every
+        remaining sample; without a rate (or on a probe round without a
+        cost), a probe of at most 2 samples a pixel; else each pixel's
+        remaining samples times one fraction (ceil: every pixel moves),
+        1.3x the step capacity of half the budget left.  Stops once the
+        budget is spent (after round 0), or from round 2 (round 1 with a
+        trusted prior) once even the minimum dispatch, ``floor``
+        iterations of ``n_lanes`` lanes, would overrun the budget left by
+        half its own wall."""
+        if self.budget is None:
+            return rem, False
+        remaining_s = self.budget - (time.time() - self.start)
+        if remaining_s <= 0 and round_i > 0:
+            return rem, True
+        if self.rate is None or (round_i == 0 and not have_cost):
+            return np.minimum(rem, min(probe_spp, 2)), False
+        if n_lanes and floor and (round_i > 1
+                                  or (round_i == 1 and self.trusted_prior)):
+            min_wall = floor * n_lanes / self.rate
+            if remaining_s < 0.5 * min_wall:
+                return rem, True
+        self.slice_s = 0.5 * remaining_s
+        cap_steps = self.slice_s * self.rate
+        total_cost = float((rem * np.maximum(cost, 1.0)).sum())
+        if total_cost > cap_steps:
+            frac = 1.3 * cap_steps / total_cost
+            rem_round = np.minimum(rem, np.ceil(rem * frac)).astype(
+                rem.dtype)
+            return rem_round, False
+        return rem, False
+
+    def iteration_wall(self, n_lanes: int) -> float:
+        """Predicted seconds of one iteration over ``n_lanes`` lanes: what
+        this solve's rounds of that width measured (an EMA, as the rate);
+        at a width not measured yet, the JAX package's ``n_lanes / rate``,
+        but not below any width's measured iteration.  On the card an
+        iteration is host-bound and costs about the same at any width:
+        ``n_lanes / rate`` predicts a full-width round at its wall over its
+        occupancy, and a quarter-width tail round at about a quarter of
+        its wall."""
+        if n_lanes in self.iter_s:
+            return self.iter_s[n_lanes]
+        return max([n_lanes / self.rate, *self.iter_s.values()])
+
+    def min_round_stop(self, round_i: int, n_lanes: int,
+                       iters: int) -> bool:
+        """The port's form of ``plan``'s minimum-dispatch stop (which the
+        port's callers leave out, passing it no ``n_lanes``): from round 2,
+        or round 1 with a trusted prior, stop once the budget left is under
+        half of the shortest round's predicted wall, ``iters`` iterations
+        (the least cap and the drain) at ``iteration_wall(n_lanes)`` and
+        the host's part before its chunk.  The JAX package counts max
+        depth + 32 iterations at ``n_lanes / rate``, which on the card
+        overestimates a full-width iteration by its occupancy."""
+        if self.budget is None or self.rate is None:
+            return False
+        if not (round_i > 1 or (round_i == 1 and self.trusted_prior)):
+            return False
+        remaining_s = self.budget - (time.time() - self.start)
+        return remaining_s < 0.5 * ((self.host_s or 0.0)
+                                    + iters * self.iteration_wall(n_lanes))
+
+    def bound_cap(self, cap: int, n_lanes: int, floor: int) -> int:
+        """Bound an iteration cap to the slice, at least ``floor``.  Where
+        no iteration was measured, the JAX package's bound, ``slice_s *
+        rate / n_lanes`` iterations.  Else the port's: its cap bounds when
+        samples start, and the walks in flight then run to their end (the
+        drain, up to the depth, completes samples the cap let start), so
+        the slice is the round's start window, the host's part and the
+        cap: ``host_s + cap x iteration_wall(n_lanes) <= slice_s``.  The
+        round's predicted wall overshoots its slice by its drain at most,
+        and the halving slices keep the solve's overshoot under one round
+        (``min_round_stop``).  On an H100 (80GB HBM3, 700 W) a slice less
+        the drain (64 iterations, ~0.36 s there) and the host's part
+        (~0.35 s) left half of lobed_u's full-solve wall ~5 of its 32
+        samples a pixel (PERF.md)."""
+        if self.budget is None or self.rate is None or self.slice_s is None:
+            return cap
+        if self.iter_s:
+            iters = (self.slice_s - (self.host_s or 0.0)) / (
+                self.iteration_wall(n_lanes))
+        else:
+            iters = self.slice_s * self.rate / max(n_lanes, 1)
+        return min(cap, max(int(iters), floor))
+
+    def fit_quota(self, rem, rem_round, cost, cap: int, n_lanes: int):
+        """The port's quotas for a round capped at ``cap``: ``plan``'s,
+        but at most 1.3x what the cap can start, ``cap x n_lanes`` steps (a
+        busy lane walks a step an iteration), each pixel's remaining
+        samples times one fraction, at least one.  ``plan`` sizes them to
+        fill the whole slice, but the port's drain takes up to ``max_depth``
+        of a round's iterations: quotas that the cap cannot start complete
+        in each lane's order, so pixels at the lists' ends would get none
+        (the JAX package's reason for proportional quotas)."""
+        if self.budget is None or self.slice_s is None:
+            return rem_round
+        total_cost = float((rem * np.maximum(cost, 1.0)).sum())
+        cap_steps = float(cap) * n_lanes
+        if total_cost <= 1.3 * cap_steps:
+            return rem_round
+        frac = 1.3 * cap_steps / total_cost
+        return np.minimum(rem_round, np.ceil(rem * frac).astype(rem.dtype))
+
+    def update(self, steps: int, wall_s: float, iters: int | None = None,
+               n_lanes: int | None = None, host_s: float = 0.0):
+        """A round's live lane-steps and wall; the port's ``iters`` (the
+        iterations it ran) over ``n_lanes`` lanes give its seconds an
+        iteration at that width (for ``iteration_wall``), its wall less
+        ``host_s``, the host's partition and upload before its chunk
+        (kept as an EMA too, for ``bound_cap`` and ``min_round_stop``)."""
+        r = steps / max(wall_s, 1e-9)
+        self.rate = r if self.rate is None else 0.4 * self.rate + 0.6 * r
+        if self.r0_rate is None:
+            self.r0_rate = r
+        else:
+            self.later[0] += steps
+            self.later[1] += wall_s
+        if iters:
+            t = max(wall_s - host_s, 0.0) / iters
+            old = self.iter_s.get(n_lanes)
+            self.iter_s[n_lanes] = t if old is None else 0.4 * old + 0.6 * t
+            self.host_s = host_s if self.host_s is None else (
+                0.4 * self.host_s + 0.6 * host_s)
+
+    def solve_rate(self) -> float | None:
+        """The walk-steps/s that a later solve starts from (reference
+        wost.py:1396-1400): the larger of round 0's own and the later
+        rounds' together (round 0 may carry a first call's overhead, and a
+        short solve does nearly all its work in round 0)."""
+        steps, wall = self.later
+        rates = [r for r in (steps / wall if wall > 0 else None,
+                             self.r0_rate) if r]
+        return max(rates) if rates else None
+
+    def expired(self) -> bool:
+        return (self.budget is not None
+                and time.time() - self.start > self.budget)
 
 
 def oversub_lanes(n: int, spp: int, lane_target: int = LANE_TARGET) -> int:
@@ -147,7 +338,8 @@ class ChunkOut:
     0-dim device counts: live lane-steps ``steps``, iterations before
     the drain ``iters``, lanes resolved exactly ``resolved``, walks the
     depth cap killed alive ``capped``; ``checks`` is the host's reads of
-    the loop condition."""
+    the loop condition and ``ran`` the iterations the host ran (the
+    drain's and up to ``CHECK_EVERY`` - 1 after it)."""
 
     acc: torch.Tensor
     done: torch.Tensor
@@ -157,6 +349,7 @@ class ChunkOut:
     resolved: torch.Tensor
     capped: torch.Tensor
     checks: int
+    ran: int
 
 
 def read_flag(flag: torch.Tensor) -> bool:
@@ -218,9 +411,10 @@ def run_chunk(step_fn, scene, extra, pieces: Pieces, *, max_depth: int,
         left = (slot < S) & (sidx < pick(quota, slot))
         return st.active.any() | left.any()
 
-    checks = 0
+    checks = ran = 0
     n_iter = iter_cap + max_depth       # every walk dies by then
     for j in range(n_iter):
+        ran = j + 1
         start = j < iter_cap
         more = more_of(st, slot, sidx, start)
         died = ~st.active & (scnt < sidx)
@@ -284,7 +478,7 @@ def run_chunk(step_fn, scene, extra, pieces: Pieces, *, max_depth: int,
                         for k in range(S)])
     return ChunkOut(acc=acc, done=done, lsteps=lsteps, steps=steps,
                     iters=it, resolved=resolved, capped=capped,
-                    checks=checks)
+                    checks=checks, ran=ran)
 
 
 def flush_balanced(image, acc, done, pix, n_pixels: int):
@@ -314,12 +508,17 @@ class BalancedResult:
     rounds: list
 
 
-def round_record(out: ChunkOut, lanes: int, cap: int) -> dict:
-    """The host's reads of one round (a sync, once a round)."""
+def round_record(out: ChunkOut, lanes: int, cap: int, wall: float,
+                 host_s: float, probe: bool) -> dict:
+    """The host's reads of one round (a sync, once a round), its wall
+    seconds from its partition to its count read, the host's seconds
+    before its chunk (the partition and upload), and whether it was a
+    cost probe on the identity partition."""
     steps, iters = int(out.steps), int(out.iters)
     return {"lanes": lanes, "cap": cap, "iters": iters, "steps": steps,
             "resolved": int(out.resolved), "capped": int(out.capped),
-            "checks": out.checks,
+            "checks": out.checks, "ran": out.ran, "wall": wall,
+            "host_s": host_s, "probe": probe,
             "occupancy": steps / max(iters * lanes, 1)}
 
 
@@ -347,22 +546,35 @@ def initial_image(in_shell0, contrib0, spp: int):
 def balanced_solve(step_fn, scene, extra, pts, rd0, resolved: np.ndarray,
                    contrib0, in_shell0, *, spp: int, max_depth: int,
                    seed: int, phase: int, cost0=None, cost_sink=None,
-                   progress=None,
-                   lane_target: int = LANE_TARGET) -> BalancedResult:
+                   progress=None, lane_target: int = LANE_TARGET,
+                   time_budget_s=None, start_time=None, rate0=None,
+                   rate_sink=None, iter0=None,
+                   iter_sink=None) -> BalancedResult:
     """Round-based balanced solve of ``spp`` samples a pixel (reference
-    wost.py:1137-1423, without its time budget).  ``pts`` (N, D) and
-    ``rd0`` (N,) on the device; ``resolved`` (N,) host bool marks the
-    pixels baked analytically (in the shell at step 0, or masked).
+    wost.py:1137-1423).  ``pts`` (N, D) and ``rd0`` (N,) on the device;
+    ``resolved`` (N,) host bool marks the pixels baked analytically (in
+    the shell at step 0, or masked).
 
     Round 0 runs the identity partition for min(PROBE_SPP, spp) samples
     at cap PROBE_CAP and measures each pixel's cost (shared through
     ``cost_sink``), unless ``cost0`` gives it; later rounds split the
     remaining samples into cost-balanced worklists at cap 1.35 x the
     ideal + 24, the last ones (ideal <= max_depth) at a quarter of the
-    width from TAIL_MIN_LANES up with room for every walk to finish.  A
-    pixel left without a sample after the last round (8 + 4 (1 + spp x
-    max_depth / ITER_CAP_MAX) rounds) gets one more round of one sample,
-    and the sums are rescaled by the completed counts."""
+    width from TAIL_MIN_LANES up with room for every walk to finish.
+
+    With ``time_budget_s`` (seconds from ``start_time``) the rounds are
+    ``BudgetSlicer``'s: the probe takes at most 2 samples a pixel, later
+    rounds proportional quotas over worklists shuffled each round, caps
+    bounded to the slice; a round whose samples left are below 1/2000 of
+    the solve's is not run (the drain-skip), and the solve stops at a
+    round boundary once the budget is spent.  ``rate0`` seeds the
+    walk-steps/s estimate, and ``rate_sink`` is given the solve's rate
+    (the larger of round 0's and the later rounds' together), with or
+    without a budget; ``iter0`` and ``iter_sink`` do the same for the
+    seconds an iteration by lane width (``BudgetSlicer.iter_s``).  A
+    pixel left without a sample after the last round gets one more round
+    of one sample on a lane of its own, and the sums are rescaled by the
+    completed counts."""
     n = pts.shape[0]
     S = N_PIECES
     m = oversub_lanes(n, spp, lane_target)
@@ -370,42 +582,63 @@ def balanced_solve(step_fn, scene, extra, pts, rd0, resolved: np.ndarray,
     rem = np.where(resolved, 0, spp).astype(np.int64)
     cost = np.ones(n)
     max_rounds = 8 + 4 * (1 + spp * max_depth // ITER_CAP_MAX)
+    spp_w = min(PROBE_SPP, spp)
     have_cost0 = cost0 is not None
     if have_cost0:
         cost = np.maximum(np.asarray(cost0, np.float64), 1.0)
-        piece_pix, piece_quota = build_balanced_pieces(rem, cost, m, S)
-    else:
-        piece_pix, piece_quota = identity_pieces(
-            n, np.where(resolved, 0, min(PROBE_SPP, spp)))
+    budget_mode = time_budget_s is not None
+    slicer = BudgetSlicer(time_budget_s, start_time or time.time(), rate0,
+                          iter0)
+    shuffle = np.random.default_rng(0xE1A) if budget_mode else None
     gens = stage_generators(pts.device)
     rounds, total = [], dict(steps=0, resolved=0, capped=0)
     n_walked = max(float(np.sum(~resolved)) * spp, 1.0)
+    # the shortest round: the least cap and the drain
+    min_round = 2 * CHECK_EVERY + max_depth
 
-    def run(round_i, cap, piece_pix, piece_quota):
+    def run(round_i, cap, piece_pix, piece_quota, t_r, probe=False):
+        """One round from its partition, made at ``t_r``."""
         nonlocal image, rem
         pieces = make_pieces(pts, rd0, piece_pix, piece_quota)
+        t_c = time.time()
         out = run_chunk(step_fn, scene, extra, pieces, max_depth=max_depth,
                         iter_cap=cap,
                         round_seed=balanced_seed(seed, phase, round_i),
                         gens=gens)
         image, done_pix = flush_balanced(image, out.acc, out.done,
                                          pieces.pix, n)
-        done = done_pix.cpu().numpy().astype(np.int64)
+        done = done_pix.cpu().numpy().astype(np.int64)  # waits: the wall
+        rec = round_record(out, piece_pix.shape[1], cap, time.time() - t_r,
+                           t_c - t_r, probe)
         rem = np.maximum(rem - done, 0)
-        rec = round_record(out, piece_pix.shape[1], cap)
         rounds.append(rec)
         for k in total:
             total[k] += rec[k]
-        return out, done
+        return out, done, rec
 
+    interrupted = False
     for round_i in range(max_rounds):
         if rem.sum() == 0:
             break
+        if budget_mode and round_i > 0 and rem.sum() < max(
+                1, int(n_walked) // 2000):
+            # the drain-skip: a round for < 1/2000 of the samples commits
+            # almost nothing; the rescale below stays unbiased
+            interrupted = True
+            break
+        rem_round, stop = slicer.plan(rem, cost, round_i, spp_w, have_cost0)
+        if stop or slicer.min_round_stop(round_i, m, min_round):
+            interrupted = True
+            break
         n_round = m
-        if round_i == 0 and not have_cost0:
+        probe = round_i == 0 and not have_cost0
+        if probe:
             n_round, cap = n, PROBE_CAP
         else:
-            ideal = ideal_full = int(np.ceil(float((rem * cost).sum()) / m))
+            ideal = int(np.ceil(float((rem_round * cost).sum()) / m))
+            # the tail decision looks at all the remaining work, not at the
+            # budget's round quotas
+            ideal_full = int(np.ceil(float((rem * cost).sum()) / m))
             if ideal_full <= max_depth and m >= TAIL_MIN_LANES:
                 # tail: a depth step costs its full width whether lanes
                 # live or not, so pack the leftovers into a quarter
@@ -415,30 +648,49 @@ def balanced_solve(step_fn, scene, extra, pts, rd0, resolved: np.ndarray,
             if ideal_full <= max_depth:
                 # the last round: room for every walk to finish
                 cap = min(max_depth + 2 * ideal + 64, ITER_CAP_MAX)
-        if round_i > 0 or piece_pix.shape[1] != n_round:
-            piece_pix, piece_quota = build_balanced_pieces(rem, cost,
-                                                           n_round, S)
-        out, done = run(round_i, cap, piece_pix, piece_quota)
-        if round_i == 0 and not have_cost0:
+        cap = slicer.bound_cap(cap, n_round, CHECK_EVERY)
+        t_r = time.time()
+        if probe:
+            # the identity partition, with the slice's quota under a budget
+            piece_pix, piece_quota = identity_pieces(
+                n, np.minimum(rem_round, spp_w))
+        else:
+            piece_pix, piece_quota = build_balanced_pieces(
+                slicer.fit_quota(rem, rem_round, cost, cap, n_round), cost,
+                n_round, S, shuffle=shuffle)
+        out, done, rec = run(round_i, cap, piece_pix, piece_quota, t_r,
+                             probe)
+        slicer.update(rec["steps"], rec["wall"], rec["ran"], rec["lanes"],
+                      rec["host_s"])
+        if probe:
             cost = probe_cost(out.lsteps.cpu().numpy(), done, max_depth)
             if cost_sink is not None:
                 cost_sink(cost)
         if progress is not None:
             progress(int((1.0 - rem.sum() / n_walked) * 100), 100)
+        if slicer.expired() and rem.sum() > 0:
+            interrupted = True
+            break
 
+    if rate_sink is not None and slicer.solve_rate():
+        rate_sink(slicer.solve_rate())
+    if iter_sink is not None:
+        iter_sink(slicer.iter_s)
     done_total = np.where(resolved, spp, spp - rem)
     if rem.sum() > 0:
         zero = ~resolved & (rem >= spp)
         if zero.any():
             # the unbiasedness floor: a pixel with no completed sample
-            # would rescale to 0, so give each one walk room to finish
-            piece_pix, piece_quota = build_balanced_pieces(
-                zero.astype(np.int64), cost, n, S)
-            run(max_rounds + 1, max_depth + 8, piece_pix, piece_quota)
+            # would rescale to 0, so give each one a lane and room for its
+            # walk to finish
+            piece_pix, piece_quota = identity_pieces(n, zero)
+            run(max_rounds + 1, max_depth + 8, piece_pix, piece_quota,
+                time.time())
             done_total = np.where(resolved, spp, spp - rem)
-        log_warning("balanced_solve: %d of %d samples left after %d rounds;"
-                    " rescaling each pixel's sums by its completed samples",
-                    int(rem.sum()), int(n_walked), max_rounds)
+        log_warning("balanced_solve: %d of %d samples left after %d rounds"
+                    "%s; rescaling each pixel's sums by its completed "
+                    "samples", int(rem.sum()), int(n_walked), len(rounds),
+                    " (time budget)" if interrupted else "")
         scale = torch.as_tensor(spp / np.maximum(done_total, 1),
                                 dtype=torch.float32, device=pts.device)
         image = image * scale[:, None]

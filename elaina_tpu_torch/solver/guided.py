@@ -33,11 +33,23 @@ the guided depth holds per lane.  The same holds for the optimizer: a
 batch with too few valid records, or a nonfinite gradient, is dropped by
 ``torch.where``, and so is a pass after the balanced chunk's drain.
 
-Not ported: the time budget and checkpointing (ROADMAP Queue 1).
+``GuidedIntegrator.solve`` takes the JAX package's time budget and
+checkpoints (guided.py:847-1075).  Under a budget the training phase
+runs once, to at most ``TRAIN_SPP_TARGET`` samples within its share of
+the budget (``budget_train_policy``), or not at all where the hints
+predict that it overruns its share; both phases slice their rounds with
+``balanced.BudgetSlicer``.  A checkpoint (``core/checkpoint.py``, the
+JAX package's file layout) holds the trainer and the sums; with
+``checkpoint_every`` the solve takes the per-sample route and writes one
+every so many samples, and a solve given an existing checkpoint resumes
+from it, sample ``spp0 + k`` drawing what the unbroken run draws.  Left
+out, as in ``balanced.py``: the watchdog bounds, ``lane_cap``, the
+deterministic mode, the mesh and the ``ELAINA_*`` knobs.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, replace
 from typing import NamedTuple
@@ -45,6 +57,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core.checkpoint import (load_solve_state, load_trainer,
+                               save_solve_state, save_trainer)
 from ..core.logger import log_info, log_warning
 from ..nn.network import (AdamConfig, GuidingNetwork, NetworkSpec,
                           TrainerState, adam_ema_step, apply_network,
@@ -52,10 +66,11 @@ from ..nn.network import (AdamConfig, GuidingNetwork, NetworkSpec,
 from ..utils.mathops import reflect
 from ..utils.rng import (STAGES, balanced_seed, run_seed, sample_generators,
                          stage_generators, stream_seed)
-from .balanced import (ITER_CAP_MAX, TAIL_MIN_LANES, balanced_solve,
-                       build_balanced_pieces, flush_balanced,
-                       identity_pieces, initial_image, make_pieces, pick,
-                       probe_cost, round_record, run_chunk)
+from .balanced import (CHECK_EVERY, ITER_CAP_MAX, TAIL_MIN_LANES,
+                       BudgetSlicer, balanced_solve, build_balanced_pieces,
+                       flush_balanced, identity_pieces, initial_image,
+                       make_pieces, pick, probe_cost, round_record,
+                       run_chunk)
 from .distributions import (M_EPSILON, n_dim_output, vmm_from_raw, vmm_pdf,
                             vmm_pdf_effective, vmm_sample,
                             vmm_selection_prob)
@@ -77,6 +92,32 @@ TRAIN_EVERY = 10          # balanced training: iterations between optimizer
 TRAIN_PROBE_SPP = 4       # samples a pixel of the training phase's probe
 TRAIN_ITER_CAP = 512      # a training round's longest cap (guided.py:1293)
 PHASE_GUIDE, PHASE_TRAIN = 1, 2   # the phases' random streams (uniform: 0)
+
+# The budgeted training policy (reference guided.py:655-697), the JAX
+# package's measured constants, not tuned for the port.  Training to t
+# samples buys the guided estimator an equal-spp variance ratio v(t)
+# (guided / uniform) on the budget B's other seconds, so it pays iff its
+# share of B stays below 1 - v(t): there v(32) ~ 0.55 and v(16) ~ 0.77,
+# and an undertrained guide did worse than none.
+TRAIN_SPP_TARGET = 32        # a budgeted solve's training samples, at most
+TRAIN_KNEE_SPP = 24          # below this target the shallow cap holds
+TRAIN_SHARE_DEEP = 0.45      # = 1 - v(32)
+TRAIN_SHARE_SHALLOW = 0.15   # ~ (1 - v(16)) x 2/3
+
+
+def budget_train_policy(train_spp_count: int, time_budget_s: float,
+                        predicted_wall: float | None):
+    """The budgeted training decision (reference guided.py:677-697):
+    ``(skip, t_target, share_cap)``, train to ``t_target`` samples within
+    ``share_cap * time_budget_s`` seconds, or skip the training phase
+    where ``predicted_wall`` (seconds for ``t_target`` samples, None
+    without hints) already overruns that share."""
+    t_target = min(TRAIN_SPP_TARGET, int(train_spp_count))
+    share_cap = (TRAIN_SHARE_DEEP if t_target >= TRAIN_KNEE_SPP
+                 else TRAIN_SHARE_SHALLOW)
+    skip = (predicted_wall is not None
+            and predicted_wall > share_cap * time_budget_s)
+    return skip, t_target, share_cap
 
 
 @dataclass
@@ -562,21 +603,84 @@ class GuidedIntegrator(BaseIntegrator):
         self._net_trained = self._net_trained or int(
             self.trainer.opt.count) > 0
 
-    def solve(self) -> int:
-        """Every sample: the training phase (trainSppCount samples), then
-        the guiding phase on the EMA weights.  Returns wall-clock
-        milliseconds.  Leaves the mean in the SOLUTION film, the sums in
-        ``sum`` / ``sum_sq``, the counts of ``UniformIntegrator.solve``,
-        the training loss in ``loss_history`` and each phase's seconds and
-        live lane-steps in ``phase_stats``.
+    def solve(self, checkpoint_path: str | None = None,
+              checkpoint_every: int = 0,
+              time_budget_s: float | None = None) -> int:
+        """Every sample, or as many as ``time_budget_s`` seconds allow: the
+        training phase (trainSppCount samples), then the guiding phase on
+        the EMA weights.  Returns wall-clock milliseconds.  Leaves the
+        mean in the SOLUTION film, the sums in ``sum`` / ``sum_sq`` over
+        ``spp`` samples, the samples this call ran in ``spp_done``, the
+        counts of ``UniformIntegrator.solve``, the training loss in
+        ``loss_history`` and each phase's seconds and live lane-steps in
+        ``phase_stats``.
 
-        The route is the JAX package's choice (guided.py:955-1030): the
-        balanced persistent phases, unless the config asks for metric
-        frames, which take the per-sample route (checkpointing, the JAX
-        package's other reason for it, is not ported)."""
-        if metrics_on(self.settings):
-            return self._solve_per_sample()
-        return self._solve_persistent()
+        A ``checkpoint_path`` that exists is resumed: its trainer, its
+        trained flag (True where the file has none, as the JAX package
+        reads it) and, from ``<checkpoint_path>.solve.npz``, its sums and
+        sample count.  The route is the JAX package's choice
+        (guided.py:955-1030): the balanced persistent phases, unless the
+        config asks for metric frames or ``checkpoint_every`` > 0 with a
+        ``checkpoint_path``, which take the per-sample route; there a
+        checkpoint is written every ``checkpoint_every`` samples.  Under a
+        budget (seconds from this call, after ``prepare()``) the training
+        phase follows ``budget_train_policy`` (``train_policy``,
+        ``train_spp_achieved``) and the phases slice their rounds; the
+        per-sample route stops between samples once the budget is spent."""
+        seed = run_seed()
+        tsel = self._train_selection(seed)
+        start = time.time()
+        total = torch.zeros((self.n_pixels, 6), device=self.device)
+        spp0 = 0
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            spp0 = self._resume(checkpoint_path, total)
+        if metrics_on(self.settings) or (checkpoint_path
+                                         and checkpoint_every > 0):
+            return self._solve_per_sample(seed, tsel, start, total, spp0,
+                                          checkpoint_path, checkpoint_every,
+                                          time_budget_s)
+        return self._solve_persistent(seed, tsel, start, total, spp0,
+                                      time_budget_s)
+
+    def _resume(self, path: str, total) -> int:
+        """Load a checkpoint into the trainer and ``total`` (N, 6); returns
+        its sample count (0 without a solve-state file)."""
+        self.trainer, meta = load_trainer(path, self.device)
+        self._net_trained = bool(meta.get("net_trained", True))
+        self._sq_from = 0
+        sol = path + ".solve.npz"
+        if not os.path.exists(sol):
+            return 0
+        sums, spp0, _, sq = load_solve_state(sol)
+        total[:, :3] = torch.as_tensor(sums, device=self.device)
+        if sq is None:
+            log_warning("%s holds no sums of squares (a JAX package's "
+                        "checkpoint): the mean resumes exactly, the "
+                        "standard error takes its variance from the "
+                        "resumed samples only", sol)
+            self._sq_from = spp0
+        else:
+            total[:, 3:] = torch.as_tensor(sq, device=self.device)
+        return spp0
+
+    def _finish(self, total, spp: int, spp0: int, start: float,
+                done_per_pixel=None) -> int:
+        """Keep the sums of ``spp`` samples (``spp0`` of them resumed),
+        fill the SOLUTION film, save the hints; returns the solve's
+        milliseconds."""
+        sq_from = getattr(self, "_sq_from", 0)
+        if sq_from and spp > sq_from:
+            # the file had no squares: the samples run since stand for all
+            total[:, 3:] *= spp / (spp - sq_from)
+        self._sq_from = 0
+        sol = total[:, :3].cpu().numpy()           # waits for the device
+        duration_ms = int((time.time() - start) * 1000)
+        self.sum, self.sum_sq, self.spp = total[:, :3], total[:, 3:], spp
+        self.spp_done = spp - spp0
+        self.done_per_pixel = done_per_pixel
+        self.problem.hint_cache_save()
+        self._put("SOLUTION", sol / max(spp, 1))
+        return duration_ms
 
     def _guide_step(self, params: dict, uniform_fraction: float,
                     max_guided_depth: int):
@@ -594,33 +698,71 @@ class GuidedIntegrator(BaseIntegrator):
 
         return step
 
-    def _solve_persistent(self) -> int:
-        """The balanced route: ``_training_persistent`` then
-        ``_guiding_persistent``.  ``loss_history`` gets one KL metric a
-        training round (the last in-loop pass's), as the JAX package's
-        does; ``balance_rounds`` keeps each phase's round records."""
+    def _solve_persistent(self, seed: int, tsel, start: float, total,
+                          spp0: int, time_budget_s: float | None) -> int:
+        """The balanced route (reference guided.py:955-1030):
+        ``_training_persistent`` then ``_guiding_persistent``.
+        ``loss_history`` gets one KL metric a training round (the last
+        in-loop pass's), as the JAX package's does; ``balance_rounds``
+        keeps each phase's round records.  Under a budget the training
+        runs once, to ``t_target`` samples within min(share cap x budget,
+        the budget left), or is skipped where ``_train_spp_wall``
+        predicts that it overruns its share (the guide then stays
+        untrained and the guiding phase samples uniformly); a training
+        phase that the budget cut after the budget's end leaves no
+        guiding phase."""
         s = self.settings
         check_neumann(self.problem.scene)
         spp = int(s.samplesPerPixel)
         n_train = min(int(s.trainSppCount), spp)
-        seed = run_seed()
-        tsel = self._train_selection(seed)
-        start = time.time()
-        total = torch.zeros((self.n_pixels, 6), device=self.device)
         self.phase_stats = {"train_steps": 0, "guide_steps": 0,
                             "train_s": 0.0, "guide_s": 0.0}
         self.balance_rounds = {"train": [], "guide": []}
-        if n_train > 0:
+        self.train_policy = None
+        self.train_spp_achieved = float(min(spp0, n_train))
+        counts = np.full(self.n_pixels, spp0, np.int64)
+        done_spp, stop = spp0, False
+        if spp0 < n_train:
+            budget = spp_cap = None
+            skip = False
+            if time_budget_s:
+                t_target = min(TRAIN_SPP_TARGET, int(s.trainSppCount))
+                tw = self._train_spp_wall(t_target)
+                skip, t_target, share_cap = budget_train_policy(
+                    s.trainSppCount, time_budget_s, tw)
+                self.train_policy = {"skip": skip, "t_target": t_target,
+                                     "share_cap": share_cap,
+                                     "predicted_wall": tw}
+                if skip:
+                    log_warning("training to %d spp predicted at %.2f s "
+                                "against a %.2f s budget (share cap "
+                                "%.0f%%): skipping the training phase",
+                                t_target, tw, time_budget_s,
+                                100 * share_cap)
+                else:
+                    budget = min(share_cap * time_budget_s, max(
+                        0.0, time_budget_s - (time.time() - start)))
+                    spp_cap = t_target
+            if not skip:
+                t = time.time()
+                image, rounds, done, interrupted, done_spp = \
+                    self._training_persistent(seed, tsel, spp0, n_train,
+                                              budget, spp_cap)
+                total += image
+                counts += done
+                self.balance_rounds["train"] = rounds
+                self.phase_stats["train_steps"] = sum(r["steps"]
+                                                      for r in rounds)
+                self.phase_stats["train_s"] = time.time() - t
+                stop = bool(interrupted and time_budget_s
+                            and time.time() - start > time_budget_s)
+        if not stop and spp > done_spp:
             t = time.time()
-            image, rounds = self._training_persistent(seed, tsel, n_train)
-            total += image
-            self.balance_rounds["train"] = rounds
-            self.phase_stats["train_steps"] = sum(r["steps"] for r in rounds)
-            self.phase_stats["train_s"] = time.time() - t
-        if spp > n_train:
-            t = time.time()
-            out = self._guiding_persistent(seed, spp - n_train)
+            out = self._guiding_persistent(seed, done_spp, start,
+                                           time_budget_s)
             total += torch.cat([out.image, out.image_sq], 1)
+            counts += out.done
+            done_spp = spp
             self.balance_rounds["guide"] = out.rounds
             self.phase_stats["guide_steps"] = out.steps
             if self.device.type == "cuda":
@@ -630,23 +772,30 @@ class GuidedIntegrator(BaseIntegrator):
         self.total_walk_steps = sum(r["steps"] for r in rounds)
         self.total_resolved = sum(r["resolved"] for r in rounds)
         self.total_capped = sum(r["capped"] for r in rounds)
-        sol = total[:, :3].cpu().numpy()           # waits for the device
-        duration_ms = int((time.time() - start) * 1000)
-        self.sum, self.sum_sq, self.spp = total[:, :3], total[:, 3:], spp
-        self._put("SOLUTION", sol / max(spp, 1))
-        return duration_ms
+        return self._finish(total, done_spp, spp0, start,
+                            counts if (counts < done_spp).any() else None)
 
-    def _training_persistent(self, seed: int, tsel, remaining: int):
+    def _training_persistent(self, seed: int, tsel, spp0: int, n_train: int,
+                             time_budget_s: float | None = None,
+                             spp_cap: int | None = None):
         """The training phase on the balanced route (reference guided.py:
-        1177-1481, without the time budget): a probe round of
-        min(TRAIN_PROBE_SPP, remaining) samples on the identity partition
-        at cap 8 x that, unless the problem's cost cache has this frame;
-        then cost-balanced rounds at cap min(1.35 x ideal + 24,
-        TRAIN_ITER_CAP), each a ``TrainLoop``; the tail rounds
-        (ideal <= max depth) run the record-free guide step at a quarter
-        of the width from TAIL_MIN_LANES up.  Sets ``_pixel_cost`` (the
-        guiding phase's partition), the trainer and ``_net_trained`` (an
-        optimizer step ran).  Returns (sums (N, 6), round records)."""
+        1177-1481) from sample ``spp0`` to ``n_train``, or ``spp_cap``
+        samples where fewer: a probe round of min(TRAIN_PROBE_SPP, the
+        samples) samples (2 under a budget) on the identity partition at
+        cap 8 x that, unless the problem's cost cache has this frame; then
+        cost-balanced rounds at cap min(1.35 x ideal + 24,
+        TRAIN_ITER_CAP), each a ``TrainLoop``; the tail rounds (ideal <=
+        max depth) run the record-free guide step at a quarter of the
+        width from TAIL_MIN_LANES up.  Under ``time_budget_s`` (seconds
+        from the phase's start) the rounds are ``BudgetSlicer``'s, seeded
+        with ``_train_rate_prior``, over worklists shuffled each round,
+        with the drain-skip.  Sets ``_pixel_cost`` (the guiding phase's
+        partition), the trainer, ``_net_trained`` (an optimizer step ran),
+        ``_walk_rate`` (the guiding phase's rate prior),
+        ``train_spp_achieved`` and the problem's training rate.  Returns
+        (sums (N, 6) rescaled to the phase's samples, round records, the
+        completed samples a pixel, whether the budget cut it, the sample
+        count it ends at)."""
         s = self.settings
         scene = self.problem.scene
         n = self.n_pixels
@@ -654,6 +803,9 @@ class GuidedIntegrator(BaseIntegrator):
         max_depth = int(s.maxWalkingDepth)
         uf = float(s.uniformFractionInTrainingPhase)
         mgd = int(s.maxGuidedDepthInTrainingPhase)
+        remaining = n_train - spp0
+        if spp_cap is not None:
+            remaining = min(remaining, int(spp_cap))
         rd0, in_shell0, contrib0, resolved = self._balanced_inputs()
         image = initial_image(in_shell0, contrib0, remaining)
         rem = np.where(resolved, 0, remaining).astype(np.int64)
@@ -663,7 +815,7 @@ class GuidedIntegrator(BaseIntegrator):
         if have_cost0:
             cost = self._pixel_cost = np.maximum(
                 np.asarray(cache[key], np.float64), 1.0)
-        spp_w = min(TRAIN_PROBE_SPP, remaining)
+        spp_w = min(2 if time_budget_s else TRAIN_PROBE_SPP, remaining)
         piece_pix, piece_quota = identity_pieces(
             n, np.where(resolved, 0, spp_w))
         tbit = None if tsel is None else tsel.cpu().numpy()
@@ -671,16 +823,33 @@ class GuidedIntegrator(BaseIntegrator):
         trainer = self.trainer
         opt0 = int(trainer.opt.count)
         rounds = []
+        slicer = BudgetSlicer(time_budget_s, time.time(),
+                              self._train_rate_prior(),
+                              self._iter_walls(PHASE_TRAIN))
+        interrupted = False
+        n_walk = int(np.sum(~resolved))
         for round_i in range(16 + 4 * (1 + remaining * max_depth // 48)):
             if rem.sum() == 0:
                 break
+            if time_budget_s and round_i > 0 and rem.sum() < max(
+                    1, n_walk * remaining // 2000):
+                interrupted = True          # the drain-skip
+                break
+            rem_round, stop = slicer.plan(rem, cost, round_i, spp_w,
+                                          have_cost0 or round_i > 0)
+            if stop or slicer.min_round_stop(round_i, n,
+                                             2 * CHECK_EVERY + max_depth):
+                interrupted = True
+                break
             tail, n_round = False, n
-            if round_i == 0 and not have_cost0:
+            probe = round_i == 0 and not have_cost0
+            if probe:
                 cap = 8 * spp_w
             else:
-                ideal = ideal_full = int(np.ceil(float((rem * cost).sum())
-                                                 / n))
+                ideal = int(np.ceil(float((rem_round * cost).sum()) / n))
                 cap = min(int(1.35 * ideal) + 24, TRAIN_ITER_CAP)
+                # the tail decision looks at all the remaining work
+                ideal_full = int(np.ceil(float((rem * cost).sum()) / n))
                 if ideal_full <= max_depth:
                     # the tail trains almost nothing: the record-free step
                     # at a quarter of the width, room for every walk
@@ -691,11 +860,17 @@ class GuidedIntegrator(BaseIntegrator):
                     cap = min(max_depth + 2 * ideal + 64,
                               TRAIN_ITER_CAP if n_round == n
                               else ITER_CAP_MAX)
-            if round_i > 0 or have_cost0:
+            cap = slicer.bound_cap(cap, n_round, CHECK_EVERY)
+            t_r = time.time()
+            if not probe:
                 piece_pix, piece_quota = build_balanced_pieces(
-                    rem, cost, n_round)
+                    slicer.fit_quota(rem, rem_round, cost, cap, n_round),
+                    cost, n_round,
+                    shuffle=(np.random.default_rng(0xE1A + round_i)
+                             if time_budget_s else None))
             pieces = make_pieces(self.eval_points, rd0, piece_pix,
                                  piece_quota)
+            t_c = time.time()
             kw = dict(max_depth=max_depth, iter_cap=cap, gens=gens,
                       round_seed=balanced_seed(seed, PHASE_TRAIN, round_i))
             loop = None
@@ -716,37 +891,56 @@ class GuidedIntegrator(BaseIntegrator):
                 trainer = loop.trainer
             image, done_pix = flush_balanced(image, out.acc, out.done,
                                              pieces.pix, n)
-            done = done_pix.cpu().numpy().astype(np.int64)
+            done = done_pix.cpu().numpy().astype(np.int64)  # waits
+            rec = round_record(out, n_round, cap, time.time() - t_r,
+                               t_c - t_r, probe)
             rem = np.maximum(rem - done, 0)
-            rounds.append(round_record(out, n_round, cap))
+            rounds.append(rec)
+            slicer.update(rec["steps"], rec["wall"], rec["ran"],
+                          rec["lanes"], rec["host_s"])
             if loop is not None:
                 self.loss_history.append(float(loop.metric))
-            if round_i == 0 and not have_cost0:
+            if probe:
                 cost = self._pixel_cost = probe_cost(
                     out.lsteps.cpu().numpy(), done, max_depth)
                 cache[key] = cost
             _progress(int(100 * (1 - rem.sum() / max(
-                float(np.sum(~resolved)) * remaining, 1.0))), 100,
-                "Training")
+                float(n_walk) * remaining, 1.0))), 100, "Training")
+            if slicer.expired() and rem.sum() > 0:
+                interrupted = True
+                break
         self.trainer = trainer
         if int(trainer.opt.count) > opt0:
             self._net_trained = True
+        if slicer.rate is not None:
+            # the guiding phase's rate prior (training's, optimizer passes
+            # included: an underestimate)
+            self._walk_rate = slicer.rate
+        if slicer.solve_rate():
+            self._rate_cache()[("train", n)] = slicer.solve_rate()
+        self._keep_iter_walls(PHASE_TRAIN, slicer.iter_s)
+        self.train_spp_achieved = float(
+            spp0 + remaining - rem.sum() / max(n_walk, 1))
+        done_total = np.where(resolved, remaining, remaining - rem)
         if rem.sum() > 0:
-            log_warning("training phase: %d samples left; rescaling each "
+            log_warning("training phase: %d samples left%s; rescaling each "
                         "pixel's sums by its completed samples",
-                        int(rem.sum()))
-            done_total = np.where(resolved, remaining, remaining - rem)
+                        int(rem.sum()),
+                        " (time budget)" if interrupted else "")
             image = image * torch.as_tensor(
                 remaining / np.maximum(done_total, 1), dtype=torch.float32,
                 device=dev)[:, None]
-        return image, rounds
+        return image, rounds, done_total, interrupted, spp0 + remaining
 
-    def _guiding_persistent(self, seed: int, remaining: int):
+    def _guiding_persistent(self, seed: int, spp0: int, start: float,
+                            time_budget_s: float | None = None):
         """The guiding phase on the balanced route (reference guided.py:
-        1483-1539): ``balanced_solve`` with the record-free guided step on
-        the EMA weights, partitioned by the training phase's cost.  A
-        network that never took an optimizer step samples uniformly (max
-        guided depth 0)."""
+        1483-1539): ``balanced_solve`` of the samples from ``spp0`` with
+        the record-free guided step on the EMA weights, partitioned by the
+        training phase's cost, under the solve's budget from ``start``,
+        its rate prior the training phase's or the problem's.  A network
+        that never took an optimizer step samples uniformly (max guided
+        depth 0)."""
         s = self.settings
         mgd = int(s.maxGuidedDepthInGuidingPhase)
         if not self._net_trained:
@@ -758,36 +952,73 @@ class GuidedIntegrator(BaseIntegrator):
         if cost0 is None:
             cache, key = self._cost_cache()
             cost0 = cache.get(key)
+        rates = self._rate_cache()
         return balanced_solve(
             self._guide_step(self.trainer.ema_params,
                              float(s.uniformFractionInGuidingPhase), mgd),
             self.problem.scene, None, self.eval_points, rd0, resolved,
-            contrib0, in_shell0, spp=remaining,
+            contrib0, in_shell0, spp=int(s.samplesPerPixel) - spp0,
             max_depth=int(s.maxWalkingDepth), seed=seed, phase=PHASE_GUIDE,
-            cost0=cost0, progress=_progress)
+            cost0=cost0, progress=_progress, time_budget_s=time_budget_s,
+            start_time=start,
+            rate0=getattr(self, "_walk_rate", None) or rates.get(
+                self.n_pixels),
+            rate_sink=lambda r: rates.__setitem__(self.n_pixels, r),
+            iter0=self._iter_walls(PHASE_GUIDE),
+            iter_sink=lambda w: self._keep_iter_walls(PHASE_GUIDE, w))
 
-    def _solve_per_sample(self) -> int:
-        """The per-sample route (reference guided.py:1000-1080): each
-        sample walks every lane to the depth cap, and a training sample is
-        followed by ``train_on_records``; ``loss_history`` gets one KL
-        metric a training sample."""
+    def _train_rate_prior(self):
+        """The training phase's walk-steps/s prior (reference guided.py:
+        1082-1097): the problem's training rate, at least 0.4 x its walk
+        rate (the optimizer's share), or that floor alone; None without
+        either."""
+        rates = self._rate_cache()
+        tr = rates.get(("train", self.n_pixels))
+        rp = rates.get(self.n_pixels)
+        floor = 0.4 * rp if rp else None
+        if tr:
+            return max(tr, floor) if floor else tr
+        return floor
+
+    def _train_spp_wall(self, spp: int) -> float | None:
+        """Predicted seconds of ``spp`` training samples over the pixels
+        not baked, from the cost and rate hints (reference guided.py:
+        1099-1110); None without them."""
+        rp = self._train_rate_prior()
+        cache, key = self._cost_cache()
+        cp = cache.get(key)
+        if not rp or cp is None:
+            return None
+        resolved = self._balanced_inputs()[3]
+        cpp = float(np.sum(np.maximum(np.asarray(cp), 1.0) * ~resolved))
+        return spp * cpp / rp
+
+    def _solve_per_sample(self, seed: int, tsel, start: float, total,
+                          spp0: int, checkpoint_path: str | None,
+                          checkpoint_every: int,
+                          time_budget_s: float | None) -> int:
+        """The per-sample route (reference guided.py:1000-1080): samples
+        ``spp0`` on, each walking every lane to the depth cap, sample
+        ``i`` from the streams of (run seed, ``i``); a training sample is
+        followed by ``train_on_records``, and ``loss_history`` gets one KL
+        metric a training sample.  With ``checkpoint_every`` > 0 the
+        trainer and the sums go to ``checkpoint_path`` every
+        ``checkpoint_every`` samples; under a budget the loop stops after
+        the sample that passes it."""
         s = self.settings
         scene = self.problem.scene
         spp = int(s.samplesPerPixel)
-        seed = run_seed()
         eps, max_depth = float(s.epsilonShell), int(s.maxWalkingDepth)
         batch_size, n_batches = _train_batch_policy(self.n_pixels)
-        tsel = self._train_selection(seed)
-        start = time.time()
-        total = torch.zeros((self.n_pixels, 3), device=self.device)
-        total_sq = torch.zeros_like(total)
+        sums, sums_sq = total[:, :3], total[:, 3:]
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
         steps = {"train": zero.clone(), "guide": zero.clone()}
         resolved, capped = zero.clone(), zero.clone()
         secs = {"train": 0.0, "guide": 0.0}
         metrics = []
         t_phase = start
-        for i in range(spp):
+        done = spp0
+        for i in range(spp0, spp):
             uniform_fraction, mgd, training = self._phase(i)
             contrib, records, st, res, cap = run_one_guided_sample(
                 scene, self.spec, self.trainer.ema_params, self.box,
@@ -800,24 +1031,36 @@ class GuidedIntegrator(BaseIntegrator):
                     self.trainer, self.spec, self.adam_cfg, self.box,
                     records, batch_size=batch_size, n_batches=n_batches)
                 metrics.append(metric)
-            total += contrib
-            total_sq += contrib * contrib
+            sums += contrib
+            sums_sq += contrib * contrib
             steps["train" if training else "guide"] += st
             resolved += res
             capped += cap
-            if training and (i + 1 == s.trainSppCount or i + 1 == spp):
+            done = i + 1
+            if training and (done == s.trainSppCount or done == spp):
                 self._note_trained()             # waits for the device
                 secs["train"] += time.time() - t_phase
                 t_phase = time.time()
             if (s.saveSppMetricsDuration > 0
                     and i % s.saveSppMetricsDuration == 0
                     and i < s.saveSppMetricsUntil):
-                self._dump_frames(total, i + 1, "frames", str(i))
+                self._dump_frames(sums, done, "frames", str(i))
             if s.saveTimeMetricsDuration > 0 and \
                     i % s.saveTimeMetricsDuration == 0:
-                self._dump_frames(total, i + 1, "frames_time",
+                self._dump_frames(sums, done, "frames_time",
                                   str(int((time.time() - start) * 1000)))
-            _progress(i + 1, spp)
+            if (checkpoint_path and checkpoint_every > 0
+                    and done % checkpoint_every == 0):
+                self._note_trained()
+                save_trainer(checkpoint_path, self.trainer,
+                             {"spp": done, "net_trained": self._net_trained})
+                save_solve_state(checkpoint_path + ".solve.npz", sums, done,
+                                 solution_sq_sum=sums_sq)
+            _progress(done, spp)
+            if time_budget_s and time.time() - start > time_budget_s:
+                log_info("guided solve interrupted at %d/%d spp (time "
+                         "budget %.1f s)", done, spp, time_budget_s)
+                break
         self.phase_stats = {"train_steps": int(steps["train"]),
                             "guide_steps": int(steps["guide"])}
         secs["guide"] += time.time() - t_phase
@@ -828,10 +1071,7 @@ class GuidedIntegrator(BaseIntegrator):
         self.total_capped = int(capped)
         if metrics:
             self.loss_history.extend(torch.stack(metrics).tolist())
-        duration_ms = int((time.time() - start) * 1000)
-        self.sum, self.sum_sq, self.spp = total, total_sq, spp
-        self._put("SOLUTION", total.cpu().numpy() / max(spp, 1))
-        return duration_ms
+        return self._finish(total, done, spp0, start)
 
     def query_network(self, p):
         """queryNetworkImpl (guided/integrator.cu:565-615): log the mixture

@@ -8,7 +8,13 @@ walks die, over cost-balanced worklists.  It takes the per-sample route
 (integrator.py:188-249) exactly where the JAX package does: when the
 config asks for per-spp or timed metric frames, or when the caller passes
 ``spp_chunk``; there each sample walks every pixel's lane to the maximum
-depth, and the loop accumulates the samples and dumps the frames.  The
+depth, and the loop accumulates the samples and dumps the frames.  Both
+routes take a time budget (``solve(time_budget_s=...)``, counted from the
+call, after ``prepare()``): the balanced route slices its rounds
+(``balanced.BudgetSlicer``), the per-sample route stops between samples.
+The problem's hint cache (``Problem.hint_cache_load``, at construction)
+seeds the balanced route with the per-pixel costs and walk rates of
+earlier solves of the scene, and each solve saves its own.  The
 one-shot channels fill their films from one query over the
 frame's points (integrator.py:96-131): DIRICHLET_SDF the distance to the
 Dirichlet boundary (the chain path, K10 / K11; without a grid
@@ -82,6 +88,10 @@ class BaseIntegrator:
         self.eval_points = points.to(self.device, torch.float32).contiguous()
         self.mask = torch.ones((self.n_pixels,), dtype=torch.bool,
                                device=self.device)
+        # completed samples a pixel, where a time budget left them uneven
+        self.done_per_pixel = None
+        # cost and walk-rate hints of earlier processes on this scene
+        problem.hint_cache_load()
 
     def prepare(self) -> None:
         """Work before the solve's clock starts (the JAX integrator's
@@ -121,6 +131,24 @@ class BaseIntegrator:
         cache = self.problem.__dict__.setdefault("_cost_cache", {})
         return cache, (self.n_pixels, float(s.epsilonShell),
                        int(s.maxWalkingDepth))
+
+    def _rate_cache(self) -> dict:
+        """The walk-rate cache kept on the problem (reference
+        integrator.py:347): walk-steps/s by lane count (``n_pixels``), and
+        the guided training phase's under ``("train", n_pixels)``; a later
+        budgeted solve slices its first round with it.  The port also
+        keeps the seconds an iteration under ``("iter", phase, lanes)``."""
+        return self.problem.__dict__.setdefault("_rate_cache", {})
+
+    def _iter_walls(self, phase: int) -> dict:
+        """The seconds an iteration, by lane width, that this problem's
+        solves measured in ``phase`` (0 uniform; the guided phases')."""
+        return {k[2]: v for k, v in self._rate_cache().items()
+                if isinstance(k, tuple) and k[:2] == ("iter", phase)}
+
+    def _keep_iter_walls(self, phase: int, walls: dict) -> None:
+        self._rate_cache().update({("iter", phase, w): t
+                                   for w, t in walls.items()})
 
     def _put(self, channel: str, vals: np.ndarray):
         film = self.films[channel]
@@ -176,11 +204,18 @@ class BaseIntegrator:
         film.save(os.path.join(base, stem + ".png"))
 
     def standard_error(self) -> np.ndarray:
-        """Per-pixel Monte Carlo standard error of the mean, (N, 3)."""
+        """Per-pixel Monte Carlo standard error of the mean, (N, 3), over
+        each pixel's completed samples (``done_per_pixel`` where a time
+        budget left them uneven: the sums are rescaled to ``spp``)."""
+        mean = self.sum / self.spp
+        var = torch.clamp(self.sum_sq / self.spp - mean * mean, min=0.0)
         n = self.spp
-        mean = self.sum / n
-        var = torch.clamp(self.sum_sq / n - mean * mean, min=0.0) * (
-            n / max(n - 1, 1))
+        if self.done_per_pixel is None:
+            var = var * (n / max(n - 1, 1))
+        else:
+            n = torch.as_tensor(self.done_per_pixel, dtype=torch.float32,
+                                device=mean.device)[:, None]
+            var = var * (n / torch.clamp(n - 1, min=1.0))
         return torch.sqrt(var / n).cpu().numpy()
 
 
@@ -192,10 +227,12 @@ def metrics_on(settings) -> bool:
 
 
 class UniformIntegrator(BaseIntegrator):
-    def solve(self, spp_chunk: int | None = None) -> int:
-        """Run every sample; returns wall-clock milliseconds.  Leaves the
-        mean in the SOLUTION film, the per-pixel sums in ``sum`` /
-        ``sum_sq``, the live lane-steps in ``total_walk_steps``, the
+    def solve(self, spp_chunk: int | None = None,
+              time_budget_s: float | None = None) -> int:
+        """Run every sample, or as many as ``time_budget_s`` seconds allow;
+        returns wall-clock milliseconds.  Leaves the mean in the SOLUTION
+        film, the per-pixel sums in ``sum`` / ``sum_sq`` (over ``spp``
+        samples), the live lane-steps in ``total_walk_steps``, the
         lane-steps whose Dirichlet distance was resolved exactly (the
         K2 / K4 sweep's lanes) in ``total_resolved`` and the walks that
         met the depth cap alive in ``total_capped``.
@@ -204,17 +241,22 @@ class UniformIntegrator(BaseIntegrator):
         the balanced persistent solve, unless the config asks for metric
         frames or the caller passes ``spp_chunk``, which take the
         per-sample route (the port dispatches it one sample at a time,
-        so the value of ``spp_chunk`` sets nothing else)."""
+        so the value of ``spp_chunk`` sets nothing else).  Under a budget
+        the balanced route rescales each pixel's sums by its completed
+        samples (``done_per_pixel``) and the per-sample route stops
+        between samples once one ran and the budget is spent, its mean
+        over the samples it ran (``spp``)."""
         if metrics_on(self.settings) or spp_chunk is not None:
-            return self._solve_per_sample()
-        return self._solve_persistent()
+            return self._solve_per_sample(time_budget_s)
+        return self._solve_persistent(time_budget_s)
 
-    def _solve_persistent(self) -> int:
+    def _solve_persistent(self, time_budget_s: float | None = None) -> int:
         """The balanced persistent solve (reference integrator.py:325-372):
         the probe round measures each pixel's cost, which is cached on
-        the problem for later solves; ``balance_rounds`` keeps each
-        round's record (lanes, cap, iterations, steps, host checks,
-        occupancy)."""
+        the problem for later solves, as is the walk rate (by lane count);
+        both seed a budgeted solve and reach the hint file at the end.
+        ``balance_rounds`` keeps each round's record (lanes, cap,
+        iterations, steps, host checks, wall, occupancy)."""
         s = self.settings
         scene = self.problem.scene
         check_neumann(scene)
@@ -223,6 +265,7 @@ class UniformIntegrator(BaseIntegrator):
         start = time.time()
         rd0, in_shell0, contrib0, resolved = self._balanced_inputs()
         cache, key = self._cost_cache()
+        rates = self._rate_cache()
 
         def step(scene, extra, state, gens, wstep, step0):
             return wost_depth_step(scene, state, gens, eps, step0=step0)
@@ -232,21 +275,29 @@ class UniformIntegrator(BaseIntegrator):
             in_shell0, spp=spp, max_depth=int(s.maxWalkingDepth),
             seed=run_seed(), phase=0, cost0=cache.get(key),
             cost_sink=lambda c: cache.__setitem__(key, c),
-            progress=_progress)
+            progress=_progress, time_budget_s=time_budget_s,
+            start_time=start, rate0=rates.get(self.n_pixels),
+            rate_sink=lambda r: rates.__setitem__(self.n_pixels, r),
+            iter0=self._iter_walls(0),
+            iter_sink=lambda w: self._keep_iter_walls(0, w))
         self.sum, self.sum_sq, self.spp = out.image, out.image_sq, spp
+        self.done_per_pixel = out.done if (out.done < spp).any() else None
         self.total_walk_steps = out.steps
         self.total_resolved = out.resolved
         self.total_capped = out.capped
         self.balance_rounds = out.rounds
         sol = out.image.cpu().numpy()              # waits for the device
         duration_ms = int((time.time() - start) * 1000)
+        self.problem.hint_cache_save()
         self._put("SOLUTION", sol / max(spp, 1))
         return duration_ms
 
-    def _solve_per_sample(self) -> int:
+    def _solve_per_sample(self, time_budget_s: float | None = None) -> int:
         """The per-sample route (reference integrator.py:188-249): each
         sample walks every lane to the depth cap; writes the metric
-        frames the config asks for."""
+        frames the config asks for.  Under a budget it stops between
+        samples once one ran and the wall passed the budget; sample ``i``
+        draws from the streams of (run seed, ``i``) either way."""
         s = self.settings
         scene = self.problem.scene
         spp = int(s.samplesPerPixel)
@@ -257,7 +308,13 @@ class UniformIntegrator(BaseIntegrator):
         steps = torch.zeros((), dtype=torch.int64, device=self.device)
         resolved = torch.zeros_like(steps)
         capped = torch.zeros_like(steps)
+        done = 0
         for i in range(spp):
+            if (time_budget_s is not None and done > 0
+                    and time.time() - start > time_budget_s):
+                log_info("uniform solve interrupted at %d/%d spp (time "
+                         "budget %.1f s)", done, spp, time_budget_s)
+                break
             contrib, st, res, cap = run_one_sample(
                 scene, self.eval_points, self.mask,
                 sample_generators(seed, i, self.device),
@@ -267,6 +324,7 @@ class UniformIntegrator(BaseIntegrator):
             steps += st
             resolved += res
             capped += cap
+            done = i + 1
             if (s.saveSppMetricsDuration > 0
                     and i % s.saveSppMetricsDuration == 0
                     and i < s.saveSppMetricsUntil):
@@ -280,7 +338,7 @@ class UniformIntegrator(BaseIntegrator):
         self.total_resolved = int(resolved)
         self.total_capped = int(capped)
         duration_ms = int((time.time() - start) * 1000)
-        self.sum, self.sum_sq, self.spp = total, total_sq, spp
-
-        self._put("SOLUTION", total.cpu().numpy() / max(spp, 1))
+        self.sum, self.sum_sq, self.spp = total, total_sq, done
+        self.done_per_pixel = None
+        self._put("SOLUTION", total.cpu().numpy() / max(done, 1))
         return duration_ms

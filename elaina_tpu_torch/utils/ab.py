@@ -78,11 +78,15 @@ per-sample films of every tree, and a tree's default film where its
 default is the per-sample route.  In its first turn a tree whose
 ``UniformIntegrator.solve`` takes ``spp_chunk`` (the balanced route is
 its default) also solves the six CLI configs in one process on both
-routes (``routes``): both walk-steps/s and the share of pixel channels
-whose means agree within 4 combined standard errors.
+routes (``routes``): both walk-steps/s, the share of pixel channels whose
+means agree within 4 combined standard errors, the balanced rounds and
+both routes' film digests; the last line says per scene whether the
+trees' balanced rounds are equal and by how much their balanced means
+differ (``balanced``).
 
 The trees share one grid cache, so only the first run of a scene builds
-its grids (before the solve's clock in both trees).  One JSON line per
+its grids (before the solve's clock in both trees); the balanced solve's
+hint files are removed before every run.  One JSON line per
 turn, then the medians per tree; ``--out`` also writes them to a file.
 The card's name and power limit head the output.
 """
@@ -105,6 +109,7 @@ LOBED = (1048576, 187567, 72062, 65536)
 NEUMANN3D = (65536, 3876, 304, 768)
 SPP_2D, SPP_3D, SPP_SQUARE, SPP_NOGRID, SPP_WAVY = 32, 64, 4, 8, 8
 TRAIN_SPP_3D = 16            # bumpy3d_n's training samples (the config's)
+ROUND_KEYS = ("lanes", "cap", "iters", "steps", "resolved", "capped")
 
 
 def bench_square(dev, spp: int):
@@ -203,11 +208,15 @@ def _solve_twice(conf: str | None) -> dict:
             "warm_walk_steps_s": warm_steps / (warm_ms / 1e3)}
 
 
-def _routes(confs: dict) -> dict:
+def _routes(confs: dict, out_dir: str) -> dict:
     """Each config solved in this tree on its default route and on the
     per-sample one (``solve(spp_chunk=1)``): both walk-steps/s, and the
     share of pixel channels where the two means agree within 4 combined
-    standard errors.  ``confs``: scene -> (config, ELAINA_FUSED_BAND)."""
+    standard errors; the default route's rounds (lanes, cap, iterations,
+    live steps, resolved lanes, capped walks: the walks' own counts, which
+    no summation order moves) and a digest of each route's mean, which is
+    also saved as ``<out_dir>/<scene>.npy``.  ``confs``: scene ->
+    (config, ELAINA_FUSED_BAND)."""
     sys.path.insert(0, os.getcwd())
     import numpy as np
     import torch
@@ -217,21 +226,57 @@ def _routes(confs: dict) -> dict:
     out = {}
     for scene, (conf, fused) in confs.items():
         os.environ["ELAINA_FUSED_BAND"] = fused
+        _clear_hints(os.environ.get("ELAINA_CACHE_DIR"))  # scenes share sets
         _, integ = load_integrator(conf, dev)
         integ.prepare()
         got = []
+        rounds = []
         for kw in ({}, {"spp_chunk": 1}):
             ms = integ.solve(**kw)
+            rounds = rounds or integ.balance_rounds
             got.append(((integ.sum / integ.spp).cpu().numpy(),
                         integ.standard_error(),
                         integ.total_walk_steps / (ms / 1e3)))
         (ma, sa, ra), (mb, sb, rb) = got
         within = np.abs(ma - mb) <= 4.0 * np.hypot(sa, sb) + 1e-6
+        np.save(os.path.join(out_dir, scene + ".npy"), ma)
         out[scene] = {"walk_steps_s": ra, "per_sample_walk_steps_s": rb,
-                      "within_4se": float(within.mean())}
+                      "within_4se": float(within.mean()),
+                      "rounds": [[r[k] for k in ROUND_KEYS]
+                                 for r in rounds],
+                      "balanced_sha256": hashlib.sha256(
+                          ma.tobytes()).hexdigest(),
+                      "per_sample_sha256": hashlib.sha256(
+                          mb.tobytes()).hexdigest()}
         del integ
         torch.cuda.empty_cache()
     os.environ["ELAINA_FUSED_BAND"] = "1"
+    return out
+
+
+def _balanced_compare(routes: dict, films_dir: dict) -> dict:
+    """Per scene of ``--routes``, across the trees that ran it: whether
+    their balanced rounds are equal, whether their balanced and per-sample
+    means are equal bit for bit, and the largest difference of their
+    balanced means (a float sum's order, scatter-adds included, moves its
+    last bits)."""
+    import numpy as np
+
+    names = [n for n in routes if routes[n]]
+    out = {}
+    for scene in (routes[names[0]] if names else {}):
+        recs = [routes[n][scene] for n in names if scene in routes[n]]
+        means = [np.load(os.path.join(films_dir[n], scene + ".npy"))
+                 for n in names if scene in routes[n]]
+        out[scene] = {
+            "rounds_equal": all(r.get("rounds") == recs[0].get("rounds")
+                                for r in recs),
+            "balanced_bits_equal": len({r.get("balanced_sha256")
+                                        for r in recs}) == 1,
+            "per_sample_bits_equal": len({r.get("per_sample_sha256")
+                                          for r in recs}) == 1,
+            "balanced_max_abs_diff": float(max(
+                np.abs(m - means[0]).max() for m in means))}
     return out
 
 
@@ -540,8 +585,21 @@ def _card() -> str:
                           timeout=60).stdout.strip().splitlines()[0]
 
 
+def _clear_hints(cache: str | None) -> None:
+    """Remove the balanced solve's hint files from the cache (the grids
+    stay)."""
+    if cache and os.path.isdir(cache):
+        for name in os.listdir(cache):
+            if name.startswith("hints_"):
+                os.remove(os.path.join(cache, name))
+
+
 def _run(cmd: list, tree: str, env: dict) -> str:
-    """Run ``cmd`` in ``tree``; its stdout, or raise with its stderr."""
+    """Run ``cmd`` in ``tree``; its stdout, or raise with its stderr.  The
+    hint files of earlier runs are removed first (the grids stay): every
+    run solves as a first process on its scene does, so that a tree that
+    keeps hints and one that does not take the same rounds."""
+    _clear_hints(env.get("ELAINA_CACHE_DIR"))
     proc = subprocess.run(cmd, cwd=tree, env=env, capture_output=True,
                           text=True)
     if proc.returncode != 0:
@@ -646,6 +704,8 @@ def main(argv=None) -> int:
         has_guided = {name: _guided_3d(tree, env)
                       for name, tree in trees.items()}
         routes_done = set()
+        films_dir = {name: os.path.join(root, "routes_" + name)
+                     for name in trees}
         for i, name in enumerate(order):
             t0 = time.time()
             turn = {"turn": i, "tree": name}
@@ -657,12 +717,13 @@ def main(argv=None) -> int:
                 turn[scene] = _run_scene(trees[name], conf, envs[scene])
             if name not in routes_done:
                 routes_done.add(name)
+                os.makedirs(films_dir[name])
                 out = _run([sys.executable, os.path.join(here, "ab.py"),
                             "--routes", json.dumps(
                                 {s: (c, envs[s].get("ELAINA_FUSED_BAND",
                                                     "1"))
-                                 for s, c in confs.items()})],
-                           trees[name], env)
+                                 for s, c in confs.items()}),
+                            films_dir[name]], trees[name], env)
                 routes = json.loads(out.strip().splitlines()[-1])
                 if routes:
                     turn["routes"] = routes
@@ -681,6 +742,8 @@ def main(argv=None) -> int:
             turns.append(turn)
             lines.append(json.dumps(turn))
             print(lines[-1], flush=True)
+        routes = {t["tree"]: t["routes"] for t in turns if "routes" in t}
+        balanced = _balanced_compare(routes, films_dir)  # reads root
     summary = {}
     for name in trees:
         mine = [t for t in turns if t["tree"] == name]
@@ -712,10 +775,10 @@ def main(argv=None) -> int:
            for k in turns[0]["kernels"] if k.startswith("dirichlet_sdf_")}
     equal = {scene: len({d for ds in by.values() for d in ds}) == 1
              for scene, by in {**films, **sdf}.items()}
-    routes = {t["tree"]: t["routes"] for t in turns if "routes" in t}
     lines.append(json.dumps({"medians": summary, "solution_sha256": films,
                              "dirichlet_sdf_sha256": sdf,
-                             "films_equal": equal, "routes": routes}))
+                             "films_equal": equal, "routes": routes,
+                             "balanced": balanced}))
     print(lines[-1], flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -735,7 +798,8 @@ if __name__ == "__main__":
 
         has = "spp_chunk" in inspect.signature(
             UniformIntegrator.solve).parameters
-        print(json.dumps(_routes(json.loads(sys.argv[2])) if has else {}))
+        print(json.dumps(_routes(json.loads(sys.argv[2]), sys.argv[3])
+                         if has else {}))
     elif sys.argv[1:2] == ["--solve-twice"]:
         print(json.dumps(_solve_twice(sys.argv[2] if sys.argv[2:] else None)))
     else:

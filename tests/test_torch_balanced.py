@@ -2,7 +2,9 @@
 balanced.py``) and the step-0 reuse against ``elaina_tpu.solver.wost``.
 
 - ``build_balanced_pieces`` equal to the JAX package's on seeded
-  remainders and costs at several lane counts, with the invariants of
+  remainders and costs at several lane counts, also with the budgeted
+  rounds' shuffle (two partitions from one generator), with the
+  invariants of
   ``tests/test_wost_uniform.py::test_balanced_solve_matches_analytic``;
   ``oversub_lanes`` gives the JAX values on the cases of
   ``test_balanced_solve_lane_oversubscription``.
@@ -62,16 +64,28 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("n_lanes", [1, 7, 64, 300])
-def test_build_balanced_pieces_matches_jax(n_lanes):
+@pytest.mark.parametrize("n_lanes, shuffled", [
+    pytest.param(n, sh, id=f"{n}-shuffled" if sh else str(n))
+    for sh in (False, True) for n in (1, 7, 64, 300)])
+def test_build_balanced_pieces_matches_jax(n_lanes, shuffled):
+    """Shuffled: both sides take a generator of the budgeted solve's seed,
+    0xE1A, twice in a row (two rounds' partitions)."""
     rng = np.random.default_rng(11 + n_lanes)
     rem = rng.integers(0, 33, 200).astype(np.int64)
     rem[rng.random(200) < 0.2] = 0
     cost = rng.uniform(1, 20, 200)
-    pix, quota = B.build_balanced_pieces(rem, cost, n_lanes, s=4)
-    pix_j, quota_j = W.build_balanced_pieces(rem, cost, n_lanes, s=4)
-    np.testing.assert_array_equal(pix, pix_j)
-    np.testing.assert_array_equal(quota, quota_j)
+    gens = [np.random.default_rng(0xE1A) if shuffled else None
+            for _ in range(2)]
+    for _ in range(1 + shuffled):
+        pix, quota = B.build_balanced_pieces(rem, cost, n_lanes, s=4,
+                                             shuffle=gens[0])
+        pix_j, quota_j = W.build_balanced_pieces(rem, cost, n_lanes, s=4,
+                                                 shuffle=gens[1])
+        np.testing.assert_array_equal(pix, pix_j)
+        np.testing.assert_array_equal(quota, quota_j)
+    if shuffled and n_lanes >= 64:
+        plain = B.build_balanced_pieces(rem, cost, n_lanes, s=4)[0]
+        assert not np.array_equal(pix, plain)
     assigned = np.zeros(200, np.int64)
     np.add.at(assigned, pix.reshape(-1), quota.reshape(-1))
     assert np.all(assigned <= rem)
