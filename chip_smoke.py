@@ -223,6 +223,31 @@ and never prints its last line:
    checkpoint's trainer bit-equal to the first run's, 64 samples run
    after the resume, each point within 0.07 of u.
 
+10. The small modules.
+10a. Scene masks (``scene.mask_path``), through ``exec.run_expr``: a mask
+   PNG written with the port's ``write_png`` at 256^2 (the left half of
+   the frame on, a disc in it off).  lobed_u at 256^2 (MASK_SPP samples)
+   without the mask, then with it on the balanced route, on the
+   per-sample route and under a time budget (MASK_BUDGET_SHARE of the
+   masked balanced solve's seconds); lobed_n cut as [4g] (MASK_SPP
+   samples of which MASK_TRAIN_SPP train) with it, held to the unmasked
+   lobed_u run as [4g] holds lobed_n to lobed_u; neumann3d_u as shipped
+   (256^2, MASK_SPP samples) without and with it.  Each masked run: every masked pixel exactly 0 (sums, squares,
+   film and exported file) and, where a budget left samples uneven,
+   counted done with every sample; >= 99% of the unmasked pixel channels
+   within 4 combined standard errors of the unmasked run; its walk steps
+   a sample over the unmasked run's between 0.5 and 1.5 times the
+   unmasked share of the frame (the ratio printed; under the budget, at most 1.5 times);
+   its path's kernels launch.
+10b. ``utils/profiling``: ``profile_trace`` around one 1-spp solve of
+   that lobed_u at depth PROFILE_DEPTH: the Chrome trace file exists and
+   names the port's own kernels (``sweep_resolve`` and
+   ``compact_lanes``); ``StageTimer``'s report of the load,
+   ``prepare()`` and the solve printed.
+10c. ``solver/debug.trace_walk`` from the lobed_u pixel farthest from the
+   Dirichlet set, on the card: the walk starts at the pixel, ends
+   inactive within TRACE_DEPTH steps, and its contributions are finite.
+
 Each phase ends with a line of its wall seconds (``[4d]: 3.2 s wall``),
 and ``[total]`` gives the whole run's.  The lines before the last hold
 the card's name and power limit and one
@@ -329,6 +354,18 @@ BUDGET_SHARE = 0.5           # [9]'s budgets: this share of [4]'s and [8]'s
 GENEROUS = 10.0              # [9a]'s generous budget, times [4]'s solve wall
 RESUME_SPP, RESUME_EVERY = 64, 32   # [9d]: the samples before the resume,
 #                              and the checkpoint interval
+MASK_FRAME = 256             # [10a]: the masked runs' frame (neumann3d_u's
+#                              as shipped)
+MASK_SPP, MASK_TRAIN_SPP = 8, 2   # [10a]: samples of each run, of which the
+#                              guided ones train ([4g]'s 1 in 4); a 4-SE
+#                              gate on standard errors of 4 samples a side
+#                              (Welch's t at ~6 degrees of freedom) fails
+#                              ~0.7% of channels by chance, and more under
+#                              a budget
+MASK_BUDGET_SHARE = 0.75     # [10a]'s budget: this share of the masked
+#                              balanced solve's seconds
+PROFILE_DEPTH = 8            # [10b]: the profiled solve's depth
+TRACE_DEPTH = 1024           # [10c]: the traced walk's depth cap
 BUDGET_3D = ("compact_lanes", "sweep_resolve_3d", "fetch_colors3",
              "band_neumann_walk", "sil_band")   # [9c]'s solve's kernels
 
@@ -1315,10 +1352,11 @@ def route_keep(result: dict, integ) -> dict:
     """What the route comparison ([8r]) reads of a run: its per-pixel mean
     and standard error, walk-steps/s, depth-capped share, peak device
     memory, and the guided run's phases and loss and the balanced run's
-    round records."""
+    round records; [10a] its walk steps and samples a pixel."""
     walks = integ.n_pixels * integ.spp
     return {"mean": (integ.sum / integ.spp).cpu().numpy(),
             "se": integ.standard_error(),
+            "steps": result["walk_steps"], "spp": integ.spp,
             "solve_s": result["duration"] / 1e3,
             "rate": result["walk_steps"] / (result["duration"] / 1e3),
             "capped": result["capped_walks"] / walks,
@@ -3004,6 +3042,249 @@ def phase_resume(root: str, device, card: str) -> None:
         raise RuntimeError(f"the resume ran {runs[1].spp_done} samples")
 
 
+# --------------------------------------------------------------------------- #
+# [10] masks, the profiler trace, the walk tracer
+# --------------------------------------------------------------------------- #
+
+
+def write_mask(path: str, frame: int) -> np.ndarray:
+    """[10a]'s mask image, written with the port's ``write_png``: the left
+    half of the frame on, a disc of radius frame / 8 in it off.  Returns
+    the (H, W) bool mask."""
+    from elaina_tpu_torch.output.image_io import write_png
+
+    y, x = np.mgrid[0:frame, 0:frame] + 0.5
+    on = (x < frame / 2) & (
+        (x - frame / 4) ** 2 + (y - frame / 2) ** 2 > (frame / 8) ** 2)
+    write_png(path, np.repeat(on[..., None], 3, -1).astype(np.float32),
+              srgb=False)
+    return on
+
+
+def with_mask(conf_path: str, mask_path: str, exp_name: str) -> str:
+    """A copy of a config beside it, named ``exp_name``, whose scene has
+    ``mask_path``.  Returns its path."""
+    with open(conf_path) as f:
+        conf = json.load(f)
+    conf["exp_name"] = exp_name
+    conf["scene"]["mask_path"] = mask_path
+    path = os.path.join(os.path.dirname(conf_path), exp_name + ".json")
+    with open(path, "w") as f:
+        json.dump(conf, f, indent=2)
+    return path
+
+
+@contextlib.contextmanager
+def solve_budget(seconds: float):
+    """``run_expr``'s ``solve()`` under ``time_budget_s=seconds`` for the
+    block (a budget is a ``solve()`` argument only, as in the JAX
+    package)."""
+    from elaina_tpu_torch.solver.guided import GuidedIntegrator
+    from elaina_tpu_torch.solver.integrator import UniformIntegrator
+
+    saved = {c: c.solve for c in (UniformIntegrator, GuidedIntegrator)}
+    for cls, solve in saved.items():
+        cls.solve = (lambda self, _solve=solve, **kw:
+                     _solve(self, time_budget_s=seconds, **kw))
+    try:
+        yield
+    finally:
+        for cls, solve in saved.items():
+            cls.solve = solve
+
+
+def masked_run(conf_path: str, expect: tuple, label: str, ref: dict,
+               on: np.ndarray, card: str) -> dict:
+    """A masked run through ``run_main`` and [10a]'s gates against the
+    unmasked run ``ref`` (its ``route_keep``); the walk-step ratio is of
+    steps a sample.  Returns its ``route_keep``, launches, ratio and
+    integrator."""
+    launches, result, integ = run_main(conf_path, expect, label, card)
+    flat = on.reshape(-1)
+    sums = integ.sum.cpu().numpy()
+    film = integ.films["SOLUTION"].pixels()[..., :3].reshape(-1, 3)
+    sol = read_solution(conf_path).reshape(-1, 3)
+    zero = all((a[~flat] == 0).all() for a in
+               (sums, integ.sum_sq.cpu().numpy(), film, sol))
+    done = integ.done_per_pixel
+    keep = route_keep(result, integ)
+    within = np.abs(keep["mean"] - ref["mean"]) <= 4.0 * np.hypot(
+        keep["se"], ref["se"]) + 1e-6
+    share = float(within[flat].mean())
+    ratio = (result["walk_steps"] / integ.spp) / (ref["steps"] / ref["spp"])
+    log(f"    {label}: masked pixels {int((~flat).sum())} of {flat.size}, "
+        f"all exactly 0: {zero}; {share:.5f} of the unmasked pixel "
+        f"channels within 4 combined standard errors of the unmasked run; "
+        f"walk steps {result['walk_steps']} at {integ.spp} spp against "
+        f"{ref['steps']} at {ref['spp']}: {ratio:.4f} of the unmasked run's "
+        f"a sample (unmasked share of the frame "
+        f"{flat.mean():.4f}); samples left: {done is not None}")
+    if not zero:
+        raise RuntimeError(f"{label}: a masked pixel is not 0")
+    if done is not None and (done[~flat] != integ.spp).any():
+        raise RuntimeError(f"{label}: a masked pixel is not counted done")
+    if share < 0.99:
+        raise RuntimeError(f"{label} disagrees with its unmasked run")
+    return dict(keep, launches=launches, ratio=ratio, integ=integ)
+
+
+def check_ratio(label: str, ratio: float, on: np.ndarray,
+                budget: bool = False) -> None:
+    """Walk steps fall with the masked share: between 0.5 and 1.5 times
+    the unmasked share of the frame (at most 1.5 under a budget, which
+    cuts samples too)."""
+    s = float(on.mean())
+    if ratio > 1.5 * s or (not budget and ratio < 0.5 * s):
+        raise RuntimeError(f"{label}: walk-step ratio {ratio:.4f} against "
+                           f"an unmasked share of {s:.4f}")
+
+
+def phase_masks(root: str, card: str, keep: dict) -> None:
+    """[10a] Scene masks through ``run_expr``: lobed_u on both routes and
+    under a budget, lobed_n (against the unmasked lobed_u), neumann3d_u,
+    each against an unmasked run of its scene.
+    Keeps the unmasked lobed_u's config for [10b] and [10c]."""
+    from elaina_tpu_torch.utils import scenes
+
+    log("[10a] scene masks")
+    d = os.path.join(root, "masks")
+    os.makedirs(d)
+    mask_path = os.path.join(d, "mask.png")
+    on = write_mask(mask_path, MASK_FRAME)
+
+    conf_u = scenes.write_scene(d, MASK_SPP, frame=MASK_FRAME)
+    keep["mask_conf"] = conf_u
+    _, result, integ = run_main(conf_u, MAIN_2D,
+                                f"lobed_u {MASK_FRAME}^2 unmasked", card)
+    ref = route_keep(result, integ)
+    masked = with_mask(conf_u, mask_path, "lobed_u_masked")
+    bal = masked_run(masked, MAIN_2D, "lobed_u masked, balanced", ref, on,
+                     card)
+    check_ratio("lobed_u masked", bal["ratio"], on)
+    ps = masked_run(scenes.write_per_sample(masked, "lobed_u_masked_ps"),
+                    MAIN_2D, "lobed_u masked, per-sample", ref, on, card)
+    check_ratio("lobed_u masked per-sample", ps["ratio"], on)
+    budget = MASK_BUDGET_SHARE * bal["solve_s"]
+    with solve_budget(budget):
+        cut = masked_run(masked, MAIN_2D,
+                         f"lobed_u masked, budget {budget:.3f} s", ref, on,
+                         card)
+    fewest, ha = completion(cut["integ"])
+    log(f"    budgeted: solve {cut['solve_s']:.3f} s against "
+        f"{budget:.3f} s, {cut['steps']} walk steps; completed samples a "
+        f"pixel not baked: fewest {fewest}, harmonic / arithmetic mean "
+        f"{ha:.4f} ({card})")
+    check_ratio("lobed_u masked under a budget", cut["ratio"], on, True)
+    if fewest < 1:
+        raise RuntimeError("lobed_u masked under a budget: a pixel without "
+                           "a sample")
+
+    dn = os.path.join(d, "guided")
+    os.makedirs(dn)
+    conf_n = scenes.write_lobed_n(dn, MASK_SPP, MASK_TRAIN_SPP,
+                                  frame=MASK_FRAME)
+    # against the unmasked lobed_u run, as [4g] holds lobed_n to lobed_u
+    gn = masked_run(with_mask(conf_n, mask_path, "lobed_n_masked"),
+                    MAIN_2D, "lobed_n masked", ref, on, card)
+    check_ratio("lobed_n masked", gn["ratio"], on)
+    if not gn["integ"]._net_trained:
+        raise RuntimeError("lobed_n masked: the guide never trained")
+
+    # an unmasked run at the same spp: against [8]'s 64-spp film the
+    # gate rests on the 8-sample standard errors alone, which the walks
+    # capped at 0 (0.32 of them) make unreliable
+    conf_3d = scenes.write_config_copy(d, "neumann3d_u", MASK_SPP)
+    _, result, integ = run_main(conf_3d, MAIN_3D, "neumann3d_u unmasked",
+                                card)
+    n3 = masked_run(with_mask(conf_3d, mask_path, "neumann3d_u_masked"),
+                    MAIN_3D, "neumann3d_u masked",
+                    route_keep(result, integ), on, card)
+    check_ratio("neumann3d_u masked", n3["ratio"], on)
+    log(f"    walk-step ratios (masked / unmasked; unmasked share "
+        f"{on.mean():.4f}): lobed_u balanced {bal['ratio']:.4f}, "
+        f"per-sample {ps['ratio']:.4f}, budget {cut['ratio']:.4f}; "
+        f"lobed_n (over unmasked lobed_u's) {gn['ratio']:.4f}; neumann3d_u "
+        f"{n3['ratio']:.4f}")
+
+
+def phase_profile(keep: dict, root: str, device, card: str) -> None:
+    """[10b] ``StageTimer`` over the load, ``prepare()`` and a 1-spp solve
+    at depth PROFILE_DEPTH of [10a]'s unmasked lobed_u, the solve inside
+    ``profile_trace``: the trace names the port's kernels."""
+    import dataclasses
+    import glob
+
+    from elaina_tpu_torch.utils.ab import load_integrator
+    from elaina_tpu_torch.utils.profiling import StageTimer, profile_trace
+
+    log("[10b] stage timer and profiler trace")
+    timer = StageTimer()
+    with timer.stage("load"):
+        problem, integ = load_integrator(keep["mask_conf"], device, spp=1)
+    # a short solve keeps the trace small: every op is an event
+    integ.settings = dataclasses.replace(integ.settings,
+                                         maxWalkingDepth=PROFILE_DEPTH)
+    with timer.stage("prepare", integ.eval_points):
+        integ.prepare()
+    trace_dir = os.path.join(root, "trace")
+    t0 = time.time()
+    with profile_trace(trace_dir):
+        with timer.stage("solve", integ.eval_points):
+            integ.solve()
+    scope = time.time() - t0
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise RuntimeError(f"profile_trace wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e.get("name", "") for e in events
+               if e.get("cat") == "kernel"}
+    ours = {k: sum(k in n for n in kernels) for k in
+            ("sweep_resolve", "compact_lanes", "fetch_colors")}
+    log(f"    trace {os.path.basename(files[0])}: "
+        f"{os.path.getsize(files[0])} bytes, {len(events)} events, "
+        f"{len(kernels)} distinct CUDA kernels; the port's among them "
+        f"(distinct names containing): {ours}")
+    log(f"    stage timer ({card}): {json.dumps(timer.report())}; the "
+        f"profile_trace scope {scope:.3f} s (its start, the solve, the "
+        f"trace written)")
+    if not (ours["sweep_resolve"] and ours["compact_lanes"]):
+        raise RuntimeError("the trace does not name the port's kernels")
+    keep["mask_problem"] = (problem, integ)
+
+
+def phase_trace_walk(keep: dict, card: str) -> None:
+    """[10c] ``trace_walk`` from the pixel of [10b]'s lobed_u farthest
+    from the Dirichlet set."""
+    import torch
+
+    from elaina_tpu_torch.solver.debug import trace_walk
+
+    log("[10c] walk tracer")
+    problem, integ = keep.pop("mask_problem")
+    rd0 = integ._step0()[0]
+    pix = int(torch.argmax(rd0))
+    point = integ.eval_points[pix].tolist()
+    eps = float(integ.settings.epsilonShell)
+    reset_counts()
+    t0 = time.time()
+    trace = trace_walk(problem.scene, point, eps=eps, max_depth=TRACE_DEPTH)
+    secs = time.time() - t0
+    launches = {k: v for k, v in read_counts().items() if v}
+    total = np.sum([e["contribution"] for e in trace], 0)
+    log(f"    pixel {pix} at {point} (R_D {float(rd0[pix]):.4f}): "
+        f"{len(trace)} steps in {secs:.3f} s ({card}), last active "
+        f"{trace[-1]['active']}, contribution {total.tolist()}; "
+        f"launches {launches}")
+    if not (trace[0]["pos"] == point and not trace[-1]["active"]
+            and len(trace) <= TRACE_DEPTH and np.isfinite(total).all()
+            and all(e["active"] for e in trace[:-1])):
+        raise RuntimeError("trace_walk: the walk did not end inactive "
+                           "with finite contributions")
+    if not launches.get("compact_lanes"):
+        raise RuntimeError("trace_walk did not run the port's kernels")
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -3084,7 +3365,10 @@ def main() -> int:
                 ("[9b]", None, phase_budget_guided,
                  (conf_n, device, card, keep)),
                 ("[9c]", None, phase_budget_3d, (conf_3d, device, card, keep)),
-                ("[9d]", None, phase_resume, (root, device, card))):
+                ("[9d]", None, phase_resume, (root, device, card)),
+                ("[10a]", None, phase_masks, (root, card, keep)),
+                ("[10b]", None, phase_profile, (keep, root, device, card)),
+                ("[10c]", None, phase_trace_walk, (keep, card))):
             out = timed_phase(label, fn, *args)
             if key is not None:
                 runs[key] = out

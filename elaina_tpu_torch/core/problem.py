@@ -12,7 +12,9 @@ reference, the silhouette grid above ``CHUNKED_DENSE_MAX`` entities and
 the prim-band grid above ``CHUNKED_DENSE_MAX`` prims, the dense and
 chunked sweeps below), and the volumetric source (``source_path``: a
 dense ``.npy`` / ``.npz`` array or a NanoVDB ``.nvdb`` grid, sampled
-trilinearly).  The scene's tensors live on the device passed in; the
+trilinearly), and the mask image (``mask_path``: a PNG whose pixels
+with any nonzero channel are solved, read with ``output/image_io.
+read_png``).  The scene's tensors live on the device passed in; the
 solver works wherever they are.
 
 The problem keeps the balanced solve's hints (reference problem.py:
@@ -61,6 +63,7 @@ from ..geometry.grid import (BandGrid, CandidateGrid, attach_coords,
                              sil_grid_from_numpy)
 from ..geometry.native import load_obj_native, silhouette_entities_native
 from ..geometry.queries import CHUNKED_DENSE_MAX
+from ..output.image_io import read_png
 from .config import json_get_optional, json_get_or_throw, load_json_file
 from .evaluation_grid import EvaluationGrid
 from .logger import log_info, log_success, log_warning
@@ -401,10 +404,6 @@ class Problem:
 
     def load_config(self, conf: dict, base_dir: str = ".",
                     cache_dir: str | None = None) -> "Problem":
-        if json_get_optional(conf, "mask_path"):
-            raise NotImplementedError(
-                "'mask_path' arrives with the ROADMAP item 'masks' (the "
-                "port has no PNG decoder yet)")
         self.cache_dir = cache_dir
         aabb_min = np.asarray(json_get_or_throw(conf, "aabb/min"), np.float32)
         aabb_max = np.asarray(json_get_or_throw(conf, "aabb/max"), np.float32)
@@ -457,6 +456,13 @@ class Problem:
             source = load_source(resolve(conf["source_path"]), self.dim,
                                  self.device)
             self.stats["source_shape"] = tuple(source.data.shape)
+
+        mask_path = json_get_optional(conf, "mask_path")
+        if mask_path:
+            # (H, W) bool: a pixel is solved where its RGB is not all zero
+            # (reference problem.cu:215-249); the integrator resizes it
+            img = read_png(resolve(mask_path))
+            self.mask = np.any(img != 0, axis=-1)
 
         self.scene = scene_from_numpy(
             aabb_lo=aabb_min, aabb_hi=aabb_max, device=self.device,

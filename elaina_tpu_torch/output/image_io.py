@@ -1,8 +1,11 @@
-"""Image IO: uncompressed OpenEXR writer/reader and a stdlib PNG writer.
+"""Image IO: uncompressed OpenEXR writer/reader, a stdlib PNG writer and
+PNG reader.
 
 The EXR functions are copies of ``elaina_tpu/output/image_io.py``.
-``write_png`` writes the PNG with ``zlib`` and ``struct`` from the
-standard library, where the reference uses Pillow.
+``write_png`` and ``read_png`` use ``zlib`` and ``struct`` from the
+standard library, where the reference and the JAX package use Pillow:
+``read_png`` gives the array of Pillow's ``Image.open(p).convert("RGB")``
+(it reads the scene's mask image, ``Problem.load_config``).
 """
 
 from __future__ import annotations
@@ -198,3 +201,166 @@ def write_png(path: str, image: np.ndarray, srgb: bool = True) -> None:
                                                   0, 0)))
         f.write(_png_chunk(b"IDAT", zlib.compress(raw, 6)))
         f.write(_png_chunk(b"IEND", b""))
+
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# colour type -> (samples a pixel, the bit depths the PNG spec allows)
+_PNG_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
+              3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7: (x0, y0, dx, dy) of the seven passes
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_chunks(buf: bytes, path: str):
+    """(tag, data) of each chunk, CRC checked, up to IEND."""
+    pos = len(_PNG_SIGNATURE)
+    while True:
+        if pos + 8 > len(buf):
+            raise ValueError(f"{path}: PNG truncated before IEND")
+        n, tag = struct.unpack_from(">I4s", buf, pos)
+        data = buf[pos + 8:pos + 8 + n]
+        if len(data) < n or pos + 12 + n > len(buf):
+            raise ValueError(f"{path}: PNG chunk {tag!r} truncated")
+        (crc,) = struct.unpack_from(">I", buf, pos + 8 + n)
+        if zlib.crc32(tag + data) & 0xFFFFFFFF != crc:
+            raise ValueError(f"{path}: PNG chunk {tag!r} fails its CRC")
+        pos += 12 + n
+        yield tag, data
+        if tag == b"IEND":
+            return
+
+
+def _png_unfilter(x: np.ndarray, filt: np.ndarray, bpp: int,
+                  path: str) -> np.ndarray:
+    """Undo the scanline filters of one image (or Adam7 pass): ``x`` (h,
+    stride) filtered bytes, ``filt`` (h,) their filter types (0-4).
+
+    A byte depends on the byte ``bpp`` to its left (a), the byte above
+    (b) and the one above-left (c), so the pixels on one anti-diagonal
+    (row + pixel column = t) depend only on the two diagonals before it:
+    the rows are skewed so that each diagonal is one column, and the
+    image is undone in h + w column steps, every row at once."""
+    if filt.size and filt.max() > 4:
+        raise ValueError(f"{path}: PNG filter type {int(filt.max())} "
+                         f"(0-4 only)")
+    h, stride = x.shape
+    w = stride // bpp
+    t_n = h + w
+    rows = np.arange(h)[:, None]
+    cols = rows + np.arange(w)[None, :]
+    xs = np.zeros((h, t_n, bpp), np.int16)
+    xs[rows, cols] = x.reshape(h, w, bpp)
+    valid = np.zeros((h, t_n), bool)
+    valid[rows, cols] = True
+    # row 0 of s is the zero row above the image; column 0 the zero pixel
+    # left of it, so s[r + 1, t + 1] is pixel (r, t - r)
+    s = np.zeros((h + 1, t_n + 1, bpp), np.int16)
+    f = filt[:, None]
+    for t in range(t_n):
+        a = s[1:, t]
+        b = s[:-1, t]
+        c = s[:-1, t - 1] if t > 0 else np.zeros_like(b)
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, b, c))
+        pred = np.select([f == 1, f == 2, f == 3, f == 4],
+                         [a, b, (a + b) >> 1, paeth], 0)
+        s[1:, t + 1] = np.where(valid[:, t, None],
+                                (xs[:, t] + pred) & 0xFF, 0)
+    return s[1:, 1:][rows, cols].reshape(h, stride).astype(np.uint8)
+
+
+def _png_samples(raw: bytes, w: int, h: int, depth: int, n_ch: int,
+                 path: str) -> tuple[np.ndarray, int]:
+    """One image (or Adam7 pass) of ``h`` filtered scanlines from the
+    front of ``raw``: its samples (h, w, n_ch) as int32, and the bytes it
+    used."""
+    stride = (w * n_ch * depth + 7) // 8
+    bpp = max(1, n_ch * depth // 8)
+    size = h * (stride + 1)
+    if len(raw) < size:
+        raise ValueError(f"{path}: PNG image data truncated")
+    rows = np.frombuffer(raw, np.uint8, size).reshape(h, stride + 1)
+    x = _png_unfilter(rows[:, 1:], rows[:, 0], bpp, path)
+    if depth == 16:
+        v = x.view(">u2").astype(np.int32)
+    elif depth == 8:
+        v = x.astype(np.int32)
+    else:
+        bits = np.unpackbits(x, axis=1).reshape(h, -1, depth)
+        v = (bits.astype(np.int32) << np.arange(depth - 1, -1, -1)).sum(-1)
+    return v[:, :w * n_ch].reshape(h, w, n_ch), size
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read a PNG as (H, W, 3) uint8, the array of Pillow's
+    ``Image.open(path).convert("RGB")``: every colour type and bit depth
+    of the PNG spec, filters 0-4, Adam7 interlacing.  Alpha and ``tRNS``
+    are dropped, a palette index past ``PLTE`` is black, grey below 8 bits
+    is scaled to 0-255, and at 16 bits grey is clipped to 255 while RGB,
+    grey + alpha and RGBA keep the high byte (so an RGB sample of 1-255
+    is 0), as Pillow 12 reads them.  Raises ValueError on a file it cannot
+    decode."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    if not buf.startswith(_PNG_SIGNATURE):
+        raise ValueError(f"{path}: not a PNG file")
+    header, palette, idat = None, None, []
+    for tag, data in _png_chunks(buf, path):
+        if tag == b"IHDR":
+            if len(data) != 13:
+                raise ValueError(f"{path}: PNG IHDR of {len(data)} bytes")
+            header = struct.unpack(">IIBBBBB", data)
+        elif tag == b"PLTE":
+            if len(data) % 3 or len(data) > 768:
+                raise ValueError(f"{path}: PNG palette of {len(data)} bytes")
+            palette = np.frombuffer(data, np.uint8).reshape(-1, 3)
+        elif tag == b"IDAT":
+            idat.append(data)
+        elif tag != b"IEND" and not tag[0] & 0x20:
+            raise ValueError(f"{path}: unknown critical PNG chunk {tag!r}")
+    if header is None or not idat:
+        raise ValueError(f"{path}: PNG without IHDR or IDAT")
+    w, h, depth, ctype, comp, filt_method, interlace = header
+    if ctype not in _PNG_TYPES or depth not in _PNG_TYPES[ctype][1]:
+        raise ValueError(f"{path}: PNG colour type {ctype} at bit depth "
+                         f"{depth} is not in the PNG spec")
+    if comp != 0 or filt_method != 0 or interlace not in (0, 1):
+        raise ValueError(f"{path}: PNG compression {comp}, filter method "
+                         f"{filt_method}, interlace {interlace}")
+    if w == 0 or h == 0:
+        raise ValueError(f"{path}: PNG of {w}x{h} pixels")
+    if ctype == 3 and palette is None:
+        raise ValueError(f"{path}: palette PNG without PLTE")
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"{path}: PNG image data: {e}") from None
+    n_ch = _PNG_TYPES[ctype][0]
+    if interlace == 0:
+        v, _ = _png_samples(raw, w, h, depth, n_ch, path)
+    else:
+        v = np.zeros((h, w, n_ch), np.int32)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue           # an empty pass has no scanlines
+            v[y0::dy, x0::dx], size = _png_samples(raw[pos:], pw, ph, depth,
+                                                   n_ch, path)
+            pos += size
+
+    if ctype == 3:
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:len(palette)] = palette
+        return lut[v[..., 0]]
+    if ctype in (0, 4):
+        g = v[..., 0]
+        if depth < 8:
+            g = g * (255 // ((1 << depth) - 1))
+        elif depth == 16:
+            g = np.minimum(g, 255) if ctype == 0 else g >> 8
+        return np.repeat(g.astype(np.uint8)[..., None], 3, -1)
+    rgb = v[..., :3]
+    return (rgb >> 8 if depth == 16 else rgb).astype(np.uint8)

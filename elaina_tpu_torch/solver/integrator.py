@@ -21,6 +21,11 @@ Dirichlet boundary (the chain path, K10 / K11; without a grid
 ``closest_point``, K13 in 2D), NEUMANN_SDF the exact
 distance to the nearest Neumann silhouette, SOURCE the source's value;
 a scene without the boundary or the source gets inf or zeros there.
+The problem's mask image (``mask_path``), nearest-resized to the frame
+(``_frame_mask``), leaves each masked pixel unwalked at exactly 0 on
+every route: it never starts a walk, trains nothing, and counts as done
+with every sample under a budget; the one-shot channels ignore it, as
+the JAX package's do.
 """
 
 from __future__ import annotations
@@ -86,12 +91,25 @@ class BaseIntegrator:
             raise ValueError(f"points {tuple(points.shape)} for a {w}x{h} "
                              f"frame")
         self.eval_points = points.to(self.device, torch.float32).contiguous()
-        self.mask = torch.ones((self.n_pixels,), dtype=torch.bool,
-                               device=self.device)
+        self.mask = torch.from_numpy(self._frame_mask()).to(self.device)
         # completed samples a pixel, where a time budget left them uneven
         self.done_per_pixel = None
         # cost and walk-rate hints of earlier processes on this scene
         problem.hint_cache_load()
+
+    def _frame_mask(self) -> np.ndarray:
+        """(W*H,) host bool: the problem's mask image nearest-resized to
+        the frame (reference integrator.py:81-90), every pixel without
+        one.  A masked pixel never walks and its solution is 0."""
+        w, h = self.settings.frameSize
+        m = self.problem.mask
+        if m is None:
+            return np.ones((w * h,), bool)
+        if m.shape != (h, w):
+            yi = np.arange(h) * m.shape[0] // h
+            xi = np.arange(w) * m.shape[1] // w
+            m = m[yi][:, xi]
+        return np.ascontiguousarray(m).reshape(-1)
 
     def prepare(self) -> None:
         """Work before the solve's clock starts (the JAX integrator's

@@ -201,14 +201,18 @@ def test_cli_matches_jax_on_large_set_rows(tmp_path, monkeypatch):
 
 
 def test_unsupported_config_raises(tmp_path):
-    """What the port does not carry raises, naming the ROADMAP item (a
-    mask); an unknown channel is refused."""
+    """What the port cannot load raises: a mask that is missing or not a
+    PNG (masks are read since the port has its PNG reader; nothing falls
+    back to an unmasked frame); an unknown channel is refused."""
     obj, colors = _write_scene(tmp_path)
     conf = _conf(tmp_path, "x", 1, obj, colors)
     problem = Problem(2, CPU, verbose=False)
     scene = dict(conf["scene"], mask_path="m.png")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        problem.load_config(scene)
+    with pytest.raises(FileNotFoundError):
+        problem.load_config(scene, base_dir=str(tmp_path))
+    (tmp_path / "m.png").write_bytes(b"not a png")
+    with pytest.raises(ValueError, match="PNG"):
+        problem.load_config(scene, base_dir=str(tmp_path))
     with pytest.raises(ValueError):
         Problem(4, CPU)
     from elaina_tpu_torch.exec import run_expr
