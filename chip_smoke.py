@@ -11,8 +11,9 @@ and never prints its last line:
 0. Device: the card's name and power limit from ``nvidia-smi``.  Exits
    non-zero when PyTorch sees no CUDA device.
 1. Build, all at once: the resolve kernels (nvcc, ``csrc/resolve.cu``),
-   the Neumann band kernels (nvcc, ``csrc/queries.cu``) and the scene
-   library (g++, ``native/scene_build.cpp``).
+   the Neumann band kernels (nvcc, ``csrc/queries.cu``), the BVH
+   traversal kernels (nvcc, ``csrc/bvh.cu``) and the scene library (g++,
+   ``native/scene_build.cpp``).
 2. 2D kernels K1-K3 and K10 against their plain PyTorch versions, on the
    card, at the 2D main path's shapes: 1024^2 lanes, the synthetic scene's
    candidate rows, lanes whose FinePack need bits fired after a few depth
@@ -50,8 +51,8 @@ and never prints its last line:
    ``UniformIntegrator``: 256 walks of depth 64 at three points (64 lanes
    a point, 4 samples), each point within 0.07 of u, on the balanced
    route (the default) and on the per-sample one (``spp_chunk``).
-3b. The same square through ``GuidedIntegrator``: 32 training samples
-   then 96 guided ones, depth 48, eps 0.02, tests/test_guided.py's small
+3b. The same square through ``GuidedIntegrator``: 16 training samples
+   then 48 guided ones, depth 48, eps 0.02, tests/test_guided.py's small
    network, at seven points of 256 lanes each, each point within 0.07 of
    u, the loss finite, on the balanced route (the optimizer every 10
    iterations) and on the per-sample one (metric frames asked for, none
@@ -99,7 +100,7 @@ and never prints its last line:
    through ``run_expr``, 256^2, depth 64, 4 spp: the dense silhouette and
    the chunked ray and in-ball sweeps, a finite film; the same scene with
    its 2D SilGrid and prim-band grid given explicitly agrees with the
-   chunked sweeps (16 spp each, 4 combined standard errors, >= 99%).
+   chunked sweeps (8 spp each, 4 combined standard errors, >= 99%).
 4f. The wavy box of 8,192 segments through ``run_expr`` (its SilGrid and
    prim-band grid built), 1024^2, depth 64, eps 1, 8 spp: K9-2D launches
    on every step; on warmed lanes the SilGrid's R_N is at most the dense
@@ -180,7 +181,8 @@ and never prints its last line:
    [5]); and the guide's costs at the 65,536 lanes, as [4g]'s.
 8r. lobed_u, lobed_n, neumann3d_u and bumpy3d_n on the per-sample route
    (copies of their configs with metric frames asked for and none
-   written) at the spp of [4], [4g], [8] and [7g]: each film within 4
+   written) at half the spp of [4], [4g], [8] and [7g] (ROUTES_SPP_CUT;
+   the guided paths' training samples as configured): each film within 4
    combined standard errors of its balanced film on >= 99% of pixel
    channels; both routes' walk-steps/s, depth-capped share and peak
    memory printed, and for the guided paths each phase's walk-steps/s,
@@ -204,7 +206,11 @@ and never prints its last line:
    its scene saved): each run's rounds (lanes, cap, iterations run, wall,
    seconds an iteration and the JAX package's lanes / rate), walk-steps/s
    and launches printed.
-9a. lobed_u under half of [4]'s solve wall: the wall within the budget
+9a. lobed_u under a budget set from [4]'s own solve: its host partitions'
+   seconds (the rounds' ``host_s``, a fixed cost) plus BUDGET_SPP times
+   its seconds a sample (the rest of its wall over its samples), so that
+   it buys >= 12 samples a pixel of [4]'s SPP (the samples bought
+   printed): the wall within the budget
    and its longest round and under twice the budget, every pixel not
    baked with a completed sample, the harmonic / arithmetic mean of the
    completed samples >= 0.9, the film within 4 combined standard errors
@@ -218,9 +224,9 @@ and never prints its last line:
    mean, guided over [9a]'s uniform film (a reading).
 9c. neumann3d_u under half of [8]'s solve wall, gated as [9a] against
    [8]'s film (K1, K4, K5, K6 and K9 launch).
-9d. [3b]'s guided square on the per-sample route: 64 samples with a
-   checkpoint every 32, then a new integrator resumed from it to 128: the
-   checkpoint's trainer bit-equal to the first run's, 64 samples run
+9d. [3b]'s guided square on the per-sample route: 32 samples with a
+   checkpoint every 16, then a new integrator resumed from it to 64: the
+   checkpoint's trainer bit-equal to the first run's, 32 samples run
    after the resume, each point within 0.07 of u.
 
 10. The small modules.
@@ -247,6 +253,40 @@ and never prints its last line:
 10c. ``solver/debug.trace_walk`` from the lobed_u pixel farthest from the
    Dirichlet set, on the card: the walk starts at the pixel, ends
    inactive within TRACE_DEPTH steps, and its contributions are finite.
+
+11. The BVH route (``Problem.load_config(accel="bvh")``: no grid, every
+   set with its trees; kernels B1-B4 of ``csrc/bvh.cu``).
+11a. B1-B4 against their plain versions (``ops/bvh.py``): B1 on lobed_u's
+   1,048,576 frame points x its 65,536 segments (the plain version on a
+   strided subset of BVH_PLAIN_LANES lanes) and on bumpy3d_5's 65,536
+   frame points x 20,480 triangles; B2 (closest hit and any hit), B3 and
+   B4 on neumann3d_u's 65,536 lanes after WARM_STEPS depth steps of the
+   BVH route, with their live mask and star radii from ``_separate`` x
+   the blob's 20,480 triangles and 30,720 silhouette edges.  Distances
+   and t within TOL, hit flags exact, ids exact but where two distances
+   tie within TOL; B3's ids on >= 1 - CDF_FLIPS of the lanes and its pdf
+   within TOL where they agree; B4 also against the port's dense sweep.
+   Edge cases: no lane live, lane N - 1 alone (for B1 on EDGE_LANES of
+   its subset), rays whose hits lie past tmax, balls that hold no prim.  Each record: call and device ms, host
+   us, the plain version's ms on its lanes, the bound (the lanes' inputs
+   and outputs and the tree read once, ``bound_ms``; and at the mean
+   nodes a lane visits, counted by the plain version, ``bound_visits_ms``)
+   and its launches on [11b] (B1) and [11d] (B2-B4); B1 in 3D has its own
+   record (``closest_point_bvh_3d``, launches on [11c]).
+11b. lobed_u (1024^2, depth 64, eps 1, BVH_SPP samples) on the BVH route
+   through ``run_expr(accel="bvh")`` (the balanced route): B1 launches and
+   K1-K3 do not; the film within 4 combined standard errors of [4]'s
+   grid-route film on >= 99% of pixel channels; one depth step under the
+   sync probe, as [8d]; its walk-steps/s against [4]'s.
+11c. The mixed cube cut finer (33 x 33 squares a face: 4,356 Dirichlet
+   and 8,712 Neumann triangles) on the BVH route: [6]'s three points,
+   1,024 lanes of CUBE_FINE_SPP samples each, depth 256, each within
+   0.07 of u on the balanced and per-sample routes; B1-B4 launch.
+11d. neumann3d_u as shipped (256^2, depth 64, BVH_SPP samples) on the BVH
+   route (the unfused step: no band grid): a finite film, B2-B4 launch;
+   printed, not gated: its depth-capped share and walk-steps/s against
+   [8]'s band route, and its share of pixel channels within 4 combined
+   standard errors of [8]'s film.
 
 Each phase ends with a line of its wall seconds (``[4d]: 3.2 s wall``),
 and ``[total]`` gives the whole run's.  The lines before the last hold
@@ -293,7 +333,10 @@ GUIDED_TRAIN_SPP = 8         # lobed_n's training samples of its SPP
 GUIDED_3D_TRAIN_SPP = 16     # bumpy3d_n's and neumann3d_n's training
 #                              samples of SPP_3D (phases 7g, 8g: the
 #                              config's 16 of 64)
-SQUARE_SPP, SQUARE_TRAIN_SPP = 128, 32   # the guided square (phase 3b)
+SQUARE_SPP, SQUARE_TRAIN_SPP = 64, 16    # the guided square (phase 3b;
+#                              128 and 32 before PR 18: 7 x 256 lanes x 64
+#                              samples leave a standard error of ~0.004
+#                              against the 0.07 bound)
 SQUARE_NET = {"encoding": {"base_resolution": 4, "n_levels": 4,
                            "n_features_per_level": 2,
                            "per_level_scale": 1.5},
@@ -301,7 +344,9 @@ SQUARE_NET = {"encoding": {"base_resolution": 4, "n_levels": 4,
 #                              (tests/test_guided.py's network)
 NOGRID_SPP = 8               # samples of the no-grid run (phase 4c)
 ROUTE_DEPTH = 256            # depth of the grid / no-grid comparison (4c)
-AGREE_SPP = 16               # samples a side of the chunked / band check (4e)
+AGREE_SPP = 8                # samples a side of the chunked / band check
+#                              (4e; 16 before PR 18: the 4-SE gate combines
+#                              both sides' standard errors at any count)
 WAVY_SPP = 8                 # samples of the wavy box of 8,192 segments (4f)
 WARM_STEPS = 3               # depth steps before the kernel phases take lanes
 GUIDED_WARM_STEPS = 8        # guided steps before [8g]'s K6 check (below
@@ -315,7 +360,8 @@ HBM_BYTES_S = 3.35e12        # H100 SXM device memory rate
 F32_FLOPS_S = 67e12          # H100 SXM float32 rate outside the tensor cores
 RESOLVE_SOURCE = "elaina_tpu_torch/csrc/resolve.cu"
 QUERIES_SOURCE = "elaina_tpu_torch/csrc/queries.cu"
-KERNELS = {   # name -> (source, TPU kernel it replaces)
+BVH_SOURCE = "elaina_tpu_torch/csrc/bvh.cu"
+KERNELS = {   # name -> (source, TPU kernel or JAX function it replaces)
     "compact_lanes": (RESOLVE_SOURCE, "elaina_tpu/ops/pallas_resolve.py:594"),
     "sweep_resolve": (RESOLVE_SOURCE, "elaina_tpu/ops/pallas_resolve.py:194"),
     "fetch_colors": (RESOLVE_SOURCE, "elaina_tpu/ops/pallas_resolve.py:540"),
@@ -334,7 +380,18 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                        "elaina_tpu/ops/pallas_queries.py:499"),
     "closest_point_dense": (QUERIES_SOURCE,
                             "elaina_tpu/ops/pallas_queries.py:421"),
+    # the BVH route's traversals: vmap-ed while loops in the JAX package,
+    # not Pallas kernels
+    "closest_point_bvh": (BVH_SOURCE, "elaina_tpu/geometry/queries.py:109"),
+    "closest_point_bvh_3d": (BVH_SOURCE,
+                             "elaina_tpu/geometry/queries.py:109"),
+    "ray_bvh": (BVH_SOURCE, "elaina_tpu/geometry/queries.py:385"),
+    "sample_in_ball_bvh": (BVH_SOURCE, "elaina_tpu/geometry/queries.py:527"),
+    "closest_silhouette_bvh": (BVH_SOURCE,
+                               "elaina_tpu/geometry/queries.py:295"),
 }
+# a record whose launches are another wrapper's count
+COUNTER_OF = {"closest_point_bvh_3d": "closest_point_bvh"}
 MAIN_2D = ("compact_lanes", "sweep_resolve", "fetch_colors")
 MAIN_3D = ("compact_lanes", "sweep_resolve_3d", "fetch_colors3",
            "band_neumann_walk", "sil_band", "grid_band_3d")
@@ -347,13 +404,28 @@ PATH_OF = {**{k: "lobed_u" for k in MAIN_2D},
            **{k: "neumann3d_u" for k in MAIN_3D},
            "grid_band_2d": "channels_2d", "band_ray": "neumann3d_source",
            "band_ball": "neumann3d_unfused", "sil_band_2d": "wavy8192_u",
-           "candidate_rows": "bare_grid", "closest_point_dense": "nogrid_u"}
+           "candidate_rows": "bare_grid", "closest_point_dense": "nogrid_u",
+           "closest_point_bvh": "lobed_u_bvh",
+           "closest_point_bvh_3d": "cube_bvh",
+           **{k: "neumann3d_u_bvh" for k in ("ray_bvh", "sample_in_ball_bvh",
+                                             "closest_silhouette_bvh")}}
+BVH_KERNELS = ("closest_point_bvh", "ray_bvh", "sample_in_ball_bvh",
+               "closest_silhouette_bvh")
 CDF_FLIPS = 0.005            # K6 / K8 CDF slot flips allowed, share of lanes
-BUDGET_SHARE = 0.5           # [9]'s budgets: this share of [4]'s and [8]'s
-#                              solve walls
+BUDGET_SHARE = 0.5           # [9c]'s budget: this share of [8]'s solve wall
+BUDGET_SPP = 28              # [9a] / [9b]: the budget is the host
+#                              partitions' seconds of [4]'s solve plus
+#                              this many of its seconds a sample.  The
+#                              budgeted rounds pay their partitions and
+#                              drains again and ran their iterations
+#                              ~1.4x slower than [4]'s (20 bought ~7.3 a
+#                              pixel in a PR 18 card run), so 28 buys
+#                              ~12-16 of SPP's 32 (at ~4 a 4-SE film gate
+#                              fails ~3% of channels by chance)
 GENEROUS = 10.0              # [9a]'s generous budget, times [4]'s solve wall
-RESUME_SPP, RESUME_EVERY = 64, 32   # [9d]: the samples before the resume,
-#                              and the checkpoint interval
+RESUME_SPP, RESUME_EVERY = 32, 16   # [9d]: the samples before the resume,
+#                              and the checkpoint interval (half of
+#                              SQUARE_SPP, as before PR 18)
 MASK_FRAME = 256             # [10a]: the masked runs' frame (neumann3d_u's
 #                              as shipped)
 MASK_SPP, MASK_TRAIN_SPP = 8, 2   # [10a]: samples of each run, of which the
@@ -368,6 +440,23 @@ PROFILE_DEPTH = 8            # [10b]: the profiled solve's depth
 TRACE_DEPTH = 1024           # [10c]: the traced walk's depth cap
 BUDGET_3D = ("compact_lanes", "sweep_resolve_3d", "fetch_colors3",
              "band_neumann_walk", "sil_band")   # [9c]'s solve's kernels
+ROUTES_SPP_CUT = 2           # [8r]: the per-sample runs take 1 / this of
+#                              their balanced runs' samples
+#                              (PR 18, to keep the run within 900 s on
+#                              the card; the 4-SE gate combines both
+#                              films' standard errors, so it holds at any
+#                              sample count)
+BVH_PLAIN_LANES = 65536      # [11a]: lanes of each plain traversal
+EDGE_LANES = 8192            # [11a]: B1's lanes under the edge masks (the
+#                              plain B1 in 3D takes seconds at 65,536)
+BVH_SPP = 8                  # [11b], [11d]: samples of the BVH route's runs
+CUBE_FINE = 33               # [11c]: the cube's squares a face side
+CUBE_FINE_SPP = 4            # [11c]: samples of each of its 1,024 lanes a
+#                              point (4,096 walks: a standard error of at
+#                              most 0.008 against the 0.07 bound)
+FLOPS_PER_VISIT = 36         # [11a]'s bound: float32 operations a node
+#                              visit takes at the least (three box
+#                              distances in 3D, 12 each)
 
 
 def log(msg: str) -> None:
@@ -392,9 +481,10 @@ def card_line() -> str:
 
 
 def all_kernels():
-    from elaina_tpu_torch.ops import queries, resolve
+    from elaina_tpu_torch.ops import bvh, queries, resolve
 
-    return {k.__name__: k for k in resolve.KERNELS + queries.KERNELS}
+    return {k.__name__: k
+            for k in resolve.KERNELS + queries.KERNELS + bvh.KERNELS}
 
 
 def reset_counts() -> None:
@@ -482,18 +572,21 @@ class Kernels:
         self.records: dict[str, dict] = {}
 
     def add(self, name, err, fn, plain, library, n_bytes, flops, shape,
-            **extra):
+            plain_ms=None, **extra):
         """Time a kernel, its plain version and its library call: call ms
         (``cuda_ms``) for all three, device ms and host us (``device_ms``)
         for the kernel and the library call, at the inputs that ``shape``
-        names; ``extra`` goes into the record as it is."""
+        names (``plain_ms``, where given, is the plain version's time,
+        measured by the caller); ``extra`` goes into the record as it
+        is."""
         from elaina_tpu_torch.utils.timing import (DEVICE_LAUNCHES,
                                                    TIMED_RUNS, cuda_ms,
                                                    device_ms)
 
         ms = cuda_ms(fn)
         dev_ms, host_us, hidden = device_ms(fn)
-        plain_ms = cuda_ms(plain)
+        if plain_ms is None:
+            plain_ms = cuda_ms(plain)
         lib = {"library_ms": None, "library_device_ms": None,
                "library_host_us": None, "library_hidden": None}
         if library is not None:
@@ -528,21 +621,21 @@ class Kernels:
 
 def phase_build() -> None:
     from elaina_tpu_torch.geometry import native
-    from elaina_tpu_torch.ops import queries, resolve
+    from elaina_tpu_torch.ops import bvh, queries, resolve
 
     def timed(fn):
         t0 = time.time()
         fn()
         return time.time() - t0
 
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         futures = [pool.submit(timed, f) for f in (
-            resolve.library, queries.library, native.library)]
+            resolve.library, queries.library, bvh.library, native.library)]
         secs = [f.result() for f in futures]
     log(f"[1] build: nvcc resolve kernels {secs[0]:.1f} s, nvcc band "
-        f"kernels {secs[1]:.1f} s, g++ scene library {secs[2]:.1f} s (in "
-        f"parallel)")
-    for lib in (resolve, queries):
+        f"kernels {secs[1]:.1f} s, nvcc BVH kernels {secs[2]:.1f} s, g++ "
+        f"scene library {secs[3]:.1f} s (in parallel)")
+    for lib in (resolve, queries, bvh):
         for line in lib.build_log().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    ptxas: {line.strip()}")
@@ -1310,9 +1403,10 @@ def read_solution(conf_path: str) -> np.ndarray:
     return sol
 
 
-def run_main(conf_path: str, expect: tuple, label: str, card: str) -> tuple:
-    """``run_expr`` with the launch counts zeroed just before it; the
-    kernels of ``expect`` must all have launched."""
+def run_main(conf_path: str, expect: tuple, label: str, card: str,
+             accel: str = "auto") -> tuple:
+    """``run_expr`` (on the route ``accel``) with the launch counts zeroed
+    just before it; the kernels of ``expect`` must all have launched."""
     import torch
 
     from elaina_tpu_torch.exec import run_expr
@@ -1320,7 +1414,7 @@ def run_main(conf_path: str, expect: tuple, label: str, card: str) -> tuple:
     reset_counts()
     t0 = time.time()
     with capture_integrators() as made:
-        result = run_expr(conf_path)
+        result = run_expr(conf_path, accel=accel)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_counts()
@@ -2572,8 +2666,9 @@ def phase_unfused_3d(conf_path: str, card: str) -> dict:
 
 def phase_routes(confs: dict, keep: dict, card: str) -> None:
     """[8r] lobed_u, lobed_n, neumann3d_u and bumpy3d_n on the per-sample
-    route (the metric-frames switch, no frame written) at the spp of [4],
-    [4g], [8] and [7g], held to those balanced films: within 4 combined
+    route (the metric-frames switch, no frame written) at 1 / ROUTES_SPP_CUT
+    of the spp of [4], [4g], [8] and [7g] (the guided paths' training
+    samples as configured), held to those balanced films: within 4 combined
     standard errors on >= 99% of pixel channels.  Prints both routes'
     walk-steps/s, depth-capped share and peak memory, and for a guided
     path each phase's walk-steps/s, the loss and the guided / uniform
@@ -2587,6 +2682,12 @@ def phase_routes(confs: dict, keep: dict, card: str) -> None:
               "neumann3d_u": MAIN_3D, "bumpy3d_n": BUMPY_3D}
     for label, conf in confs.items():
         path = S.write_per_sample(conf, label + "_per_sample")
+        with open(path) as f:
+            c = json.load(f)
+        st = c["integrator"]["setting"]
+        st["samplesPerPixel"] //= ROUTES_SPP_CUT
+        with open(path, "w") as f:
+            json.dump(c, f)
         _, result, integ = run_main(path, expect[label],
                                     label + " per-sample", card)
         if getattr(integ, "balance_rounds", None) is not None:
@@ -2821,11 +2922,15 @@ def round_lines(rounds: list, card: str) -> str:
         for r in rounds) + f" ({card})"
 
 
-def flat_rounds(integ) -> list:
-    rounds = integ.balance_rounds
+def flat_rounds_of(rounds) -> list:
+    """A balanced solve's round records; a guided one's phases in order."""
     if isinstance(rounds, dict):
         rounds = rounds["train"] + rounds["guide"]
     return rounds
+
+
+def flat_rounds(integ) -> list:
+    return flat_rounds_of(integ.balance_rounds)
 
 
 def budgeted(conf_path: str, label: str, budget: float, expect: tuple,
@@ -2904,18 +3009,46 @@ def budget_gates(integ, label: str, budget: float, secs: float, ref: dict,
         raise RuntimeError(f"{label} disagrees with {ref_label}")
 
 
+def budget_of(ref: dict, label: str, ref_label: str, card: str) -> float:
+    """[9a] / [9b]'s budget from the unbudgeted solve ``ref`` of the same
+    scene: its host partitions' seconds (the rounds' ``host_s``, paid
+    whatever the samples) plus BUDGET_SPP times its seconds a sample (the
+    rest of its wall over its samples).  A share of the wall bought ~4-5
+    samples a pixel, since the partitions' fixed ~0.8 s ate into it."""
+    host = sum(r["host_s"] for r in flat_rounds_of(ref["rounds"]))
+    per_sample = (ref["solve_s"] - host) / ref["spp"]
+    budget = host + BUDGET_SPP * per_sample
+    log(f"{label} under a budget of {budget:.3f} s: {ref_label}'s host "
+        f"partitions {host:.3f} s + {BUDGET_SPP} x its {per_sample:.4f} s "
+        f"a sample ({ref_label}'s solve {ref['solve_s']:.3f} s, "
+        f"{ref['spp']} spp; {card})")
+    return budget
+
+
+def log_bought(label: str, integ) -> None:
+    """The samples a pixel that a budget bought: the mean and the fewest
+    completed over the pixels not baked."""
+    spp = integ.settings.samplesPerPixel
+    done = (np.full(integ.n_pixels, spp) if integ.done_per_pixel is None
+            else np.asarray(integ.done_per_pixel, np.float64))
+    d = done[~integ._balanced_inputs()[3]]
+    log(f"    {label}: samples bought {float(d.mean()):.2f} a pixel on "
+        f"average, fewest {int(d.min())}, of {spp}")
+
+
 def phase_budget_2d(conf_2d: str, device, card: str, keep: dict) -> None:
-    """[9a] lobed_u under half of [4]'s solve wall, held to [4]'s film;
-    then a fresh problem under ten times [4]'s wall: it loads the saved
-    hints, skips the probe round and completes every sample."""
-    budget = BUDGET_SHARE * keep["lobed_u"]["solve_s"]
-    log(f"[9a] lobed_u under a budget of {BUDGET_SHARE} x [4]'s solve "
-        f"({keep['lobed_u']['solve_s']:.3f} s)")
+    """[9a] lobed_u under a budget from [4]'s solve (``budget_of``), held
+    to [4]'s film; then a fresh problem under ten times [4]'s wall: it
+    loads the saved hints, skips the probe round and completes every
+    sample."""
+    budget = budget_of(keep["lobed_u"], "[9a] lobed_u", "[4]", card)
     integ, secs, _ = budgeted(conf_2d, "lobed_u budgeted", budget, MAIN_2D,
                               device, card)
+    log_bought("lobed_u budgeted", integ)
     budget_gates(integ, "lobed_u budgeted", budget, secs, keep["lobed_u"],
                  "[4]'s film", card)
-    keep["lobed_u_budget"] = {"se": integ.standard_error(), "secs": secs}
+    keep["lobed_u_budget"] = {"se": integ.standard_error(), "secs": secs,
+                              "budget": budget}
     generous = GENEROUS * keep["lobed_u"]["solve_s"]
     integ, secs, _ = budgeted(conf_2d, "lobed_u generous", generous,
                               MAIN_2D, device, card)
@@ -2938,10 +3071,11 @@ def phase_budget_guided(conf_n: str, device, card: str, keep: dict) -> None:
     """[9b] lobed_n under [9a]'s budget: the policy, the phases, its film
     against [4g]'s; the equal-time variance of the mean, guided over
     [9a]'s uniform film (a reading)."""
-    budget = BUDGET_SHARE * keep["lobed_u"]["solve_s"]
-    log("[9b] lobed_n under [9a]'s budget")
+    budget = keep["lobed_u_budget"]["budget"]
+    log(f"[9b] lobed_n under [9a]'s budget ({budget:.3f} s)")
     integ, secs, _ = budgeted(conf_n, "lobed_n budgeted", budget, MAIN_2D,
                               device, card)
+    log_bought("lobed_n budgeted", integ)
     ps = integ.phase_stats
     policy = integ.train_policy
     log(f"    policy (skip, t_target, share_cap): ({policy['skip']}, "
@@ -3285,6 +3419,457 @@ def phase_trace_walk(keep: dict, card: str) -> None:
         raise RuntimeError("trace_walk did not run the port's kernels")
 
 
+
+# --------------------------------------------------------------------------- #
+# [11] the BVH route
+# --------------------------------------------------------------------------- #
+
+
+def conf_copy(conf_path: str, exp_name: str, spp: int) -> str:
+    """A copy of a config beside it with its own exp_name and spp."""
+    with open(conf_path) as f:
+        conf = json.load(f)
+    conf["exp_name"] = exp_name
+    conf["integrator"]["setting"]["samplesPerPixel"] = spp
+    path = os.path.join(os.path.dirname(conf_path), exp_name + ".json")
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    return path
+
+
+def bvh_problem(conf_path: str, device):
+    """The config's problem on the BVH route."""
+    from elaina_tpu_torch.core.problem import Problem
+
+    with open(conf_path) as f:
+        conf = json.load(f)
+    return Problem(conf["dimensionality"], device, verbose=False).load_config(
+        conf["scene"], cache_dir=os.environ["ELAINA_CACHE_DIR"], accel="bvh")
+
+
+def timed_once(fn):
+    """(fn(), ms): one call between two CUDA events (the plain traversals
+    read their stacks back each iteration, so one call is their time)."""
+    import torch
+
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def strided(n: int, m: int, device):
+    """m lane ids spread over n lanes."""
+    import torch
+
+    return torch.arange(0, n, max(1, n // m), device=device)[:m]
+
+
+def check_ids_tied(name: str, gs, q, d, d_p, ids, ids_p) -> tuple:
+    """Distances within TOL of the plain version's (inf where it is inf);
+    ids equal but where q's distances to both prims tie within TOL.
+    Returns (largest difference, ids that differ)."""
+    import torch
+
+    from elaina_tpu_torch.ops import bvh as B
+
+    fin = torch.isfinite(d_p)
+    if not torch.equal(torch.isfinite(d), fin):
+        raise RuntimeError(f"{name}: inf / finite differ")
+    err = float((d[fin] - d_p[fin]).abs().max()) if fin.any() else 0.0
+    if not torch.allclose(d[fin], d_p[fin], rtol=TOL, atol=TOL):
+        raise RuntimeError(f"{name} distances differ: {err}")
+    diff = ids != ids_p
+    if diff.any():
+        D = gs.dim
+
+        def dist(i):
+            c = gs.corners[i[diff].long()]
+            return B._prim_dist(D, q[diff], tuple(c[:, k * D:(k + 1) * D]
+                                                  for k in range(D)))
+
+        da, db = dist(ids), dist(ids_p)
+        if not torch.allclose(da, db, rtol=TOL, atol=TOL):
+            raise RuntimeError(f"{name}: {int(diff.sum())} ids differ "
+                               f"without a tie")
+    return err, int(diff.sum())
+
+
+def edge_masks(n: int, device):
+    """(label, live) of [11a]'s edge cases: a seeded half, no lane, lane
+    N - 1 alone."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(11)
+    last = torch.zeros((n,), dtype=torch.bool, device=device)
+    last[-1] = True
+    return (("half", torch.rand(n, generator=g, device=device) < 0.5),
+            ("none", torch.zeros((n,), dtype=torch.bool, device=device)),
+            ("lane N - 1", last))
+
+
+def tree_once_bytes(gs, sil: bool = False) -> int:
+    """Bytes of a traversal's tables, each read once: the prim tree, its
+    leaf rows and corners (and subtree measures), or the entities' tree,
+    cones and entities."""
+    fields = (("sil_bb_min", "sil_bb_max", "sil_left", "sil_right",
+               "sil_leaf", "sil_cone_axis", "sil_cone_cos", "sil_p0",
+               "sil_p1", "sil_n1", "sil_n2", "sil_always") if sil else
+              ("bb_min", "bb_max", "left", "right", "leaf_prims", "corners"))
+    return sum(getattr(gs, f).numel() * getattr(gs, f).element_size()
+               for f in fields)
+
+
+def bvh_record(kernels, name, err, fn, plain_ms, lanes: int, lane_bytes,
+               tree_bytes: int, visits, dim: int, shape: str, **extra):
+    """A B-kernel's record: ``bound_ms`` from the lanes' inputs and outputs
+    and the tree read once, ``bound_visits_ms`` at the mean nodes a lane
+    visits (the plain version's count, each visit reading a node's box,
+    children and leaf row, 8 D + 24 bytes), both with FLOPS_PER_VISIT
+    operations a visit."""
+    mean_visits = float(visits.double().mean())
+    flops = lanes * mean_visits * FLOPS_PER_VISIT
+    v_ms, v_by = bound(lanes * (lane_bytes + mean_visits * (8 * dim + 24)),
+                       flops)
+    kernels.add(name, err, fn, None, None, lanes * lane_bytes + tree_bytes,
+                flops, shape, plain_ms=plain_ms, mean_visits=mean_visits,
+                bound_visits_ms=v_ms, bound_visits_by=v_by, **extra)
+
+
+def check_b1(kernels, name, gs, q, label: str) -> None:
+    """B1 on every lane of q against its plain version on a strided subset
+    (and on EDGE_LANES of it under each edge mask)."""
+    import torch
+
+    from elaina_tpu_torch.ops import bvh as B
+
+    n = q.shape[0]
+    sub = strided(n, BVH_PLAIN_LANES, q.device)
+    d, ids = B.closest_point_bvh(gs, q)
+    visits = torch.zeros(sub.numel(), dtype=torch.int64, device=q.device)
+    qs = q[sub].contiguous()
+    (d_p, ids_p), plain_ms = timed_once(
+        lambda: B.closest_point_bvh_plain(gs, qs, visits=visits))
+    err, ties = check_ids_tied(name, gs, qs, d[sub], d_p, ids[sub], ids_p)
+    qe = qs[:EDGE_LANES]
+    for mlabel, live in edge_masks(qe.shape[0], q.device):
+        dm, im = B.closest_point_bvh(gs, qe, live)
+        dmp, imp = B.closest_point_bvh_plain(gs, qe, live)
+        if not (torch.equal(dm[~live], dmp[~live])
+                and torch.equal(im[~live], imp[~live])
+                and bool(torch.isinf(dm[~live]).all())):
+            raise RuntimeError(f"{name}: a lane off the mask differs "
+                               f"({mlabel})")
+        err = max(err, check_ids_tied(name, gs, qe[live], dm[live],
+                                      dmp[live], im[live], imp[live])[0])
+    log(f"    {name} ({label}): {n} lanes, the plain version on "
+        f"{sub.numel()}: max err {err:.3g}, {ties} ids differ on a tie; "
+        f"mean nodes visited {float(visits.double().mean()):.2f}; edge "
+        f"masks (half, none, lane N - 1) on {qe.shape[0]} of them equal")
+    bvh_record(kernels, name, err, lambda: B.closest_point_bvh(gs, q),
+               plain_ms, n, 4 * gs.dim + 8, tree_once_bytes(gs), visits,
+               gs.dim, f"{n} lanes x {gs.n_prims} prims ({label}); the "
+               f"plain version on {sub.numel()} of them",
+               plain_lanes=int(sub.numel()))
+
+
+def bvh_lanes(conf_3d: str, device):
+    """neumann3d_u on the BVH route after WARM_STEPS depth steps: (problem,
+    state, R_B) of its 65,536 lanes."""
+    from elaina_tpu_torch.solver.wost import _separate
+    from elaina_tpu_torch.utils.ab import load_integrator, warm_state
+
+    problem, integ = load_integrator(conf_3d, device, 1, accel="bvh")
+    state = warm_state(problem, integ, WARM_STEPS)
+    eps = float(integ.settings.epsilonShell)
+    R_B = _separate(problem.scene, state, eps, shrink=True)[1]
+    return problem, state, R_B.contiguous()
+
+
+def check_b2(kernels, gs, o, d, tmax, live) -> None:
+    """B2, closest hit and any hit, against its plain version on every
+    lane, with the live mask and the edge masks, and at tmax 1e-4."""
+    import torch
+
+    from elaina_tpu_torch.ops import bvh as B
+
+    n = o.shape[0]
+    err = 0.0
+    rec = None
+    for any_hit in (False, True):
+        cases = (("live", live, tmax), ("tmax 1e-4", live,
+                                         torch.full_like(tmax, 1e-4)),
+                 *((m, x, tmax) for m, x in edge_masks(n, o.device)))
+        for label, m, tm in cases:
+            h, t, p = B.ray_bvh(gs, o, d, tm, any_hit, m)
+            visits = torch.zeros(n, dtype=torch.int64, device=o.device)
+            (h_p, t_p, p_p), plain_ms = timed_once(
+                lambda: B.ray_bvh_plain(gs, o, d, tm, any_hit, m,
+                                        visits=visits))
+            if not torch.equal(h, h_p):
+                raise RuntimeError(f"ray_bvh: {int((h != h_p).sum())} hit "
+                                   f"flags differ ({label}, any {any_hit})")
+            if not (torch.isinf(t[~h]).all() and (p[~h] == 0).all()):
+                raise RuntimeError("ray_bvh: a miss is not inf / 0")
+            e = float((t[h] - t_p[h]).abs().max()) if h.any() else 0.0
+            if not torch.allclose(t[h], t_p[h], rtol=TOL, atol=TOL):
+                raise RuntimeError(f"ray_bvh t differs: {e}")
+            if not torch.equal(p[h], p_p[h]):
+                raise RuntimeError(f"ray_bvh: {int((p != p_p).sum())} ids "
+                                   f"differ ({label})")
+            err = max(err, e)
+            log(f"    ray_bvh ({'any' if any_hit else 'closest'} hit, "
+                f"{label}): {int(h.sum())} hits of {n} lanes, flags and ids "
+                f"exact, t within TOL; plain {plain_ms:.1f} ms")
+            if label == "live" and not any_hit:
+                rec = (plain_ms, visits)
+    bvh_record(kernels, "ray_bvh", err,
+               lambda: B.ray_bvh(gs, o, d, tmax, False, live), rec[0], n,
+               8 * gs.dim + 14, tree_once_bytes(gs), rec[1], gs.dim,
+               f"{n} walk rays (live {int(live.sum())}) x {gs.n_prims} "
+               f"triangles, closest hit")
+
+
+def check_b3(kernels, gs, q, R, u, live) -> None:
+    """B3 against its plain version on every lane: ids on >= 1 -
+    CDF_FLIPS of the lanes, pdf within TOL where they agree, -1 / 0
+    exactly where the ball holds no prim (also at R = 1e-3)."""
+    import torch
+
+    from elaina_tpu_torch.ops import bvh as B
+
+    n = q.shape[0]
+    err = 0.0
+    rec = None
+    for label, m, radii in (("live", live, R),
+                            ("R 1e-3", live, torch.full_like(R, 1e-3)),
+                            *((lb, x, R) for lb, x in edge_masks(n,
+                                                                 q.device))):
+        i, pdf = B.sample_in_ball_bvh(gs, q, radii, u, m)
+        visits = torch.zeros(n, dtype=torch.int64, device=q.device)
+        (i_p, pdf_p), plain_ms = timed_once(
+            lambda: B.sample_in_ball_bvh_plain(gs, q, radii, u, m,
+                                               visits=visits))
+        same = i == i_p
+        flips = int((~same).sum())
+        if flips > CDF_FLIPS * max(int(m.sum()), 1):
+            raise RuntimeError(f"sample_in_ball_bvh: {flips} ids differ "
+                               f"({label})")
+        none = i_p < 0
+        if not (torch.equal(i[none & same], i_p[none & same])
+                and bool((pdf[none & same] == 0).all())):
+            raise RuntimeError("sample_in_ball_bvh: an empty ball's sample")
+        e = float((pdf[same] - pdf_p[same]).abs().max()) if same.any() \
+            else 0.0
+        if not torch.allclose(pdf[same], pdf_p[same], rtol=TOL, atol=0):
+            raise RuntimeError(f"sample_in_ball_bvh pdf differs: {e}")
+        err = max(err, e)
+        log(f"    sample_in_ball_bvh ({label}): {int((i >= 0).sum())} "
+            f"samples of {n} lanes, {flips} ids flipped, pdf within TOL "
+            f"where equal; plain {plain_ms:.1f} ms")
+        if label == "live":
+            rec = (plain_ms, visits)
+    bvh_record(kernels, "sample_in_ball_bvh", err,
+               lambda: B.sample_in_ball_bvh(gs, q, R, u, live), rec[0], n,
+               4 * gs.dim + 9 + 8,
+               tree_once_bytes(gs) + 4 * (gs.n_prims + gs.left.numel()),
+               rec[1], gs.dim,
+               f"{n} lanes (live {int(live.sum())}) x {gs.n_prims} "
+               f"triangles, star radii")
+
+
+def check_b4(kernels, gs, q, live, on) -> None:
+    """B4 against its plain version on the live lanes, against the port's
+    dense sweep on the live lanes off the Neumann boundary (``on`` (N,)
+    bool marks the lanes on it: there a view vector lies in the surface,
+    s1 s2 is a rounding either side of 0, and the two forms' sums may
+    call an entity a silhouette apart; their agreement is printed), and
+    under the edge masks."""
+    import dataclasses
+
+    import torch
+
+    from elaina_tpu_torch.geometry import queries as Q
+    from elaina_tpu_torch.ops import bvh as B
+
+    n = q.shape[0]
+    d = B.closest_silhouette_bvh(gs, q, live)
+    visits = torch.zeros(n, dtype=torch.int64, device=q.device)
+    d_p, plain_ms = timed_once(
+        lambda: B.closest_silhouette_bvh_plain(gs, q, live, visits=visits))
+    d_s = torch.full_like(d, float("inf"))
+    d_s[live] = Q.closest_silhouette(dataclasses.replace(gs, sil_left=None),
+                                     q[live])
+    err = 0.0
+    off = live & ~on
+    for o, label, m in ((d_p, "plain", live), (d_s, "dense sweep", off)):
+        a, b = d[m], o[m]
+        fin = torch.isfinite(b)
+        if not torch.equal(torch.isfinite(a), fin):
+            raise RuntimeError(f"closest_silhouette_bvh: inf differs from "
+                               f"the {label}")
+        e = float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
+        if not torch.allclose(a[fin], b[fin], rtol=TOL, atol=TOL):
+            raise RuntimeError(f"closest_silhouette_bvh differs from the "
+                               f"{label}: {e}")
+        err = max(err, e)
+    onl = live & on
+    agree = (torch.isclose(d[onl], d_s[onl], rtol=TOL, atol=TOL)
+             | (torch.isinf(d[onl]) & torch.isinf(d_s[onl])))
+    for label, m in edge_masks(n, q.device):
+        dm = B.closest_silhouette_bvh(gs, q, m)
+        if not (torch.isinf(dm[~m]).all()
+                and torch.equal(dm[m], B.closest_silhouette_bvh(gs, q)[m])):
+            raise RuntimeError(f"closest_silhouette_bvh: mask {label}")
+    log(f"    closest_silhouette_bvh: {int(live.sum())} live lanes of {n}, "
+        f"within TOL of the plain version, and of the dense sweep on the "
+        f"{int(off.sum())} off the boundary (max err {err:.3g}); on the "
+        f"{int(onl.sum())} on it, {int(agree.sum())} agree with the dense "
+        f"sweep; edge masks equal; plain {plain_ms:.1f} ms")
+    bvh_record(kernels, "closest_silhouette_bvh", err,
+               lambda: B.closest_silhouette_bvh(gs, q, live), plain_ms, n,
+               4 * gs.dim + 1 + 4, tree_once_bytes(gs, sil=True), visits,
+               gs.dim, f"{n} lanes (live {int(live.sum())}) x "
+               f"{gs.sil_p0.shape[0]} silhouette edges",
+               plain_counts="(lane, node) pairs a level expands")
+
+
+def phase_bvh_kernels(conf_2d: str, conf_bumpy: str, conf_3d: str, device,
+                      kernels: Kernels) -> None:
+    """[11a] B1-B4 against their plain versions at the BVH route's
+    shapes."""
+    import torch
+
+    log("[11a] BVH traversal kernels against their plain versions")
+    problem = bvh_problem(conf_2d, device)
+    q = torch.as_tensor(frame_points(conf_2d), device=device)
+    check_b1(kernels, "closest_point_bvh", problem.scene.dirichlet.gs, q,
+             "lobed_u's frame points")
+    problem = bvh_problem(conf_bumpy, device)
+    q = torch.as_tensor(frame_points(conf_bumpy), device=device)
+    check_b1(kernels, "closest_point_bvh_3d", problem.scene.dirichlet.gs, q,
+             "bumpy3d_5's frame points")
+    problem, state, R_B = bvh_lanes(conf_3d, device)
+    gs = problem.scene.neumann.gs
+    live = state.active.contiguous()
+    g = torch.Generator(device=device).manual_seed(12)
+    d = torch.nn.functional.normalize(
+        torch.randn(state.pos.shape, generator=g, device=device), dim=1)
+    u = torch.rand(R_B.shape, generator=g, device=device)
+    check_b2(kernels, gs, state.pos, d.contiguous(), R_B, live)
+    check_b3(kernels, gs, state.pos, R_B, u, live)
+    check_b4(kernels, gs, state.pos, live, state.on_neumann)
+
+
+def phase_bvh_main(conf_bvh: str, device, card: str, keep: dict) -> dict:
+    """[11b] lobed_u on the BVH route at BVH_SPP samples against [4]'s
+    film; one depth step under the sync probe."""
+    import traceback
+
+    import torch
+
+    from elaina_tpu_torch.solver.wost import wost_depth_step
+    from elaina_tpu_torch.utils.ab import load_integrator, warm_state
+    from elaina_tpu_torch.utils.rng import sample_generators
+
+    log("[11b] lobed_u on the BVH route")
+    launches, result, integ = run_main(conf_bvh, ("closest_point_bvh",),
+                                       "lobed_u bvh", card, accel="bvh")
+    grid_kernels = [k for k in MAIN_2D if launches[k]]
+    if grid_kernels:
+        raise RuntimeError(f"the BVH route launched {grid_kernels}")
+    share = against(integ, keep["lobed_u"], "lobed_u bvh", "[4]'s film")
+    rate = result["walk_steps"] / (result["duration"] / 1e3)
+    log(f"    walk-steps/s {rate:.6g} against [4]'s grid route "
+        f"{keep['lobed_u']['rate']:.6g} (bvh / grid "
+        f"{rate / keep['lobed_u']['rate']:.4f}; {card})")
+    if share < 0.99:
+        raise RuntimeError("the BVH route's lobed_u disagrees with [4]'s")
+    del integ
+    problem, integ = load_integrator(conf_bvh, device, 1, accel="bvh")
+    state = warm_state(problem, integ, 1)
+    gens = sample_generators(0, 1, device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wost_depth_step(problem.scene, state, gens,
+                        float(integ.settings.epsilonShell))
+    except RuntimeError as e:
+        where = [f"{os.path.relpath(f.filename)}:{f.lineno} {f.line}"
+                 for f in traceback.extract_tb(e.__traceback__)
+                 if "elaina_tpu_torch" in f.filename]
+        raise RuntimeError(f"the BVH depth step waits for the device at "
+                           f"{where}: {e}") from None
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"    one BVH depth step of {state.pos.shape[0]} lanes "
+        f"({int(state.active.sum())} live) without a host sync")
+    return launches
+
+
+def phase_bvh_cube(root: str, device, card: str) -> dict:
+    """[11c] the mixed cube of CUBE_FINE squares a face on the BVH route,
+    [6]'s points and gates; returns the balanced run's launches."""
+    from elaina_tpu_torch.core.problem import Problem
+    from elaina_tpu_torch.utils import scenes as S
+
+    cube = os.path.join(root, "cube_fine")
+    os.makedirs(cube, exist_ok=True)
+    problem = Problem(3, device, verbose=False).load_config(
+        S.write_mixed_cube(cube, CUBE_FINE),
+        cache_dir=os.environ["ELAINA_CACHE_DIR"], accel="bvh")
+    sc = problem.scene
+    log(f"[11c] mixed cube, {sc.dirichlet.gs.n_prims} Dirichlet and "
+        f"{sc.neumann.gs.n_prims} Neumann triangles, BVH route")
+    pts = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, -0.5], [-0.6, 0.3, 0.4]],
+                   np.float32)
+    want = (pts[:, 0] + 1) / 2
+    out = None
+    for route, chunk in (("balanced", None), ("per-sample", 1)):
+        reset_counts()
+        u, ms, capped = solve_points(problem, pts, 1024, CUBE_FINE_SPP,
+                                     256, 0.02, chunk)
+        counts = read_counts()
+        log(f"    {route} route: u {np.round(u, 4).tolist()} vs "
+            f"{want.tolist()} (atol 0.07), {ms} ms, depth-capped share "
+            f"{capped:.4f}; launches "
+            f"{ {k: counts[k] for k in BVH_KERNELS} } ({card})")
+        if not all(counts[k] for k in BVH_KERNELS):
+            raise RuntimeError("the fine cube did not launch B1-B4")
+        if not np.all(np.abs(u - want) <= 0.07):
+            raise RuntimeError(f"the fine cube out of bound ({route})")
+        out = out or counts
+    return out
+
+
+def phase_bvh_3d(conf_bvh: str, card: str, keep: dict) -> dict:
+    """[11d] neumann3d_u on the BVH route (the unfused step), against
+    [8]'s band route: printed, not gated, but the film's finiteness and
+    B2-B4's launches."""
+    log("[11d] neumann3d_u on the BVH route")
+    launches, result, integ = run_main(
+        conf_bvh, ("ray_bvh", "sample_in_ball_bvh", "closest_silhouette_bvh"),
+        "neumann3d_u bvh", card, accel="bvh")
+    mean = (integ.sum / integ.spp).cpu().numpy()
+    if not np.isfinite(mean).all():
+        raise RuntimeError("the BVH route's neumann3d_u film is not finite")
+    bvh = route_keep(result, integ)
+    band = keep["neumann3d_u"]
+    share = against(integ, band, "neumann3d_u bvh", "[8]'s band-route film")
+    log(f"    mean u {float(mean.mean()):.5f} against [8]'s "
+        f"{float(band['mean'].mean()):.5f}; depth-capped share "
+        f"{bvh['capped']:.4f} against [8]'s "
+        f"{band['capped']:.4f}; walk-steps/s {bvh['rate']:.6g} against "
+        f"[8]'s {band['rate']:.6g}; {share:.5f} of pixel channels within 4 "
+        f"combined standard errors (printed, not gated; {card})")
+    return launches
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -3321,6 +3906,8 @@ def main() -> int:
         guided = os.path.join(root, "lobed_n")
         os.makedirs(guided)
         conf_n = scenes.write_lobed_n(guided, SPP, GUIDED_TRAIN_SPP)
+        conf_2d_bvh = conf_copy(conf_2d, "lobed_u_bvh", BVH_SPP)
+        conf_3d_bvh = conf_copy(conf_3d, "neumann3d_u_bvh", BVH_SPP)
         keep = {}
         for label, key, fn, args in (
                 ("[2]", None, phase_kernels, (conf_2d, device, kernels)),
@@ -3368,13 +3955,20 @@ def main() -> int:
                 ("[9d]", None, phase_resume, (root, device, card)),
                 ("[10a]", None, phase_masks, (root, card, keep)),
                 ("[10b]", None, phase_profile, (keep, root, device, card)),
-                ("[10c]", None, phase_trace_walk, (keep, card))):
+                ("[10c]", None, phase_trace_walk, (keep, card)),
+                ("[11a]", None, phase_bvh_kernels,
+                 (conf_2d, conf_bumpy, conf_3d, device, kernels)),
+                ("[11b]", "lobed_u_bvh", phase_bvh_main,
+                 (conf_2d_bvh, device, card, keep)),
+                ("[11c]", "cube_bvh", phase_bvh_cube, (root, device, card)),
+                ("[11d]", "neumann3d_u_bvh", phase_bvh_3d,
+                 (conf_3d_bvh, card, keep))):
             out = timed_phase(label, fn, *args)
             if key is not None:
                 runs[key] = out
             torch.cuda.empty_cache()
     for name, rec in kernels.records.items():
-        rec["launches"] = runs[PATH_OF[name]][name]
+        rec["launches"] = runs[PATH_OF[name]][COUNTER_OF.get(name, name)]
         if not rec["launches"]:
             raise RuntimeError(f"{name} never launched on its path")
     log(f"[total] chip_smoke.py: {time.time() - t_start:.1f} s in all "

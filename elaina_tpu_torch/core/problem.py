@@ -2,15 +2,23 @@
 
 Port of ``elaina_tpu/core/problem.py`` for uniform WoSt in 2D and 3D: OBJ
 Dirichlet and Neumann boundaries with two-sided vertex colors, the
-evaluation grid, the Dirichlet candidate grid with its coordinate table
-(built above ``GRID_ACCEL_MIN_PRIMS`` prims, as the reference builds it on
-an accelerator; a smaller set takes ``geometry/queries.closest_point``),
-the silhouette and prim-band grids of a Neumann set (on the reference's
-bounds: in 3D always, since the port has no dense or BVH 3D query and
-both grids give valid star radii at any set size; in 2D, as the
-reference, the silhouette grid above ``CHUNKED_DENSE_MAX`` entities and
-the prim-band grid above ``CHUNKED_DENSE_MAX`` prims, the dense and
-chunked sweeps below), and the volumetric source (``source_path``: a
+evaluation grid, and the accelerators of one of two routes
+(``load_config(accel=)``):
+
+* ``"grid"`` (and ``"auto"``, on every device): the Dirichlet candidate
+  grid with its coordinate table (built above ``GRID_ACCEL_MIN_PRIMS``
+  prims, as the reference builds it on an accelerator; a smaller set
+  takes ``geometry/queries.closest_point``), the silhouette and prim-band
+  grids of a Neumann set (on the reference's bounds: in 3D always, since
+  both grids give valid star radii at any set size; in 2D, as the
+  reference, the silhouette grid above ``CHUNKED_DENSE_MAX`` entities and
+  the prim-band grid above ``CHUNKED_DENSE_MAX`` prims, the dense and
+  chunked sweeps below);
+* ``"bvh"``: no grid; every set carries its trees (``make_geom_set(...,
+  bvh=True)``), and above ``CHUNKED_DENSE_MAX`` prims or entities its
+  queries descend them (kernels B1-B4), the sweeps below;
+
+and the volumetric source (``source_path``: a
 dense ``.npy`` / ``.npz`` array or a NanoVDB ``.nvdb`` grid, sampled
 trilinearly), and the mask image (``mask_path``: a PNG whose pixels
 with any nonzero channel are solved, read with ``output/image_io.
@@ -55,7 +63,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..geometry.geomset import GeomSet, make_geom_set
+from ..geometry.bvh import median_split_depth
+from ..geometry.geomset import LEAF_SIZE, GeomSet, make_geom_set
 from ..geometry.grid import (BandGrid, CandidateGrid, attach_coords,
                              band_grid_from_numpy, build_candidate_grid,
                              build_prim_band_grid, build_silhouette_grid,
@@ -74,6 +83,7 @@ BAND_K = 64
 GRID_MAX_RES = 2048
 GRID_ACCEL_MIN_PRIMS = 256   # a Dirichlet set of at most this many prims
 #                              has no candidate grid (the reference's)
+ACCELS = ("auto", "grid", "bvh")
 
 
 @dataclass
@@ -187,6 +197,7 @@ class Scene:
     n_bgrid: Optional[BandGrid] = None   # Neumann: prim-band grid
     source: Optional[SourceGrid] = None  # volumetric source term
     source_intensity: float = 1.0
+    accel: str = "grid"                  # the route: "grid" or "bvh"
 
     @property
     def device(self) -> torch.device:
@@ -213,8 +224,10 @@ def grid_bounds(verts: np.ndarray, aabb_lo, aabb_hi):
             np.maximum(hi, verts.max(0)) + margin)
 
 
-def _boundary(verts, indices, colors, device) -> Boundary:
-    return Boundary(gs=make_geom_set(verts, indices, device),
+def _boundary(verts, indices, colors, device, bvh: bool = False,
+              silhouettes: bool = True) -> Boundary:
+    return Boundary(gs=make_geom_set(verts, indices, device, bvh,
+                                     silhouettes),
                     colors=torch.as_tensor(np.require(colors, np.float32,
                                                       ("C", "W")),
                                            device=device))
@@ -225,7 +238,8 @@ def scene_from_numpy(*, aabb_lo, aabb_hi, device: torch.device,
                      sgrid=None, bgrid=None, source=None,
                      dirichlet_intensity: float = 1.0,
                      neumann_intensity: float = 1.0,
-                     source_intensity: float = 1.0) -> Scene:
+                     source_intensity: float = 1.0,
+                     bvh: bool = False) -> Scene:
     """The port's Scene from numpy arrays.
 
     ``dirichlet`` / ``neumann``: (verts (V, D), indices (P, D), colors
@@ -237,9 +251,14 @@ def scene_from_numpy(*, aabb_lo, aabb_hi, device: torch.device,
     origin, inv_cell, r0, res, s, eps); without it the integrator bakes
     one for its eps.  ``sgrid`` / ``bgrid``: mappings with the fields of
     ``BandArrays`` for the silhouette and prim-band grids, required with a
-    3D Neumann set and optional with a 2D one (each replaces its dense or
-    chunked sweeps).  ``source`` (optional): a ``SourceGrid``.
+    3D Neumann set on the grid route and optional with a 2D one (each
+    replaces its dense or chunked sweeps).  ``source`` (optional): a
+    ``SourceGrid``.  ``bvh``: the BVH route, every set with its trees (the
+    Dirichlet set without the silhouette entities' tree, which nothing
+    queries) and no grid given.
     """
+    if bvh and any(x is not None for x in (grid, fine, sgrid, bgrid)):
+        raise ValueError("the BVH route takes no grid")
     d_grid = None
     if dirichlet is not None and grid is not None:
         v, idx, col = dirichlet
@@ -250,25 +269,27 @@ def scene_from_numpy(*, aabb_lo, aabb_hi, device: torch.device,
             device=device))
         if fine is not None:
             d_grid.fine = fine_pack_from_numpy(**fine, device=device)
-    n_bound = _boundary(*neumann, device) if neumann is not None else None
+    n_bound = (_boundary(*neumann, device, bvh) if neumann is not None
+               else None)
     aabb_lo = np.asarray(aabb_lo, np.float32)
-    if (n_bound is not None and n_bound.gs.dim == 3
+    if (n_bound is not None and n_bound.gs.dim == 3 and not bvh
             and (sgrid is None or bgrid is None)):
         raise ValueError("a 3D Neumann set needs its silhouette and "
-                         "prim-band grids")
+                         "prim-band grids, or the BVH route")
     n_sgrid = (sil_grid_from_numpy(sgrid, n_bound.gs, device)
                if n_bound is not None and sgrid is not None else None)
     n_bgrid = (band_grid_from_numpy(bgrid, neumann[0], neumann[1], device)
                if n_bound is not None and bgrid is not None else None)
     return Scene(
-        dirichlet=(_boundary(*dirichlet, device)
+        dirichlet=(_boundary(*dirichlet, device, bvh, silhouettes=False)
                    if dirichlet is not None else None),
         neumann=n_bound, d_grid=d_grid, aabb_lo=aabb_lo,
         aabb_hi=np.asarray(aabb_hi, np.float32), dim=aabb_lo.shape[0],
         dirichlet_intensity=float(dirichlet_intensity),
         neumann_intensity=float(neumann_intensity),
         n_sgrid=n_sgrid, n_bgrid=n_bgrid, source=source,
-        source_intensity=float(source_intensity))
+        source_intensity=float(source_intensity),
+        accel="bvh" if bvh else "grid")
 
 
 def _parse_vertex_colors(path: str, n_verts: int) -> np.ndarray:
@@ -315,6 +336,9 @@ class Problem:
         self.mask = None
         self.stats: dict = {}
         self.cache_dir: str | None = None
+        # the JAX Problem's traversal stacks: the sets' tree depth + 4
+        self.d_stack = 48
+        self.n_stack = 48
 
     # -- the balanced solve's hints (reference problem.py:234-300) --------
 
@@ -325,8 +349,10 @@ class Problem:
         Neumann vertices and their count and the source grid's shape and
         first 64 values: the walks' costs and rates are the whole scene's
         (one Dirichlet set in a wavy Neumann box of 8,192 segments walks
-        several times slower an iteration than in a box of 4).  None
-        without a cache dir or a Dirichlet set."""
+        several times slower an iteration than in a box of 4); on the BVH
+        route also the route's name, since an iteration's seconds on one
+        route do not predict the other's.  None without a cache dir or a
+        Dirichlet set."""
         scene = self.scene
         if not self.cache_dir or scene is None or scene.dirichlet is None:
             return None
@@ -343,6 +369,8 @@ class Problem:
         if scene.source is not None:
             src = scene.source.data
             data += head(src.reshape(-1, 1)) + np.int64(src.shape).tobytes()
+        if scene.accel != "grid":
+            data += f"accel={scene.accel}".encode()
         key = hashlib.sha1(data).hexdigest()[:16]
         return os.path.join(self.cache_dir, f"hints_{key}.npz")
 
@@ -403,7 +431,18 @@ class Problem:
             os.replace(tmp, path)
 
     def load_config(self, conf: dict, base_dir: str = ".",
-                    cache_dir: str | None = None) -> "Problem":
+                    cache_dir: str | None = None,
+                    accel: str = "auto") -> "Problem":
+        """``accel``: "grid" builds the grids (the default route),
+        "bvh" builds none and gives every set its trees (the traversal
+        kernels serve above CHUNKED_DENSE_MAX prims or entities), "auto"
+        is "grid" on every device (the JAX package takes "bvh" on its
+        1-core CPU; the port's CPU runs its tests, on the default
+        route)."""
+        if accel not in ACCELS:
+            raise ValueError(f"accel {accel!r}: one of {ACCELS}")
+        bvh = accel == "bvh"
+        self.stats["accel"] = "bvh" if bvh else "grid"
         self.cache_dir = cache_dir
         aabb_min = np.asarray(json_get_or_throw(conf, "aabb/min"), np.float32)
         aabb_max = np.asarray(json_get_or_throw(conf, "aabb/max"), np.float32)
@@ -423,7 +462,10 @@ class Problem:
             dirichlet = (v, idx, colors)
             self.stats["dirichlet_vertices"] = v.shape[0]
             self.stats["dirichlet_primitives"] = idx.shape[0]
-            if idx.shape[0] > GRID_ACCEL_MIN_PRIMS:
+            self.d_stack = median_split_depth(idx.shape[0], LEAF_SIZE) + 4
+            if bvh:
+                self.stats["dirichlet_grid"] = "none (accel=bvh: its tree)"
+            elif idx.shape[0] > GRID_ACCEL_MIN_PRIMS:
                 K, max_res = grid_size_for(idx.shape[0])
                 lo, hi = grid_bounds(v, aabb_min, aabb_max)
                 t0 = time.time()
@@ -448,8 +490,10 @@ class Problem:
             neumann = (v, idx, colors)
             self.stats["neumann_vertices"] = v.shape[0]
             self.stats["neumann_primitives"] = idx.shape[0]
-            sgrid, bgrid = self.neumann_grids(v, idx, aabb_min, aabb_max,
-                                              cache_dir)
+            self.n_stack = median_split_depth(idx.shape[0], LEAF_SIZE) + 4
+            if not bvh:
+                sgrid, bgrid = self.neumann_grids(v, idx, aabb_min,
+                                                  aabb_max, cache_dir)
 
         source = None
         if json_get_optional(conf, "source_path"):
@@ -473,7 +517,14 @@ class Problem:
             neumann_intensity=json_get_optional(
                 conf, "neumann_intensity", 1.0),
             source_intensity=json_get_optional(
-                conf, "source_intensity", 1.0))
+                conf, "source_intensity", 1.0), bvh=bvh)
+        for name, b in (("dirichlet", self.scene.dirichlet),
+                        ("neumann", self.scene.neumann)):
+            if b is not None and b.gs.has_tree:
+                self.stats[f"{name}_tree"] = (
+                    f"nodes={b.gs.left.shape[0]} depth={b.gs.depth} "
+                    f"measures={b.gs.node_measure is not None} "
+                    f"silhouette_depth={b.gs.sil_depth}")
         if self.verbose:
             log_success("Problem: loadConfig completed on %s.", self.device)
             for k, v in self.stats.items():
@@ -532,6 +583,10 @@ class Problem:
                 ("color_rows", g.color_rows)) if t is not None})
             if g.fine is not None:
                 out["finepack"] = g.fine.packed.numel() * 4
+        for name, b in (("dirichlet", self.scene.dirichlet),
+                        ("neumann", self.scene.neumann)):
+            if b is not None and b.gs.has_tree:
+                out[f"{name}_tree"] = b.gs.tree_bytes()
         for prefix, bg in (("sil", self.scene.n_sgrid),
                            ("band", self.scene.n_bgrid)):
             if bg is not None:

@@ -40,7 +40,11 @@ def _cache_dir() -> str:
     return d
 
 
-def run_expr(conf_path: str, device: str = "cuda") -> dict:
+def run_expr(conf_path: str, device: str = "cuda",
+             accel: str = "auto") -> dict:
+    """Run one config: its channels and exports, as the JAX package's
+    ``run_expr``.  ``accel`` is ``Problem.load_config``'s route ("auto" is
+    the grid route; "bvh" builds no grid)."""
     dev = torch.device(device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device {device!r}: 'cuda' or 'cpu'")
@@ -70,7 +74,7 @@ def run_expr(conf_path: str, device: str = "cuda") -> dict:
                 os.path.join(out_dir, "conf.json"))
 
     problem = Problem(cfg.dimensionality, dev).load_config(
-        cfg.scene, base_dir=os.getcwd(), cache_dir=_cache_dir())
+        cfg.scene, base_dir=os.getcwd(), cache_dir=_cache_dir(), accel=accel)
     if cfg.integrator_type == "guided":
         integrator = GuidedIntegrator(problem, cfg.settings, out_dir)
         integrator.reset_network(cfg.network)

@@ -1,9 +1,14 @@
 """GeomSet: one boundary set (Dirichlet or Neumann) as tensors on a device.
 
-Port of ``elaina_tpu/geometry/geomset.py`` without the BVH and the
-hierarchical-query fields: the port reaches large sets only through its
-grids (the candidate grid, and in 3D the silhouette and prim-band grids)
-and small 2D Neumann sets through dense sweeps.
+Port of ``elaina_tpu/geometry/geomset.py``.  The BVH fields are built on
+the BVH route only (``make_geom_set(..., bvh=True)``, which
+``Problem.load_config(accel="bvh")`` asks for), as the JAX package builds
+them: the prim tree and its leaf table, the subtree measures above
+``CHUNKED_DENSE_MAX`` prims (the in-ball sample's descent), and above
+``CHUNKED_DENSE_MAX`` silhouette entities their own tree with SNCH
+normal cones.  The queries descend them above that count.  On the grid
+route they are None, and the grids and the dense and chunked sweeps
+serve.
 """
 
 from __future__ import annotations
@@ -13,7 +18,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import bvh as bvh_mod
 from .native import silhouette_entities_native
+
+LEAF_SIZE = 4
+CHUNKED_DENSE_MAX = 4096   # the traversals serve above this many prims or
+#                            entities (geometry/queries.py)
+MAX_STACK = 64             # the traversal kernels' stack (csrc/bvh.cu)
+TREE_FIELDS = ("bb_min", "bb_max", "left", "right", "leaf_prims", "corners",
+               "node_measure", "sil_bb_min", "sil_bb_max", "sil_left",
+               "sil_right", "sil_leaf", "sil_cone_axis", "sil_cone_cos")
 
 
 @dataclass
@@ -27,6 +41,23 @@ class GeomSet:
     sil_n1: torch.Tensor         # (E, D) normals of the adjacent prims
     sil_n2: torch.Tensor         # (E, D)
     sil_always: torch.Tensor     # (E,) bool open ends / boundary edges
+    # the BVH route's trees (None on the grid route)
+    bb_min: torch.Tensor | None = None       # (M, D) node bounds
+    bb_max: torch.Tensor | None = None
+    left: torch.Tensor | None = None         # (M,) i32 children, -1 at a
+    right: torch.Tensor | None = None        #   leaf
+    leaf_prims: torch.Tensor | None = None   # (M, LEAF_SIZE) i32, -1 pad
+    corners: torch.Tensor | None = None      # (P, dim * D) prim corners
+    depth: int = -1                          # the prim tree's depth
+    node_measure: torch.Tensor | None = None  # (M,) subtree prim measure
+    sil_bb_min: torch.Tensor | None = None   # (Ms, D) entity tree
+    sil_bb_max: torch.Tensor | None = None
+    sil_left: torch.Tensor | None = None     # (Ms,) i32
+    sil_right: torch.Tensor | None = None
+    sil_leaf: torch.Tensor | None = None     # (Ms, LEAF_SIZE) i32, -1 pad
+    sil_cone_axis: torch.Tensor | None = None  # (Ms, D) unit
+    sil_cone_cos: torch.Tensor | None = None   # (Ms,) <= -1.5: no prune
+    sil_depth: int = -1
 
     @property
     def dim(self) -> int:
@@ -36,6 +67,22 @@ class GeomSet:
     def n_prims(self) -> int:
         return int(self.indices.shape[0])
 
+    @property
+    def has_tree(self) -> bool:
+        """The prim tree is there (the BVH route)."""
+        return self.left is not None
+
+    @property
+    def stack_size(self) -> int:
+        """The prim traversal's stack, depth + 4 (the JAX Problem's
+        d_stack / n_stack)."""
+        return self.depth + 4
+
+    def tree_bytes(self) -> int:
+        """Bytes of the trees' tensors on the device."""
+        return sum(t.numel() * t.element_size() for t in (
+            getattr(self, k) for k in TREE_FIELDS) if t is not None)
+
     def prim_verts(self, pid: torch.Tensor):
         """Corner tuple of (..., D) at prim ids (negatives -> 0).
         Column by column: PyTorch's row gather of the (P, 2) int64 table
@@ -44,10 +91,55 @@ class GeomSet:
         return tuple(self.verts[self.indices[p, k]] for k in range(self.dim))
 
 
+def _check_depth(depth: int, what: str) -> None:
+    if depth + 4 > MAX_STACK:
+        raise ValueError(f"{what} of depth {depth}: its traversal needs a "
+                         f"stack of {depth + 4}, above the kernels' "
+                         f"{MAX_STACK}")
+
+
+def tree_depth(left: np.ndarray, right: np.ndarray) -> int:
+    """A flattened tree's depth from its child ids (a child's id is above
+    its parent's, so one forward pass sets every node's level)."""
+    left, right = np.asarray(left), np.asarray(right)
+    level = np.zeros(left.shape[0], np.int64)
+    for nid in np.nonzero(left >= 0)[0]:
+        level[left[nid]] = level[right[nid]] = level[nid] + 1
+    return int(level.max()) if level.size else 0
+
+
+def _tree_arrays(verts, indices, measure, sil) -> dict:
+    """The JAX package's tree fields of one set (its ``make_geom_set``)
+    as numpy, with the depths."""
+    tree = bvh_mod.build_bvh(verts, indices, LEAF_SIZE)
+    out = dict(bb_min=tree.bb_min, bb_max=tree.bb_max, left=tree.left,
+               right=tree.right,
+               leaf_prims=bvh_mod.pad_leaf_prims(tree, LEAF_SIZE),
+               depth=tree.depth)
+    if indices.shape[0] > CHUNKED_DENSE_MAX:
+        out["node_measure"] = bvh_mod.node_sums(tree, measure)
+    if sil is not None and sil["p0"].shape[0] > CHUNKED_DENSE_MAX:
+        stree = bvh_mod.build_bvh_boxes(np.minimum(sil["p0"], sil["p1"]),
+                                        np.maximum(sil["p0"], sil["p1"]),
+                                        LEAF_SIZE)
+        axis, cone_cos = bvh_mod.node_normal_cones(
+            stree, sil["n1"], sil["n2"], sil["always"])
+        out.update(sil_bb_min=stree.bb_min, sil_bb_max=stree.bb_max,
+                   sil_left=stree.left, sil_right=stree.right,
+                   sil_leaf=bvh_mod.pad_leaf_prims(stree, LEAF_SIZE),
+                   sil_cone_axis=axis, sil_cone_cos=cone_cos,
+                   sil_depth=stree.depth)
+    return out
+
+
 def make_geom_set(verts: np.ndarray, indices: np.ndarray,
-                  device: torch.device) -> GeomSet:
+                  device: torch.device, bvh: bool = False,
+                  silhouettes: bool = True) -> GeomSet:
     """verts (V, D) and indices (P, D) of segments (D = 2) or triangles
-    (D = 3); the normal and measure as the reference computes them."""
+    (D = 3); the normal and measure as the reference computes them.
+    ``bvh``: also the trees of the BVH route, the JAX package's fields
+    (the entities' tree only with ``silhouettes``: a Dirichlet set's
+    silhouettes are never queried)."""
     verts = np.asarray(verts, np.float32)
     indices = np.asarray(indices, np.int32)
     dim = indices.shape[1]
@@ -65,13 +157,52 @@ def make_geom_set(verts: np.ndarray, indices: np.ndarray,
     n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
     sil = silhouette_entities_native(verts, indices)
 
+    arrays = dict(verts=verts, indices=indices,
+                  prim_normal=n.astype(np.float32),
+                  prim_measure=measure.astype(np.float32),
+                  **{f"sil_{k}": v for k, v in sil.items()})
+    if bvh:
+        arrays.update(_tree_arrays(verts, indices, measure,
+                                   sil if silhouettes else None))
+    return geom_set_from_arrays(arrays, device)
+
+
+_INT_FIELDS = ("left", "right", "leaf_prims", "sil_left", "sil_right",
+               "sil_leaf")
+
+
+def geom_set_from_arrays(arrays: dict, device: torch.device) -> GeomSet:
+    """The port's GeomSet from numpy arrays named as the JAX GeomSet's
+    fields (``{k: np.asarray(v) for k, v in gs._asdict().items()}``, the
+    None ones left out or None), so that both sides can hold one tree.
+    The depths are the given ``depth`` / ``sil_depth`` or, without them,
+    read off the trees; the corner table is made here."""
+
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.require(a, requirements=("C", "W")),
                                dtype=dtype, device=device)
 
-    return GeomSet(
-        verts=t(verts), indices=t(indices, torch.int64),
-        prim_normal=t(n.astype(np.float32)),
-        prim_measure=t(measure.astype(np.float32)),
-        sil_p0=t(sil["p0"]), sil_p1=t(sil["p1"]), sil_n1=t(sil["n1"]),
-        sil_n2=t(sil["n2"]), sil_always=t(sil["always"], torch.bool))
+    a = {k: v for k, v in arrays.items() if v is not None}
+    verts = np.asarray(a["verts"], np.float32)
+    indices = np.asarray(a["indices"], np.int64)
+    fields = dict(verts=t(verts), indices=t(indices, torch.int64),
+                  sil_always=t(np.asarray(a["sil_always"], bool),
+                               torch.bool))
+    for k in ("prim_normal", "prim_measure", "sil_p0", "sil_p1", "sil_n1",
+              "sil_n2", "bb_min", "bb_max", "node_measure", "sil_bb_min",
+              "sil_bb_max", "sil_cone_axis", "sil_cone_cos"):
+        if k in a:
+            fields[k] = t(np.asarray(a[k], np.float32))
+    for k in _INT_FIELDS:
+        if k in a:
+            fields[k] = t(np.asarray(a[k], np.int32), torch.int32)
+    for pre, what in (("", "the prim tree"), ("sil_", "the silhouette tree")):
+        if pre + "left" in a:
+            depth = a.get(pre + "depth")
+            if depth is None:
+                depth = tree_depth(a[pre + "left"], a[pre + "right"])
+            _check_depth(int(depth), what)
+            fields[pre + "depth"] = int(depth)
+    if "left" in a:
+        fields["corners"] = t(verts[indices].reshape(indices.shape[0], -1))
+    return GeomSet(**fields)

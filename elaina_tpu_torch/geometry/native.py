@@ -5,8 +5,9 @@ port's build directory at first use (``utils/build.py``); the committed
 ``native/libelaina_scene.so`` is not loaded, since it was built with
 ``-march=native`` on another host.  There is no numpy fallback: a failed
 build raises.  Only the entry points the port uses are bound: OBJ
-parsing, silhouette entities, the fused candidate-grid band pass, and the
-silhouette and prim band passes of the 3D Neumann grids.
+parsing, the BVH build of the BVH route, silhouette entities, the fused
+candidate-grid band pass, and the silhouette and prim band passes of the
+3D Neumann grids.
 
 The band passes treat each cell on its own (the BVH they build over the
 set is the only shared state, and it is rebuilt identically per call), so
@@ -49,6 +50,13 @@ class _ObjData(ctypes.Structure):
                 ("n_tris", ctypes.c_int64)]
 
 
+class _BvhOut(ctypes.Structure):
+    _fields_ = [("bb_min", _FP), ("bb_max", _FP), ("left", _IP),
+                ("right", _IP), ("start", _IP), ("count", _IP),
+                ("order", _IP), ("n_nodes", ctypes.c_int64),
+                ("depth", ctypes.c_int32)]
+
+
 class _SilOut(ctypes.Structure):
     _fields_ = [("p0", _FP), ("p1", _FP), ("n1", _FP), ("n2", _FP),
                 ("always", ctypes.POINTER(ctypes.c_uint8)),
@@ -69,6 +77,11 @@ def library() -> ctypes.CDLL:
     lib.obj_load.argtypes = [ctypes.c_char_p]
     lib.obj_free.restype = None
     lib.obj_free.argtypes = [ctypes.POINTER(_ObjData)]
+    lib.bvh_build.restype = ctypes.POINTER(_BvhOut)
+    lib.bvh_build.argtypes = [_FP, ctypes.c_int64, _IP, ctypes.c_int64,
+                              ctypes.c_int32, ctypes.c_int32, ctypes.c_int32]
+    lib.bvh_free.restype = None
+    lib.bvh_free.argtypes = [ctypes.POINTER(_BvhOut)]
     lib.silhouettes_build.restype = ctypes.POINTER(_SilOut)
     lib.silhouettes_build.argtypes = [_FP, ctypes.c_int64, _IP,
                                       ctypes.c_int64, ctypes.c_int32]
@@ -119,6 +132,35 @@ def load_obj_native(path: str, dim: int):
     if indices.shape[0] == 0:
         raise ValueError(f"{path}: no dim-{dim} primitives found")
     return verts, indices
+
+
+def build_bvh_native(verts: np.ndarray, indices: np.ndarray,
+                     leaf_size: int) -> dict:
+    """The median-split BVH of ``bvh_build`` over the prims' boxes: a
+    dict of bb_min, bb_max (M, D) f32, left, right, start, count (M,) i32,
+    prim_order (P,) i32 and depth (int), the layout of
+    ``geometry/bvh.BVHArrays``."""
+    lib = library()
+    dim = verts.shape[1]
+    v = _f32(verts)
+    idx = np.ascontiguousarray(indices, np.int32)
+    out = lib.bvh_build(v.ctypes.data_as(_FP), v.shape[0],
+                        idx.ctypes.data_as(_IP), idx.shape[0], idx.shape[1],
+                        dim, int(leaf_size))
+    try:
+        c = out.contents
+        m = int(c.n_nodes)
+        return dict(
+            bb_min=_copy(c.bb_min, (m, dim), np.float32),
+            bb_max=_copy(c.bb_max, (m, dim), np.float32),
+            left=_copy(c.left, (m,), np.int32),
+            right=_copy(c.right, (m,), np.int32),
+            start=_copy(c.start, (m,), np.int32),
+            count=_copy(c.count, (m,), np.int32),
+            prim_order=_copy(c.order, (idx.shape[0],), np.int32),
+            depth=int(c.depth))
+    finally:
+        lib.bvh_free(out)
 
 
 def silhouette_entities_native(verts: np.ndarray, indices: np.ndarray):

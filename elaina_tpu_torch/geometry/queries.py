@@ -1,29 +1,36 @@
-"""Boundary-set queries: closest point, the Neumann sweeps and the
-band-grid queries.
+"""Boundary-set queries: closest point, the Neumann sweeps, the BVH
+traversals and the band-grid queries.
 
-Port of ``elaina_tpu/geometry/queries.py``:
+Port of ``elaina_tpu/geometry/queries.py``, with its dispatch by size:
 
-* ``closest_point`` / ``closest_point_detail`` of a set without a
-  candidate grid: in 2D the dense sweep of kernel K13 over every segment
-  (exact at every P, so equal up to ties to the reference's dense, chunked
-  and BVH branches); in 3D the reference's dense (<= ``BRUTE_FORCE_MAX``)
-  and chunked (<= ``CHUNKED_DENSE_MAX``) sweeps in PyTorch;
-* the branches of a 2D Neumann set without band grids: closest
+* a set that carries its trees (the BVH route, ``GeomSet.has_tree``)
+  above ``CHUNKED_DENSE_MAX`` prims takes the traversals of
+  ``ops/bvh.py`` for the closest point (B1, 2D and 3D), the ray (B2,
+  closest hit and any hit) and, with its subtree measures, the in-ball
+  sample (B3); above ``CHUNKED_DENSE_MAX`` silhouette entities, with
+  their tree, the coned silhouette descent (B4);
+* otherwise ``closest_point`` / ``closest_point_detail`` of a set without
+  a candidate grid: in 2D the dense sweep of kernel K13 over every
+  segment (exact at every P, so equal up to ties to the reference's
+  dense, chunked and BVH branches); in 3D the reference's dense and
+  chunked sweeps in PyTorch (exact at every P);
+* the branches of a Neumann set without band grids or trees: closest
   silhouette, ray intersection and Green-weighted in-ball sampling, dense
   up to ``BRUTE_FORCE_MAX`` prims and chunked (64 prims a chunk, as the
-  reference) up to ``CHUNKED_DENSE_MAX`` (the reference's ``small_gather``
-  one-hot matmuls are plain indexing);
-* the exact silhouette distance of the NEUMANN_SDF channel, a dense
-  sweep over the entities (chunked over lanes and, above
-  ``CHUNKED_DENSE_MAX`` entities, over entities too), in 2D and 3D;
+  reference) above (the reference's ``small_gather`` one-hot matmuls are
+  plain indexing);
+* the exact silhouette distance of the NEUMANN_SDF channel without the
+  entities' tree, a dense sweep over the entities (chunked over lanes
+  and, above ``CHUNKED_DENSE_MAX`` entities, over entities too), in 2D
+  and 3D;
 * the band-grid queries of a Neumann set: the silhouette distance over
   the SilGrid (kernel K9, 3D and 2D), one depth step's in-ball sample,
   visibility ray and walk ray over the 3D prim-band grid fused (kernel
   K6), and the unfused closest-hit ray (K7) and in-ball sample (K8) that
   the source term and the unfused step take; a 2D prim-band grid takes
-  the reference's gather forms of the last two.  A 3D set always takes
-  the band grids in the solve, a 2D one above ``CHUNKED_DENSE_MAX``;
-  there is no BVH query.
+  the reference's gather forms of the last two.  On the grid route a 3D
+  set always takes the band grids in the solve, a 2D one above
+  ``CHUNKED_DENSE_MAX``.
 """
 
 from __future__ import annotations
@@ -32,26 +39,23 @@ from dataclasses import dataclass
 
 import torch
 
+from ..ops import bvh as B
 from ..ops import queries as K
 from ..solver.green import GREEN_R_CLAMP, green_eval
-from .geomset import GeomSet
+from .geomset import CHUNKED_DENSE_MAX, GeomSet
 from .grid import BandGrid
 from .primitives import (prim_closest_point, prim_project, prim_ray_intersect,
                          prim_side, seg_closest_point)
 
 BRUTE_FORCE_MAX = 64
-CHUNKED_DENSE_MAX = 4096
 _SWEEP_ELEMS = 1 << 24     # lanes x entities per chunk of the dense sweep
 _CHUNK_LANES = 1 << 18     # lanes per chunk of the band gather forms
 _INF = float("inf")
 
 
-def _no_bvh(gs: GeomSet, what: str):
-    raise NotImplementedError(
-        f"{what} over a {gs.dim}D set of {gs.n_prims} prims without a grid: "
-        f"above {CHUNKED_DENSE_MAX} prims the reference traverses its BVH, "
-        f"which the port has not yet: it arrives with the ROADMAP item "
-        f"'BVH'")
+def _traverses(gs: GeomSet) -> bool:
+    """The prim queries of this set descend its tree (B1-B3)."""
+    return gs.has_tree and gs.n_prims > CHUNKED_DENSE_MAX
 
 
 def _prim_verts_all(gs: GeomSet):
@@ -75,8 +79,6 @@ def _closest_point_3d(gs: GeomSet, q):
     sweeps: the exact distance over every prim and the first prim on a
     tie (its running min over 64-prim chunks on a strict < gives the
     same), in lane chunks."""
-    if gs.n_prims > CHUNKED_DENSE_MAX:
-        _no_bvh(gs, "closest_point")
     n = q.shape[0]
     pv = _prim_verts_all(gs)
     best_d = torch.empty((n,), device=q.device)
@@ -90,11 +92,16 @@ def _closest_point_3d(gs: GeomSet, q):
 
 def closest_point(gs: GeomSet, q, active=None):
     """q (N, D) -> (distance (N,), prim id (N,) int32): the exact closest
-    prim of a set without a candidate grid.  2D: kernel K13 over every
-    segment (the smallest id on equal distance); 3D: the dense and chunked
-    sweeps.  ``active`` (N,) bool, where given, names the lanes the caller
-    reads: in 2D K13 sweeps only those (its lane-list form) and gives the
-    others distance +inf and prim 0; in 3D every lane is swept."""
+    prim of a set without a candidate grid.  A set with its tree above
+    CHUNKED_DENSE_MAX prims: the traversal B1 (the first prim reached on
+    equal distance).  Otherwise 2D: kernel K13 over every segment (the
+    smallest id on equal distance); 3D: the dense and chunked sweeps.
+    ``active`` (N,) bool, where given, names the lanes the caller reads:
+    B1 descends and K13 sweeps only those (K13's lane-list form) and give
+    the others distance +inf and prim 0; the 3D sweep sweeps every
+    lane."""
+    if _traverses(gs):
+        return B.closest_point_bvh(gs, q.contiguous(), active)
     if gs.dim == 3:
         return _closest_point_3d(gs, q)
     return K.closest_point_dense(q.contiguous(),
@@ -130,12 +137,18 @@ def _silhouette_sweep(gs: GeomSet, q, e0: int, e1: int):
     return torch.where(is_sil, d, torch.full_like(d, _INF)).min(dim=-1).values
 
 
-def closest_silhouette(gs: GeomSet, q: torch.Tensor) -> torch.Tensor:
-    """Distance (N,) to the nearest silhouette entity, exact: the dense
-    sweep, over chunks of ``CHUNKED_DENSE_MAX`` entities above that count
-    (the reference's dense and chunked sweeps; its coned-BVH branch gives
-    the same distances) and over chunks of lanes to bound memory."""
+def closest_silhouette(gs: GeomSet, q: torch.Tensor,
+                       live=None) -> torch.Tensor:
+    """Distance (N,) to the nearest silhouette entity, exact: above
+    CHUNKED_DENSE_MAX entities with their tree, the coned descent B4 (on
+    the lanes that ``live`` (N,) bool names, +inf on the others);
+    otherwise the dense sweep on every lane, over chunks of
+    ``CHUNKED_DENSE_MAX`` entities above that count (the reference's
+    dense and chunked sweeps) and over chunks of lanes to bound
+    memory."""
     E = gs.sil_p0.shape[0]
+    if E > CHUNKED_DENSE_MAX and gs.sil_left is not None:
+        return B.closest_silhouette_bvh(gs, q.contiguous(), live)
     out = torch.full(q.shape[:1], _INF, device=q.device)
     if E == 0:
         return out
@@ -168,12 +181,17 @@ def _ray_chunked(gs: GeomSet, o, d, tmax):
     return hit, torch.where(hit, best_t, _INF), best_i
 
 
-def ray_intersect(gs: GeomSet, o, d, tmax):
+def ray_intersect(gs: GeomSet, o, d, tmax, any_hit: bool = False,
+                  live=None):
     """(N, D) rays -> (hit (N,), t (N,) inf on a miss, prim id (N,)):
-    the dense sweep up to BRUTE_FORCE_MAX prims, the chunked one up to
-    CHUNKED_DENSE_MAX."""
-    if gs.n_prims > CHUNKED_DENSE_MAX:
-        _no_bvh(gs, "ray_intersect")
+    the dense sweep up to BRUTE_FORCE_MAX prims, the traversal B2 above
+    CHUNKED_DENSE_MAX with the set's tree (``any_hit``: the first hit
+    found, which is all an occlusion test reads; the lanes that ``live``
+    (N,) bool leaves out miss), the chunked sweep otherwise (the closest
+    hit on every lane, whatever ``any_hit`` and ``live`` say)."""
+    if _traverses(gs):
+        return B.ray_bvh(gs, o.contiguous(), d.contiguous(),
+                         tmax.contiguous(), any_hit, live)
     if gs.n_prims > BRUTE_FORCE_MAX:
         return _ray_chunked(gs, o, d, tmax)
     hit, t = prim_ray_intersect(gs.dim, o[:, None, :], d[:, None, :],
@@ -225,14 +243,18 @@ def _sample_in_ball_chunked(gs: GeomSet, q, R, u):
     return idx, pdf
 
 
-def sample_in_ball(gs: GeomSet, q, R, u):
+def sample_in_ball(gs: GeomSet, q, R, u, live=None):
     """Importance-sample a prim inside ball(q, R) with weights
     measure x G_R(distance); returns (prim id, pdf per unit boundary
     measure), with id -1 and pdf 0 when nothing overlaps.  Dense up to
-    BRUTE_FORCE_MAX prims, chunked up to CHUNKED_DENSE_MAX."""
-    if gs.n_prims > CHUNKED_DENSE_MAX:
-        _no_bvh(gs, "sample_in_ball")
+    BRUTE_FORCE_MAX prims; the descent B3 where the set has its subtree
+    measures (its tree above CHUNKED_DENSE_MAX prims: -1 and 0 on the
+    lanes that ``live`` (N,) bool leaves out), an exact pdf of its own
+    proposal; chunked otherwise (every lane)."""
     if gs.n_prims > BRUTE_FORCE_MAX:
+        if gs.node_measure is not None:
+            return B.sample_in_ball_bvh(gs, q.contiguous(), R.contiguous(),
+                                        u.contiguous(), live)
         return _sample_in_ball_chunked(gs, q, R, u)
     d, _ = prim_closest_point(gs.dim, q[:, None, :], _prim_verts_all(gs))
     inside = d < R[:, None]

@@ -17,17 +17,30 @@ from ..utils.rng import sample_generators
 from .wost import check_neumann, init_walk_state, wost_depth_step
 
 
+def _check_stack(b, stack: int, name: str) -> None:
+    """Raise where a set's tree needs a longer stack than ``stack``."""
+    if b is not None and b.gs.has_tree and stack < b.gs.depth + 1:
+        raise ValueError(f"{name} {stack}: the set's tree of depth "
+                         f"{b.gs.depth} needs a stack of {b.gs.depth + 1}")
+
+
 def trace_walk(scene: Scene, point, seed: int = 0, *, eps: float = 1e-3,
-               max_depth: int = 16):
+               max_depth: int = 16, d_stack: int = 48, n_stack: int = 48):
     """One entry a depth step, until the first step after which the walk
     is inactive: ``depth``, ``pos`` (where the step started),
     ``next_pos``, ``contribution`` (3,), ``thp``, ``active``,
     ``on_neumann`` and ``neumann_normal``, as the JAX package's.  The
     walk draws from the streams of sample 0 of run seed ``seed`` (where
     the JAX package takes a key).  A Dirichlet grid without a FinePack
-    for ``eps`` gets one, as the integrator bakes it.  The JAX function's
-    ``d_stack`` and ``n_stack`` size its BVH traversal stacks; they come
-    back with the port's BVH route."""
+    for ``eps`` gets one, as the integrator bakes it.  ``d_stack`` and
+    ``n_stack`` are the JAX function's traversal stacks of the Dirichlet
+    and the Neumann set: on the BVH route a stack shorter than a descent
+    of the set's tree can hold (depth + 1 nodes) raises, where the JAX
+    function drops the push; any longer stack traces the same walk (the
+    traversals keep depth + 4 entries, the JAX Problem's d_stack and
+    n_stack)."""
+    _check_stack(scene.dirichlet, d_stack, "d_stack")
+    _check_stack(scene.neumann, n_stack, "n_stack")
     dev = scene.device
     grid = scene.d_grid
     if grid is not None and (grid.fine is None or grid.fine.eps != eps):

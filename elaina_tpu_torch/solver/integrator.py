@@ -114,15 +114,18 @@ class BaseIntegrator:
     def prepare(self) -> None:
         """Work before the solve's clock starts (the JAX integrator's
         ``prepare`` compiles its programs there): on a CUDA device load
-        both kernel libraries, ``ops/resolve`` and ``ops/queries``, which
-        builds them if ``_build/`` holds no library of these sources (on
-        the CPU there is nothing to load); then each pixel's first
-        separation (``_step0``), which the balanced route reuses."""
+        the kernel libraries, ``ops/resolve`` and ``ops/queries`` and, on
+        the BVH route, ``ops/bvh``, which builds them if ``_build/`` holds
+        no library of these sources (on the CPU there is nothing to
+        load); then each pixel's first separation (``_step0``), which the
+        balanced route reuses."""
         if self.device.type == "cuda":
-            from ..ops import queries, resolve
+            from ..ops import bvh, queries, resolve
 
             resolve.library()
             queries.library()
+            if self.problem.scene.accel == "bvh":
+                bvh.library()
         self._step0()
 
     def _step0(self):

@@ -217,7 +217,7 @@ def _separate(scene: Scene, state: WalkState, eps: float, shrink: bool,
             # a dead walk's R_N is never read: K9-2D skips its row
             R_N = Q.grid_closest_silhouette(scene.n_sgrid, q, state.active)
         else:
-            R_N = Q.closest_silhouette(scene.neumann.gs, q)
+            R_N = Q.closest_silhouette(scene.neumann.gs, q, state.active)
         if scene.n_bgrid is not None:
             # clamp to the prim band's completeness cap, less 2 eps for
             # the eps-offset ray origins: within it one band row holds
@@ -278,7 +278,7 @@ def _source_term(scene: Scene, state: WalkState, live, R_B, gen,
                                              offset=eps)
         else:
             hit, t, _ = Q.ray_intersect(scene.neumann.gs, origin, direction,
-                                        dist)
+                                        dist, live=live)
         dist = torch.where(hit, torch.minimum(t, dist), dist)
     u = torch.rand((n, 3), generator=gen, device=gen.device)
     r, _ = green_sample_radius(u, R_B, dim)
@@ -305,7 +305,7 @@ def _neumann_term(scene: Scene, state: WalkState, live, R_B, gen,
         pid, pdf = Q.band_sample_in_ball(bg, gs, state.pos, R_B, u_sel,
                                          live=live)
     else:
-        pid, pdf = Q.sample_in_ball(gs, state.pos, R_B, u_sel)
+        pid, pdf = Q.sample_in_ball(gs, state.pos, R_B, u_sel, live)
     valid = (pid >= 0) & (pdf > 0)
 
     u_pt = torch.rand((n, 2), generator=gen, device=gen.device)
@@ -326,8 +326,11 @@ def _neumann_term(scene: Scene, state: WalkState, live, R_B, gen,
                                               clamp_dist - eps, ref=state.pos,
                                               live=live, offset=eps)
     else:
+        # an occlusion test: the traversal may stop at the first hit
+        # (reference wost.py:475-481)
         occluded, _, _ = Q.ray_intersect(gs, origin, ray_dir,
-                                         clamp_dist - eps)
+                                         clamp_dist - eps, any_hit=True,
+                                         live=live)
     valid &= ~occluded
 
     side = prim_side(dim, state.pos, pv)
@@ -369,7 +372,8 @@ def _walk(scene: Scene, state: WalkState, live, R_B, gen, eps: float,
                                                direction, R_B, ref=state.pos,
                                                live=live, offset=eps)
         else:
-            hit, t, pid = Q.ray_intersect(gs, current, direction, R_B)
+            hit, t, pid = Q.ray_intersect(gs, current, direction, R_B,
+                                          live=live)
         n_raw = gs.prim_normal[pid]
         # shading normal opposes the incoming direction (:509-512)
         n_flip = torch.where(
@@ -484,17 +488,18 @@ def wost_depth_step(scene: Scene, state: WalkState, gens: dict,
 
 
 def check_neumann(scene: Scene):
-    """A 3D Neumann set takes its band grids; a 2D one the sweeps or, above
-    CHUNKED_DENSE_MAX prims, its prim-band grid."""
+    """A Neumann set takes its band grids, its trees (the BVH route) or,
+    up to CHUNKED_DENSE_MAX prims, the dense and chunked sweeps; without
+    its prim-band grid, a set above that needs its tree (and the sweeps
+    of its silhouettes, exact at any count, serve without theirs)."""
     if scene.neumann is None:
         return
-    if scene.dim == 3 and (scene.n_sgrid is None or scene.n_bgrid is None):
-        raise ValueError("a 3D Neumann set needs its silhouette and "
-                         "prim-band grids")
-    if (scene.n_bgrid is None
-            and scene.neumann.gs.n_prims > Q.CHUNKED_DENSE_MAX):
-        raise ValueError(f"a 2D Neumann set above {Q.CHUNKED_DENSE_MAX} "
-                         f"prims needs its prim-band grid")
+    gs = scene.neumann.gs
+    if (scene.n_bgrid is None and gs.n_prims > Q.CHUNKED_DENSE_MAX
+            and not gs.has_tree):
+        raise ValueError(f"a Neumann set above {Q.CHUNKED_DENSE_MAX} prims "
+                         f"needs its prim-band grid or its tree "
+                         f"(accel='bvh')")
 
 
 def compute_step0(scene: Scene, eval_points, mask, eps: float):

@@ -136,10 +136,11 @@ def bench_square(dev, spp: int):
     return problem, UniformIntegrator(problem, settings, "unused")
 
 
-def load_integrator(conf: str, dev, spp: int | None = None):
+def load_integrator(conf: str, dev, spp: int | None = None,
+                    accel: str = "auto"):
     """The problem and the integrator of a config (uniform, or guided with
     its network reset), as ``run_expr`` makes them (``spp`` overrides its
-    samples per pixel)."""
+    samples per pixel; ``accel`` is ``Problem.load_config``'s)."""
     import dataclasses
 
     from elaina_tpu_torch.core.config import ExperimentConfig
@@ -150,7 +151,7 @@ def load_integrator(conf: str, dev, spp: int | None = None):
     settings = cfg.settings if spp is None else dataclasses.replace(
         cfg.settings, samplesPerPixel=spp)
     problem = Problem(cfg.dimensionality, dev, verbose=False).load_config(
-        cfg.scene, cache_dir=os.environ["ELAINA_CACHE_DIR"])
+        cfg.scene, cache_dir=os.environ["ELAINA_CACHE_DIR"], accel=accel)
     if cfg.integrator_type == "guided":
         # imported here: a tree from before the guided port runs this
         # module's uniform paths in its A/B turns

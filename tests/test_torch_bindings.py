@@ -1,12 +1,12 @@
 """The ctypes bindings of the port's CUDA libraries against their sources.
 
-Each ``*_launch`` function of ``csrc/resolve.cu`` and ``csrc/queries.cu``
-is bound in ``ops/{resolve,queries}.py`` with one ctypes type per
-argument, the stream last.  An argument left out of the list is passed
-by ctypes' default rule, a 32-bit int, so a pointer past the list is cut
-and the launch faults only on the card.  Here, without a card or nvcc:
-every exported launch function is bound, with as many types as its C
-prototype has parameters, pointers as ``c_void_p``.
+Each ``*_launch`` function of ``csrc/resolve.cu``, ``csrc/queries.cu``
+and ``csrc/bvh.cu`` is bound in ``ops/{resolve,queries,bvh}.py`` with one
+ctypes type per argument, the stream last.  An argument left out of the
+list is passed by ctypes' default rule, a 32-bit int, so a pointer past
+the list is cut and the launch faults only on the card.  Here, without a
+card or nvcc: every exported launch function is bound, with as many types
+as its C prototype has parameters, pointers as ``c_void_p``.
 """
 
 import ctypes
@@ -17,7 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from elaina_tpu_torch.ops import queries, resolve  # noqa: E402
+from elaina_tpu_torch.ops import bvh, queries, resolve  # noqa: E402
 
 CSRC = os.path.join(os.path.dirname(resolve.__file__), os.pardir, "csrc")
 C_TYPES = {"int64_t": ctypes.c_int64, "int32_t": ctypes.c_int32,
@@ -37,8 +37,9 @@ def _prototypes(source: str) -> dict:
 
 
 @pytest.mark.parametrize("module, source", [(resolve, "resolve.cu"),
-                                            (queries, "queries.cu")],
-                         ids=["resolve", "queries"])
+                                            (queries, "queries.cu"),
+                                            (bvh, "bvh.cu")],
+                         ids=["resolve", "queries", "bvh"])
 def test_launch_signatures_match_sources(module, source):
     protos = _prototypes(source)
     assert set(module._SIGNATURES) == set(protos)

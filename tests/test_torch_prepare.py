@@ -1,13 +1,16 @@
 """The port's kernel build stays out of the solve's clock.
 
-``UniformIntegrator.prepare`` loads the CUDA kernel libraries (building
-them when ``_build/`` holds none of these sources) on a CUDA device and
+``UniformIntegrator.prepare`` loads the CUDA kernel libraries of the
+scene's route (building them when ``_build/`` holds none of these
+sources) on a CUDA device and
 loads nothing on the CPU (on both it also computes the step-0 tables of
 the balanced route), and ``exec.run_expr`` calls it before any
 channel, so ``result.json``'s duration never counts nvcc.  Nothing here
 builds a kernel: the library loader is replaced by one that records the
 names it is asked for.
 """
+
+from types import SimpleNamespace
 
 import pytest
 
@@ -37,18 +40,26 @@ def loads(monkeypatch):
     return names
 
 
-def _integrator_on(device):
+def _integrator_on(device, accel="grid"):
     """A bare integrator on ``device`` whose step-0 tables (the rest of
-    ``prepare``'s work) are already there, so only the loads remain."""
+    ``prepare``'s work) are already there, so only the loads remain; its
+    problem names only the scene's route (``Scene.accel``)."""
     integ = UniformIntegrator.__new__(UniformIntegrator)
     integ.device = torch.device(device)
     integ._step0_cache = ()
+    integ.problem = SimpleNamespace(scene=SimpleNamespace(accel=accel))
     return integ
 
 
 def test_prepare_loads_both_libraries_on_cuda(loads):
     _integrator_on("cuda:0").prepare()
     assert sorted(loads) == ["elaina_queries", "elaina_resolve"]
+
+
+def test_prepare_loads_the_bvh_library_on_the_bvh_route(loads):
+    _integrator_on("cuda:0", accel="bvh").prepare()
+    assert sorted(loads) == ["elaina_bvh", "elaina_queries",
+                             "elaina_resolve"]
 
 
 def test_prepare_does_nothing_on_the_cpu(loads):

@@ -166,17 +166,55 @@ def _pdf_tolerance(gp, q, R, pid, pdf):
         pdf) + 1e-7
 
 
-def test_dense_queries_refuse_large_sets():
-    """Above CHUNKED_DENSE_MAX prims the reference traverses its BVH, which
-    the port has not: a set that large without band grids raises (smaller
-    ones take the dense and chunked sweeps)."""
+def test_large_sets_take_the_traversal(monkeypatch):
+    """Just above CHUNKED_DENSE_MAX prims and entities, a set with its
+    trees (the BVH route) takes the traversals, and they equal brute
+    force: the closest point and the silhouette distance to the dense
+    sweeps (the set built without trees), the ray to the chunked sweep,
+    and every in-ball sample is a prim inside its ball."""
+    from elaina_tpu_torch.ops import bvh as B
+
     verts, idx = _open_polyline(n=TQ.CHUNKED_DENSE_MAX + 1)
-    gp = TGS.make_geom_set(verts, idx, CPU)
-    o = torch.zeros((4, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TQ.ray_intersect(gp, o, o, torch.ones(4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TQ.sample_in_ball(gp, o, torch.ones(4), torch.ones(4))
+    gp = TGS.make_geom_set(verts, idx, CPU, bvh=True)
+    flat = TGS.make_geom_set(verts, idx, CPU)
+    calls = []
+    for name in ("closest_point_bvh_plain", "ray_bvh_plain",
+                 "sample_in_ball_bvh_plain",
+                 "closest_silhouette_bvh_plain"):
+        fn = getattr(B, name)
+        monkeypatch.setattr(B, name, lambda *a, _f=fn, _n=name, **k: (
+            calls.append(_n), _f(*a, **k))[1])
+    rng = np.random.default_rng(9)
+    n = 500
+    q = torch.as_tensor(rng.uniform(-1.6, 1.6, (n, 2)).astype(np.float32))
+    th = rng.uniform(0, 2 * math.pi, n)
+    d = torch.as_tensor(np.stack([np.cos(th), np.sin(th)], -1).astype(
+        np.float32))
+    tmax = torch.as_tensor(rng.uniform(0.05, 2.0, n).astype(np.float32))
+    dist, pid = TQ.closest_point(gp, q)
+    d0, p0 = TQ.closest_point(flat, q)
+    np.testing.assert_allclose(dist.numpy(), d0.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    hit, t, _ = TQ.ray_intersect(gp, q, d, tmax)
+    h0, t0, _ = TQ.ray_intersect(flat, q, d, tmax)
+    assert torch.equal(hit, h0) and hit.any()
+    np.testing.assert_allclose(t[hit].numpy(), t0[h0].numpy(), rtol=1e-5)
+    s = TQ.closest_silhouette(gp, q)
+    s0 = TQ.closest_silhouette(flat, q)
+    assert torch.equal(torch.isfinite(s), torch.isfinite(s0))
+    np.testing.assert_allclose(s.numpy(), s0.numpy(), rtol=1e-5, atol=1e-6)
+    R = torch.full((n,), 0.2)
+    ids, pdf = TQ.sample_in_ball(gp, q, R, torch.rand(n))
+    got = ids >= 0
+    assert got.any() and (pdf[got] > 0).all() and (pdf[~got] == 0).all()
+    seg = torch.stack([flat.verts[flat.indices[ids[got].long(), k]]
+                       for k in range(2)])
+    inside, _ = TQ.prim_closest_point(2, q[got], tuple(seg))
+    assert (inside < 0.2).all()
+    assert sorted(set(calls)) == ["closest_point_bvh_plain",
+                                  "closest_silhouette_bvh_plain",
+                                  "ray_bvh_plain",
+                                  "sample_in_ball_bvh_plain"]
 
 
 def test_green_functions_match_jax():
