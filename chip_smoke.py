@@ -131,11 +131,11 @@ and never prints its last line:
    lane.
 6. The mixed cube, u = (x + 1) / 2 (Dirichlet x = +-1, zero Neumann on the
    other faces), through ``Problem.load_config`` and ``UniformIntegrator``:
-   1,024 lanes of CUBE_SPP samples at each of three points, depth 256
+   1,024 lanes of CUBE_U_SPP samples at each of three points, depth 256
    (walks stall by the Neumann-Neumann edges), each within 0.07 of u, on
    both routes.  It runs K6 and K9 too.
 6b. The mixed cube with a unit source, u = (x + 1) / 2 + (1 - x^2) / 2,
-   the same way at depth 128, fused and unfused (``ELAINA_FUSED_BAND=0``),
+   the same way (CUBE_SPP samples) at depth 128, fused and unfused (``ELAINA_FUSED_BAND=0``),
    on both routes: each point within 0.07; the source term's K7 launches
    in every run.
 7. bumpy3d_u through ``exec.run_expr`` from a copy of
@@ -165,20 +165,21 @@ and never prints its last line:
    zeroed just before it and K1, K4, K5, K6, K9 and K11's must rise.
 8b. neumann3d_u with a volumetric source (``utils/scenes.
    write_neumann3d_source``: a smooth 64^3 RGB grid, SOURCE and SOLUTION)
-   at 64 spp: finite, and K7 must launch.
+   at SOURCE_3D_SPP: finite, and K7 must launch.
 8c. neumann3d_u unfused (``ELAINA_FUSED_BAND=0``, K8 and K7 in place of
    K6) and fused, 8 spp each: both walk-steps/s printed, K8 must launch,
    and the two means agree within 4 combined standard errors on >= 99%
    of the pixels.
 8g. neumann3d_n, the 3D guided path with a Neumann set
    (``utils/scenes.write_neumann3d_n``: neumann3d_u's scene, channels and
-   exports with bumpy3d_n's integrator settings and network, 64 spp of
-   which 16 train), as [7g] against [8]'s neumann3d_u film, with [8]'s
-   DIRICHLET_SDF bound; K1, K4, K5, K6, K9 and K11 launch.  Then one
-   guiding-phase depth step of the trained guide on the frame's lanes,
-   GUIDED_WARM_STEPS guided steps in: K6 launches once, on the guide's
-   directions, and equals its plain version on that launch's inputs (as
-   [5]); and the guide's costs at the 65,536 lanes, as [4g]'s.
+   exports with bumpy3d_n's integrator settings and network,
+   NEUMANN3D_N_SPP of which 16 train), as [7g] against [8]'s neumann3d_u
+   film, with [8]'s DIRICHLET_SDF bound; K1, K4, K5, K6, K9 and K11
+   launch.  Then one guiding-phase depth step of the trained guide on the
+   frame's lanes, GUIDED_WARM_STEPS guided steps in: K6 launches once, on
+   the guide's directions, and equals its plain version on that launch's
+   inputs (as [5]); and the guide's costs at the 65,536 lanes, as
+   [4g]'s.
 8r. lobed_u, lobed_n, neumann3d_u and bumpy3d_n on the per-sample route
    (copies of their configs with metric frames asked for and none
    written) at half the spp of [4], [4g], [8] and [7g] (ROUTES_SPP_CUT;
@@ -288,6 +289,23 @@ and never prints its last line:
    [8]'s band route, and its share of pixel channels within 4 combined
    standard errors of [8]'s film.
 
+12. The multi-rank path (``parallel/dp.py``; the lanes sharded over the
+   ranks of a process group), after every kernel is built.
+12a. A one-rank NCCL group: lobed_n's lockstep training chunk over it
+   under [8d]'s sync probe (its all-reduces make the host wait for
+   nothing).  Then MULTI_RANKS ranks spawned under gloo, both on cuda:0
+   (correct, but no scaling to read), run ``parallel/dryrun.py``'s five
+   steps: equal on both ranks.
+12b-12d. The same ranks run lobed_u (1024^2, MULTI_SPP samples), lobed_n
+   (MULTI_N_SPP of which MULTI_TRAIN_SPP train) and neumann3d_u (256^2,
+   MULTI_3D_SPP) through ``run_expr(devices=2, group=)``: each rank's launch
+   counts, zeroed just before each run, printed, and each kernel of the
+   path above 0 on every rank (K11, the one-shot DIRICHLET_SDF channel, on
+   rank 0, which alone renders it); ``walk_steps`` the sum of the ranks';
+   each film within 4 combined standard errors of [4]'s, [4g]'s and [8]'s
+   on >= 99% of pixel channels; lobed_n's trainers equal on both ranks
+   (their digests); walk-steps/s printed as a reading.
+
 Each phase ends with a line of its wall seconds (``[4d]: 3.2 s wall``),
 and ``[total]`` gives the whole run's.  The lines before the last hold
 the card's name and power limit and one
@@ -319,11 +337,20 @@ SPP = 32                     # samples of the 2D main path (phase 4)
 SPP_3D = 64                  # samples of bumpy3d_u and neumann3d_u (the
 #                              configs')
 BUMPY_DEPTH = 256            # bumpy3d_u's depth in phase 7 (the config: 64)
-CUBE_SPP = 8                 # samples of each of the cubes' 1,024 lanes a
-#                              point (phases 6, 6b): the source cube's
-#                              standard error at one sample (~0.019) left
-#                              its depth-128 mean (~0.03 under u) ~2 SE
-#                              from the 0.07 bound
+CUBE_SPP = 8                 # samples of each of the source cube's 1,024
+#                              lanes a point (phase 6b): its standard
+#                              error at one sample (~0.019) left its
+#                              depth-128 mean (~0.03 under u) ~2 SE from
+#                              the 0.07 bound
+CUBE_U_SPP = 4               # the same for the cube without a source
+#                              (phase 6; 8 before PR 19: its points lay
+#                              within 0.014 of u at 8, no bias to absorb)
+SOURCE_3D_SPP = 16           # [8b]'s samples (64 before PR 19; its gates
+#                              are a finite film and K7's launches)
+NEUMANN3D_N_SPP = 32         # [8g]'s samples, GUIDED_3D_TRAIN_SPP of them
+#                              training (64 before PR 19; the film gate
+#                              combines both films' standard errors, and
+#                              neumann3d_u on two ranks at 16 spp met it)
 SOURCE_CUBE_DEPTH = 128      # the source cube's depth (phase 6b): a walk
 #                              that crosses a Neumann face drifts away
 #                              geometrically, and past depth ~240 its
@@ -331,8 +358,8 @@ SOURCE_CUBE_DEPTH = 128      # the source cube's depth (phase 6b): a walk
 GUIDED_TRAIN_SPP = 8         # lobed_n's training samples of its SPP
 #                              (phase 4g; the config: 256 of 1,024)
 GUIDED_3D_TRAIN_SPP = 16     # bumpy3d_n's and neumann3d_n's training
-#                              samples of SPP_3D (phases 7g, 8g: the
-#                              config's 16 of 64)
+#                              samples (phases 7g, 8g: the config's 16 of
+#                              64; [8g] runs 32)
 SQUARE_SPP, SQUARE_TRAIN_SPP = 64, 16    # the guided square (phase 3b;
 #                              128 and 32 before PR 18: 7 x 256 lanes x 64
 #                              samples leave a standard error of ~0.004
@@ -444,8 +471,8 @@ ROUTES_SPP_CUT = 2           # [8r]: the per-sample runs take 1 / this of
 #                              their balanced runs' samples
 #                              (PR 18, to keep the run within 900 s on
 #                              the card; the 4-SE gate combines both
-#                              films' standard errors, so it holds at any
-#                              sample count)
+#                              films' standard errors, but not below 16
+#                              samples of neumann3d_u: see MULTI_3D_SPP)
 BVH_PLAIN_LANES = 65536      # [11a]: lanes of each plain traversal
 EDGE_LANES = 8192            # [11a]: B1's lanes under the edge masks (the
 #                              plain B1 in 3D takes seconds at 65,536)
@@ -457,6 +484,27 @@ CUBE_FINE_SPP = 4            # [11c]: samples of each of its 1,024 lanes a
 FLOPS_PER_VISIT = 36         # [11a]'s bound: float32 operations a node
 #                              visit takes at the least (three box
 #                              distances in 3D, 12 each)
+MULTI_RANKS = 2              # [12]: gloo ranks, both on cuda:0 (two ranks
+#                              on one card check the sharded path; they
+#                              measure no scaling)
+MULTI_SPP = 8                # [12b]: lobed_u's samples
+MULTI_3D_SPP = 16            # [12d]: neumann3d_u's: at 8 a pixel whose
+#                              walks the depth cap mostly kills can keep 8
+#                              zeros (standard error 0), and one rank's
+#                              film fails the 4-SE gate against [8]'s on
+#                              ~2% of channels (0.97960 in a PR 19 card
+#                              run; 0.99669 on two ranks at 16)
+MULTI_N_SPP, MULTI_TRAIN_SPP = 10, 8   # [12c]: lobed_n's samples, and its
+#                              training ones: with [4g]'s hints a training
+#                              phase of 2 or 4 samples (~10 steps each)
+#                              has no round above the depth, and its tail
+#                              rounds train nothing
+MULTI_TIMEOUT_S = 300        # [12]: the ranks' collectives and their join
+# [12b]-[12d]: each run's kernels, which every rank must launch; K11 (the
+# one-shot DIRICHLET_SDF channel) runs on rank 0 alone
+MULTI_PATHS = {"lobed_u": MAIN_2D, "lobed_n": MAIN_2D,
+               "neumann3d_u": MAIN_3D}
+RANK0_ONLY = ("grid_band_3d",)
 
 
 def log(msg: str) -> None:
@@ -2403,7 +2451,7 @@ def phase_analytic_3d(root: str, device, card: str) -> None:
                    np.float32)
     want = (pts[:, 0] + 1) / 2
     for route, chunk in (("balanced", None), ("per-sample", 1)):
-        u, ms, capped = solve_points(problem, pts, 1024, CUBE_SPP, 256,
+        u, ms, capped = solve_points(problem, pts, 1024, CUBE_U_SPP, 256,
                                      0.02, chunk)
         log(f"[6] mixed-BC cube, {route} route: u "
             f"{np.round(u, 4).tolist()} vs {want.tolist()} (atol 0.07), "
@@ -2616,7 +2664,11 @@ def phase_source_3d(root: str, card: str) -> dict:
     from elaina_tpu_torch.utils import scenes as S
 
     log("[8b] neumann3d_u with a source")
-    path = S.write_neumann3d_source(root, SPP_3D)
+    # its own directory: write_neumann3d_source writes a neumann3d_u.json
+    # of its samples beside it, and [8]'s is in ``root``
+    d = os.path.join(root, "source3d")
+    os.makedirs(d)
+    path = S.write_neumann3d_source(d, SOURCE_3D_SPP)
     launches, _, integ = run_main(
         path, ("band_ray", "band_neumann_walk", "sweep_resolve_3d"),
         "neumann3d_source", card)
@@ -2724,14 +2776,18 @@ def phase_routes(confs: dict, keep: dict, card: str) -> None:
         keep.pop(label + "_per_sample")
 
 
-def phase_syncs_balanced(conf_2d: str, conf_n: str, device) -> None:
+def phase_syncs_balanced(conf_2d: str, conf_n: str, device,
+                         group=None) -> None:
     """[8d] A whole balanced chunk of lobed_u (2 samples a lane) and of
     lobed_n's training phase (2 samples a lane, an optimizer pass every 4
     iterations) under ``torch.cuda.set_sync_debug_mode("error")``, lifted
     only around the host's reads of the loop condition (``balanced.
     read_flag``, every CHECK_EVERY iterations), after a short chunk
     outside it: no iteration waits for the device between the host's
-    checks."""
+    checks.  With ``group`` ([12a]: a one-rank NCCL group) lobed_n's
+    chunk alone, in lockstep over the group: its all-reduces (the loop
+    condition's, each optimizer pass's flag and gradients) queue on the
+    stream and make the host wait for nothing."""
     import traceback
 
     import torch
@@ -2753,7 +2809,8 @@ def phase_syncs_balanced(conf_2d: str, conf_n: str, device) -> None:
             torch.cuda.set_sync_debug_mode("error")
         return reads[-1]
 
-    for label, conf in (("lobed_u", conf_2d), ("lobed_n", conf_n)):
+    paths = (("lobed_u", conf_2d), ("lobed_n", conf_n))
+    for label, conf in paths if group is None else paths[1:]:
         problem, integ = load_integrator(conf, device, 2)
         integ.prepare()
         rd0, _, _, resolved = integ._balanced_inputs()
@@ -2770,10 +2827,11 @@ def phase_syncs_balanced(conf_2d: str, conf_n: str, device) -> None:
                         sc, st, g, eps, step0=s0),
                     problem.scene, None, pieces, max_depth=64, iter_cap=cap,
                     round_seed=1, gens=gens)
-            loop = G.TrainLoop(integ, integ.trainer, integ.n_pixels, 4)
+            loop = G.TrainLoop(integ, integ.trainer, integ.n_pixels, 4,
+                               group=group)
             return B.run_chunk(loop.step, problem.scene, None, pieces,
                                max_depth=64, iter_cap=cap, round_seed=1,
-                               gens=gens, hooks=loop)
+                               gens=gens, hooks=loop, group=group)
 
         run(2)
         reads.clear()
@@ -2797,7 +2855,9 @@ def phase_syncs_balanced(conf_2d: str, conf_n: str, device) -> None:
                 and int(out.done.sum()) == int(quota.sum())):
             raise RuntimeError(f"{label}: the probed chunk did not drain: "
                                f"{out.checks} checks, reads {reads}")
-        log(f"[8d] {label}: a balanced "
+        tag = "[8d]" if group is None else (
+            f"[12a] {group.backend} group of {group.size}:")
+        log(f"{tag} {label}: a balanced "
             f"{'uniform' if label == 'lobed_u' else 'training'} chunk of "
             f"{iters} iterations over {integ.n_pixels} lanes "
             f"({int(out.steps)} live lane-steps"
@@ -3870,6 +3930,167 @@ def phase_bvh_3d(conf_bvh: str, card: str, keep: dict) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# [12] the multi-rank path
+# --------------------------------------------------------------------------- #
+
+
+def phase_nccl_probe(conf_n: str, root: str, device) -> None:
+    """[12a] A one-rank NCCL group, and lobed_n's lockstep training chunk
+    over it under the sync probe ([8d]'s balanced phase)."""
+    from elaina_tpu_torch.parallel import dp
+
+    group = dp.make_group(1, "nccl", device=device, rank=0, local_rank=0,
+                          init_method=f"file://{root}/nccl_store",
+                          timeout_s=MULTI_TIMEOUT_S)
+    try:
+        phase_syncs_balanced(None, conf_n, device, group)
+    finally:
+        group.close()
+
+
+def multi_rank(i: int, n: int, root: str, confs: dict) -> None:
+    """[12]: rank ``i`` of ``n`` gloo ranks on cuda:0 (spawned): the dry
+    run's five steps, then each config of ``confs`` through ``run_expr``
+    with the launch counts zeroed just before it.  Writes its launches,
+    walk steps, walls and guided trainer digest to ``rank<i>.json``; rank
+    0 also each film's mean and standard error to ``<label>.npz``."""
+    import torch
+
+    from elaina_tpu_torch.exec import run_expr
+    from elaina_tpu_torch.parallel import dp, dryrun
+
+    device = torch.device("cuda", 0)
+    group = dp.make_group(n, "gloo", device=device, rank=i, local_rank=i,
+                          init_method=f"file://{root}/store",
+                          timeout_s=MULTI_TIMEOUT_S)
+    out = {}
+    try:
+        t0 = time.time()
+        out["dryrun"] = dryrun.run_steps(group)
+        out["dryrun_s"] = time.time() - t0
+        for label, conf in confs.items():
+            reset_counts()
+            t0 = time.time()
+            with capture_integrators() as made:
+                result = run_expr(conf, devices=n, group=group)
+            torch.cuda.synchronize()
+            integ = made[-1]
+            rec = {"launches": read_counts(), "wall": time.time() - t0,
+                   "duration_ms": result["duration"],
+                   "walk_steps": result["walk_steps"],
+                   "by_rank": result["walk_steps_by_rank"],
+                   "rank_steps": integ.rank_walk_steps,
+                   "iters": solve_steps(integ)}
+            if label == "lobed_n":
+                rec["trainer_hash"] = dryrun.trainer_hash(integ.trainer)
+                rec["opt_steps"] = int(integ.trainer.opt.count)
+                rec["phase_stats"] = integ.phase_stats
+            if i == 0:
+                np.savez(os.path.join(root, f"{label}.npz"),
+                         mean=(integ.sum / integ.spp).cpu().numpy(),
+                         se=integ.standard_error())
+            out[label] = rec
+            del made, integ
+            torch.cuda.empty_cache()
+    finally:
+        group.close()
+    with open(os.path.join(root, f"rank{i}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def guided_copy(conf_path: str, exp_name: str, spp: int,
+                train_spp: int) -> str:
+    """``conf_copy`` of a guided config with ``train_spp`` training
+    samples."""
+    path = conf_copy(conf_path, exp_name, spp)
+    with open(path) as f:
+        conf = json.load(f)
+    conf["integrator"]["setting"]["trainSppCount"] = train_spp
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    return path
+
+
+def phase_multi(conf_2d: str, conf_n: str, conf_3d: str, root: str, device,
+                card: str, keep: dict) -> None:
+    """[12] The multi-rank path: [12a] the one-rank NCCL probe, then
+    MULTI_RANKS gloo ranks spawned on cuda:0 (the kernels already built)
+    run the dry run ([12a]) and lobed_u, lobed_n and neumann3d_u
+    ([12b]-[12d]), each film against its single-rank run's."""
+    import torch.multiprocessing as mp
+
+    # every rank of this run is on this host: rendezvous over loopback
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    phase_nccl_probe(conf_n, root, device)
+    d = os.path.join(root, "ranks")
+    os.makedirs(d)
+    confs = {"lobed_u": conf_copy(conf_2d, "lobed_u_ranks", MULTI_SPP),
+             "lobed_n": guided_copy(conf_n, "lobed_n_ranks", MULTI_N_SPP,
+                                    MULTI_TRAIN_SPP),
+             "neumann3d_u": conf_copy(conf_3d, "neumann3d_u_ranks",
+                                      MULTI_3D_SPP)}
+    t0 = time.time()
+    ctx = mp.start_processes(multi_rank, args=(MULTI_RANKS, d, confs),
+                             nprocs=MULTI_RANKS, join=False,
+                             start_method="spawn")
+    deadline = t0 + MULTI_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.time() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise RuntimeError(f"[12]: the ranks did not end within "
+                               f"{MULTI_TIMEOUT_S} s")
+    ranks = []
+    for i in range(MULTI_RANKS):
+        with open(os.path.join(d, f"rank{i}.json")) as f:
+            ranks.append(json.load(f))
+    log(f"[12a] parallel/dryrun.py over {MULTI_RANKS} gloo ranks on cuda:0 "
+        f"in {ranks[0]['dryrun_s']:.1f} s: {ranks[0]['dryrun']}")
+    if any(r["dryrun"] != ranks[0]["dryrun"] for r in ranks):
+        raise RuntimeError("[12a]: the ranks' dry runs differ")
+    for label, tag, ref in (("lobed_u", "[12b]", "[4]"),
+                            ("lobed_n", "[12c]", "[4g]"),
+                            ("neumann3d_u", "[12d]", "[8]")):
+        rs = [r[label] for r in ranks]
+        for i, r in enumerate(rs):
+            need = [k for k in MULTI_PATHS[label]
+                    if i == 0 or k not in RANK0_ONLY]
+            log(f"{tag} {label} rank {i}: launches "
+                f"{ {k: r['launches'][k] for k in MULTI_PATHS[label]} }, "
+                f"{r['rank_steps']} of {r['walk_steps']} walk steps, "
+                f"{r['iters']} iterations, {r['wall']:.1f} s wall")
+            if not all(r["launches"][k] for k in need):
+                raise RuntimeError(f"{tag}: rank {i} did not launch every "
+                                   f"kernel of {label}")
+        if not (rs[0]["by_rank"] == [r["rank_steps"] for r in rs]
+                and rs[0]["walk_steps"] == sum(rs[0]["by_rank"])):
+            raise RuntimeError(f"{tag}: the walk steps do not add up: "
+                               f"{rs[0]['by_rank']}")
+        with np.load(os.path.join(d, f"{label}.npz")) as z:
+            mean, se = z["mean"], z["se"]
+        within = np.abs(mean - keep[label]["mean"]) <= 4.0 * np.hypot(
+            se, keep[label]["se"]) + 1e-6
+        rate = rs[0]["walk_steps"] / (rs[0]["duration_ms"] / 1e3)
+        log(f"{tag} {label} on {MULTI_RANKS} ranks: "
+            f"{within.mean():.5f} of pixel channels within 4 combined "
+            f"standard errors of {ref}'s film; {rate:.6g} walk-steps/s "
+            f"(a reading: {MULTI_RANKS} ranks share one card; {card})")
+        if within.mean() < 0.99:
+            raise RuntimeError(f"{tag}: {label}'s film disagrees with "
+                               f"{ref}'s")
+        if label == "lobed_n":
+            hashes = [r["trainer_hash"] for r in rs]
+            log(f"[12c] trainer digests {hashes}, {rs[0]['opt_steps']} "
+                f"optimizer steps; phases {rs[0]['phase_stats']}")
+            if len(set(hashes)) != 1 or not rs[0]["opt_steps"]:
+                raise RuntimeError("[12c]: the ranks' trainers differ, or "
+                                   "none trained")
+    log(f"[12] {MULTI_RANKS} ranks: {time.time() - t0:.1f} s from the spawn "
+        f"to the join")
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -3898,7 +4119,11 @@ def main() -> int:
         conf_bumpy = scenes.write_config_copy(root, "bumpy3d_u", SPP_3D)
         conf_bumpy_n = scenes.write_config_copy(root, "bumpy3d_n", SPP_3D,
                                                 GUIDED_3D_TRAIN_SPP)
-        conf_3d_n = scenes.write_neumann3d_n(root, SPP_3D,
+        # its own directory: write_neumann3d_n writes a neumann3d_u.json
+        # of its samples beside it
+        n3d = os.path.join(root, "neumann3d_n")
+        os.makedirs(n3d)
+        conf_3d_n = scenes.write_neumann3d_n(n3d, NEUMANN3D_N_SPP,
                                              GUIDED_3D_TRAIN_SPP)
         syncs = os.path.join(root, "syncs")
         os.makedirs(syncs)
@@ -3962,7 +4187,9 @@ def main() -> int:
                  (conf_2d_bvh, device, card, keep)),
                 ("[11c]", "cube_bvh", phase_bvh_cube, (root, device, card)),
                 ("[11d]", "neumann3d_u_bvh", phase_bvh_3d,
-                 (conf_3d_bvh, card, keep))):
+                 (conf_3d_bvh, card, keep)),
+                ("[12]", None, phase_multi,
+                 (conf_2d, conf_n, conf_3d, root, device, card, keep))):
             out = timed_phase(label, fn, *args)
             if key is not None:
                 runs[key] = out

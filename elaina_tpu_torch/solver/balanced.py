@@ -45,12 +45,26 @@ the host's part (the hints of earlier solves seed them), subtracts the
 drain from the slice's iterations, stops where even the shortest round
 no longer fits, and shrinks the quotas to what the cap can start.
 
+Under a group of ranks (``parallel/dp.Group``, the JAX package's device
+mesh, wost.py:792-940) the lanes are sharded: every rank computes the
+same partition of the whole frame (the same probe costs, the same seeded
+shuffle) and runs ``run_chunk`` on its own contiguous slice of the
+round's worklists, on streams of its own (``round_seed``), with no
+collective inside a round; at the round's end the ranks add their sums
+and completed counts into full-frame tensors and sum them, with the
+steps (``close_round``), and take the largest iteration count, wall and
+host time.  So every host decision after a round is the same on every
+rank.  The lane width is a multiple of the group's size
+(``oversub_lanes``' ``lane_multiple``), and so is a tail round's
+(``tail_lanes``, or the tail keeps the full width).  A budget's slicer
+reads one clock, rank 0's (``Group.clock``).
+
 Left out, against the JAX package: the runtime-watchdog bounds on a
 round's iteration cap (a guard against the TPU runtime's kill of long
 dispatches), ``lane_cap`` (the TPU's SMEM gate on the lane-list width,
 which the port's K1 does not have), the deterministic mode (no cap here
-depends on a measured wall unless a budget is given), the device mesh and
-the ``ELAINA_*`` knobs.
+depends on a measured wall unless a budget is given) and the
+``ELAINA_*`` knobs.
 """
 
 from __future__ import annotations
@@ -62,7 +76,7 @@ import numpy as np
 import torch
 
 from ..core.logger import log_warning
-from ..utils.rng import balanced_seed, reseed, stage_generators
+from ..utils.rng import balanced_seed, fold_rank, reseed, stage_generators
 from .wost import WalkState, init_walk_state
 
 N_PIECES = 4            # worklist slots a lane (wost.py:723)
@@ -131,11 +145,14 @@ class BudgetSlicer:
     and ``solve_rate`` are the JAX package's; ``iteration_wall``,
     ``bound_cap``, ``min_round_stop`` and ``fit_quota`` model the port's
     round (see there).  ``plan``, ``min_round_stop`` and ``expired`` read
-    ``time.time()``, as the JAX package's slicer does."""
+    ``time.time()``, as the JAX package's slicer does, or ``clock`` where
+    given (a group's: rank 0's time on every rank)."""
 
-    def __init__(self, time_budget_s, start_time, rate0=None, iter0=None):
+    def __init__(self, time_budget_s, start_time, rate0=None, iter0=None,
+                 clock=None):
         self.budget = time_budget_s
         self.start = start_time
+        self.clock = clock
         self.rate = float(rate0) if rate0 else None
         # a caller's rate0 is a prior from another solve or phase, trusted
         # for round 1's minimum-dispatch stop; a rate measured on this
@@ -163,7 +180,7 @@ class BudgetSlicer:
         half its own wall."""
         if self.budget is None:
             return rem, False
-        remaining_s = self.budget - (time.time() - self.start)
+        remaining_s = self.budget - (self._now() - self.start)
         if remaining_s <= 0 and round_i > 0:
             return rem, True
         if self.rate is None or (round_i == 0 and not have_cost):
@@ -210,7 +227,7 @@ class BudgetSlicer:
             return False
         if not (round_i > 1 or (round_i == 1 and self.trusted_prior)):
             return False
-        remaining_s = self.budget - (time.time() - self.start)
+        remaining_s = self.budget - (self._now() - self.start)
         return remaining_s < 0.5 * ((self.host_s or 0.0)
                                     + iters * self.iteration_wall(n_lanes))
 
@@ -288,18 +305,40 @@ class BudgetSlicer:
 
     def expired(self) -> bool:
         return (self.budget is not None
-                and time.time() - self.start > self.budget)
+                and self._now() - self.start > self.budget)
+
+    def _now(self) -> float:
+        return self.clock() if self.clock is not None else time.time()
 
 
-def oversub_lanes(n: int, spp: int, lane_target: int = LANE_TARGET) -> int:
+def oversub_lanes(n: int, spp: int, lane_target: int = LANE_TARGET,
+                  lane_multiple: int = 1) -> int:
     """The balanced solve's lane width (reference wost.py:1097-1112): a
     frame below ``lane_target`` pixels is widened towards it, at most to
-    its total sample count, its pixels split across co-lanes (each lane
-    draws its own numbers, so the split is unbiased); a larger frame
-    keeps one lane a pixel."""
+    its total sample count, rounded down to a multiple of
+    ``lane_multiple`` (a group's size), its pixels split across co-lanes
+    (each lane draws its own numbers, so the split is unbiased); a larger
+    frame keeps one lane a pixel."""
     if n >= lane_target:
         return n
-    return max(min(lane_target, n * max(int(spp), 1)), n)
+    k = max(lane_multiple, 1)
+    m = min(lane_target, n * max(int(spp), 1))
+    return max((m // k) * k, n)
+
+
+def tail_lanes(m: int, lane_multiple: int = 1) -> int:
+    """A tail round's width (reference wost.py:1252-1255): a quarter of
+    ``m`` lanes rounded down to a multiple of ``lane_multiple``; 0 where
+    none is left (the tail then keeps its ``m`` lanes)."""
+    k = max(lane_multiple, 1)
+    return (m // 4) // k * k
+
+
+def round_seed(seed: int, phase: int, round_i: int, group=None) -> int:
+    """The seed of one round of a balanced solve on this rank: the
+    round's (``balanced_seed``), with the rank folded in."""
+    s = balanced_seed(seed, phase, round_i)
+    return s if group is None else fold_rank(s, group.rank)
 
 
 @dataclass
@@ -378,7 +417,8 @@ def _commit(acc, pend, died, slot):
 
 def run_chunk(step_fn, scene, extra, pieces: Pieces, *, max_depth: int,
               iter_cap: int, round_seed: int, gens: dict,
-              check_every: int = CHECK_EVERY, hooks=None) -> ChunkOut:
+              check_every: int = CHECK_EVERY, hooks=None,
+              group=None) -> ChunkOut:
     """One round of the balanced solve (reference ``make_balanced_chunk``'s
     loop, wost.py:843-925): iterations of ``step_fn(scene, extra, state,
     gens, wstep, step0) -> (state', contrib (M, 3), lanes resolved)``
@@ -391,7 +431,14 @@ def run_chunk(step_fn, scene, extra, pieces: Pieces, *, max_depth: int,
     walks have ended (``walks_ended(active)``, after the commit), which
     lanes restart (``restarted(restart, slot)``) and that the iteration
     is over (``iteration_done(j, more)``, ``more`` the device's loop
-    condition at its start), and at the end ``finish(active)``."""
+    condition at its start), and at the end ``finish(active)``.
+
+    ``group`` (a group's training phase, whose hooks issue collectives)
+    runs the ranks in lockstep: the host reads the loop condition of every
+    rank together (any rank's), so every rank runs the same iterations
+    and calls its hooks alike; a rank that drained runs on, its
+    iterations gated on the device as after the drain.  Without it each
+    rank drains on its own."""
     S, n = pieces.quota.shape
     dev = pieces.quota.device
     quota = pieces.quota
@@ -465,7 +512,10 @@ def run_chunk(step_fn, scene, extra, pieces: Pieces, *, max_depth: int,
             hooks.iteration_done(j, more)
         if (j + 1) % check_every == 0 and j + 1 < n_iter:
             checks += 1
-            if not read_flag(more_of(st, slot, sidx, j + 1 < iter_cap)):
+            flag = more_of(st, slot, sidx, j + 1 < iter_cap)
+            if group is not None:
+                flag = group.any(flag)
+            if not read_flag(flag):
                 break
     # the walks that died on the last iteration commit here
     died = ~st.active & (scnt < sidx)
@@ -519,7 +569,53 @@ def round_record(out: ChunkOut, lanes: int, cap: int, wall: float,
             "resolved": int(out.resolved), "capped": int(out.capped),
             "checks": out.checks, "ran": out.ran, "wall": wall,
             "host_s": host_s, "probe": probe,
-            "occupancy": steps / max(iters * lanes, 1)}
+            "occupancy": steps / max(iters * lanes, 1),
+            "rank_steps": steps}
+
+
+def close_round(image, out: ChunkOut, pieces: Pieces, n_pixels: int,
+                lanes: int, cap: int, t_r: float, t_c: float, probe: bool,
+                group=None):
+    """A round's end: its sums added to the pixel sums ``image`` (N, 6),
+    each pixel's completed samples (host int64), the round's record
+    (``round_record``; its wall from ``t_r``, the partition's time, to the
+    count read) and, for a probe round on the identity partition, each
+    pixel's lane steps (host), else None.  Under a group the ranks add
+    their sums, counts and probe steps into full-frame tensors and sum
+    them, and the record holds the steps of every rank (its own in
+    ``rank_steps``) and the largest iterations, wall and host time of any:
+    the same record on every rank."""
+    if group is None:
+        image, done_pix = flush_balanced(image, out.acc, out.done,
+                                         pieces.pix, n_pixels)
+        done = done_pix.cpu().numpy().astype(np.int64)   # waits: the wall
+        rec = round_record(out, lanes, cap, time.time() - t_r, t_c - t_r,
+                           probe)
+        return image, done, rec, (out.lsteps.cpu().numpy() if probe
+                                  else None)
+    delta, done_pix = flush_balanced(torch.zeros_like(image), out.acc,
+                                     out.done, pieces.pix, n_pixels)
+    ints = [done_pix.long()]
+    if probe:
+        lsteps = torch.zeros(n_pixels, dtype=torch.int64,
+                             device=image.device)
+        lsteps[group.lanes(n_pixels)] = out.lsteps.long()
+        ints.append(lsteps)
+    ints.append(torch.stack([out.steps, out.resolved, out.capped]).long())
+    ints = group.all_sum(torch.cat(ints))
+    image = image + group.all_sum(delta)
+    host = ints.cpu().numpy()                          # waits: the wall
+    wall, host_s, iters, ran, checks = group.host_max(
+        [time.time() - t_r, t_c - t_r, int(out.iters), out.ran, out.checks])
+    steps, resolved, capped = (int(v) for v in host[-3:])
+    iters, ran, checks = int(iters), int(ran), int(checks)
+    rec = {"lanes": lanes, "cap": cap, "iters": iters, "steps": steps,
+           "resolved": resolved, "capped": capped, "checks": checks,
+           "ran": ran, "wall": wall, "host_s": host_s, "probe": probe,
+           "occupancy": steps / max(iters * lanes, 1),
+           "rank_steps": int(out.steps)}
+    return (image, host[:n_pixels], rec,
+            host[n_pixels:2 * n_pixels] if probe else None)
 
 
 def probe_cost(lsteps: np.ndarray, done: np.ndarray,
@@ -535,6 +631,18 @@ def probe_cost(lsteps: np.ndarray, done: np.ndarray,
     return np.minimum(cost, float(max_depth))
 
 
+def hint_digest(cost=None, rate=None, iters=None) -> list:
+    """Eight numbers that differ where two sets of a solve's hints (the
+    pixels' costs, the walk rate, the seconds an iteration by width) do,
+    for ``Group.check_same``."""
+    c = np.zeros(0) if cost is None else np.asarray(cost, np.float64)
+    it = sorted((iters or {}).items())
+    return [float(cost is None), float(c.sum()),
+            float((c * np.arange(c.size)).sum()), float(rate or 0.0),
+            float(len(it)), float(sum(k for k, _ in it)),
+            float(sum(v for _, v in it)), float(sum(k * v for k, v in it))]
+
+
 def initial_image(in_shell0, contrib0, spp: int):
     """(N, 6): the pixels in the shell at their first step, baked with
     ``spp`` samples of contrib0 (reference wost.py:970-972), and the sum
@@ -548,8 +656,8 @@ def balanced_solve(step_fn, scene, extra, pts, rd0, resolved: np.ndarray,
                    seed: int, phase: int, cost0=None, cost_sink=None,
                    progress=None, lane_target: int = LANE_TARGET,
                    time_budget_s=None, start_time=None, rate0=None,
-                   rate_sink=None, iter0=None,
-                   iter_sink=None) -> BalancedResult:
+                   rate_sink=None, iter0=None, iter_sink=None,
+                   group=None) -> BalancedResult:
     """Round-based balanced solve of ``spp`` samples a pixel (reference
     wost.py:1137-1423).  ``pts`` (N, D) and ``rd0`` (N,) on the device;
     ``resolved`` (N,) host bool marks the pixels baked analytically (in
@@ -574,10 +682,17 @@ def balanced_solve(step_fn, scene, extra, pts, rd0, resolved: np.ndarray,
     seconds an iteration by lane width (``BudgetSlicer.iter_s``).  A
     pixel left without a sample after the last round gets one more round
     of one sample on a lane of its own, and the sums are rescaled by the
-    completed counts."""
+    completed counts.
+
+    ``group``: the lanes sharded over its ranks (see the module's
+    docstring); ``pts``, ``rd0``, ``resolved``, ``contrib0`` and
+    ``in_shell0`` are the whole frame's on every rank, the frame's pixel
+    count a multiple of the group's size, and the result is the whole
+    frame's, the same on every rank (its step-0 sums counted once)."""
     n = pts.shape[0]
     S = N_PIECES
-    m = oversub_lanes(n, spp, lane_target)
+    mult = 1 if group is None else group.size
+    m = oversub_lanes(n, spp, lane_target, mult)
     image = initial_image(in_shell0, contrib0, spp)
     rem = np.where(resolved, 0, spp).astype(np.int64)
     cost = np.ones(n)
@@ -587,8 +702,12 @@ def balanced_solve(step_fn, scene, extra, pts, rd0, resolved: np.ndarray,
     if have_cost0:
         cost = np.maximum(np.asarray(cost0, np.float64), 1.0)
     budget_mode = time_budget_s is not None
-    slicer = BudgetSlicer(time_budget_s, start_time or time.time(), rate0,
-                          iter0)
+    clock = None if group is None else group.clock
+    if group is not None:
+        group.check_same("the balanced solve's hints",
+                         hint_digest(cost0, rate0, iter0))
+    slicer = BudgetSlicer(time_budget_s, start_time or (clock or time.time)(),
+                          rate0, iter0, clock)
     shuffle = np.random.default_rng(0xE1A) if budget_mode else None
     gens = stage_generators(pts.device)
     rounds, total = [], dict(steps=0, resolved=0, capped=0)
@@ -597,24 +716,24 @@ def balanced_solve(step_fn, scene, extra, pts, rd0, resolved: np.ndarray,
     min_round = 2 * CHECK_EVERY + max_depth
 
     def run(round_i, cap, piece_pix, piece_quota, t_r, probe=False):
-        """One round from its partition, made at ``t_r``."""
+        """One round from its partition, made at ``t_r``, on this rank's
+        lanes of it."""
         nonlocal image, rem
-        pieces = make_pieces(pts, rd0, piece_pix, piece_quota)
+        lanes = piece_pix.shape[1]
+        sl = slice(None) if group is None else group.lanes(lanes)
+        pieces = make_pieces(pts, rd0, piece_pix[:, sl], piece_quota[:, sl])
         t_c = time.time()
         out = run_chunk(step_fn, scene, extra, pieces, max_depth=max_depth,
                         iter_cap=cap,
-                        round_seed=balanced_seed(seed, phase, round_i),
+                        round_seed=round_seed(seed, phase, round_i, group),
                         gens=gens)
-        image, done_pix = flush_balanced(image, out.acc, out.done,
-                                         pieces.pix, n)
-        done = done_pix.cpu().numpy().astype(np.int64)  # waits: the wall
-        rec = round_record(out, piece_pix.shape[1], cap, time.time() - t_r,
-                           t_c - t_r, probe)
+        image, done, rec, lsteps = close_round(image, out, pieces, n, lanes,
+                                               cap, t_r, t_c, probe, group)
         rem = np.maximum(rem - done, 0)
         rounds.append(rec)
         for k in total:
             total[k] += rec[k]
-        return out, done, rec
+        return lsteps, done, rec
 
     interrupted = False
     for round_i in range(max_rounds):
@@ -639,10 +758,12 @@ def balanced_solve(step_fn, scene, extra, pts, rd0, resolved: np.ndarray,
             # the tail decision looks at all the remaining work, not at the
             # budget's round quotas
             ideal_full = int(np.ceil(float((rem * cost).sum()) / m))
-            if ideal_full <= max_depth and m >= TAIL_MIN_LANES:
+            if (ideal_full <= max_depth and m >= TAIL_MIN_LANES
+                    and tail_lanes(m, mult)):
                 # tail: a depth step costs its full width whether lanes
-                # live or not, so pack the leftovers into a quarter
-                n_round = m // 4
+                # live or not, so pack the leftovers into a quarter (of a
+                # group's size's multiple)
+                n_round = tail_lanes(m, mult)
                 ideal = int(np.ceil(ideal * m / n_round))
             cap = min(int(1.35 * ideal) + 24, ITER_CAP_MAX)
             if ideal_full <= max_depth:
@@ -658,15 +779,15 @@ def balanced_solve(step_fn, scene, extra, pts, rd0, resolved: np.ndarray,
             piece_pix, piece_quota = build_balanced_pieces(
                 slicer.fit_quota(rem, rem_round, cost, cap, n_round), cost,
                 n_round, S, shuffle=shuffle)
-        out, done, rec = run(round_i, cap, piece_pix, piece_quota, t_r,
-                             probe)
+        lsteps, done, rec = run(round_i, cap, piece_pix, piece_quota, t_r,
+                                probe)
         slicer.update(rec["steps"], rec["wall"], rec["ran"], rec["lanes"],
                       rec["host_s"])
         if probe:
-            cost = probe_cost(out.lsteps.cpu().numpy(), done, max_depth)
+            cost = probe_cost(lsteps, done, max_depth)
             if cost_sink is not None:
                 cost_sink(cost)
-        if progress is not None:
+        if progress is not None and (group is None or group.rank == 0):
             progress(int((1.0 - rem.sum() / n_walked) * 100), 100)
         if slicer.expired() and rem.sum() > 0:
             interrupted = True

@@ -42,9 +42,18 @@ predict that it overruns its share; both phases slice their rounds with
 JAX package's file layout) holds the trainer and the sums; with
 ``checkpoint_every`` the solve takes the per-sample route and writes one
 every so many samples, and a solve given an existing checkpoint resumes
-from it, sample ``spp0 + k`` drawing what the unbroken run draws.  Left
-out, as in ``balanced.py``: the watchdog bounds, ``lane_cap``, the
-deterministic mode, the mesh and the ``ELAINA_*`` knobs.
+from it, sample ``spp0 + k`` drawing what the unbroken run draws.
+
+Under a group of ranks (``integrator.group``, the JAX package's mesh,
+guided.py:335-524, 580-652, 1118-1162) both balanced phases shard their
+lanes.  The guiding phase drains each rank's lanes on their own
+(``balanced_solve``).  The training phase runs in lockstep: every rank
+runs the same iterations (``run_chunk(group=)``), the ``apply`` flag of
+each optimizer pass is any rank's loop condition, and each pass's
+gradients are averaged over the ranks (``train_on_records(group=)``) on
+every rank, with or without records, so the ranks' trainers stay equal
+bit for bit.  Left out, as in ``balanced.py``: the watchdog bounds,
+``lane_cap``, the deterministic mode and the ``ELAINA_*`` knobs.
 """
 
 from __future__ import annotations
@@ -64,13 +73,13 @@ from ..nn.network import (AdamConfig, GuidingNetwork, NetworkSpec,
                           TrainerState, adam_ema_step, apply_network,
                           init_trainer, make_network, require_ieee_matmul)
 from ..utils.mathops import reflect
-from ..utils.rng import (STAGES, balanced_seed, run_seed, sample_generators,
+from ..utils.rng import (STAGES, run_seed, sample_generators,
                          stage_generators, stream_seed)
 from .balanced import (CHECK_EVERY, ITER_CAP_MAX, TAIL_MIN_LANES,
                        BudgetSlicer, balanced_solve, build_balanced_pieces,
-                       flush_balanced, identity_pieces, initial_image,
-                       make_pieces, pick, probe_cost, round_record,
-                       run_chunk)
+                       close_round, hint_digest, identity_pieces,
+                       initial_image, make_pieces, pick, probe_cost,
+                       round_seed, run_chunk, tail_lanes)
 from .distributions import (M_EPSILON, n_dim_output, vmm_from_raw, vmm_pdf,
                             vmm_pdf_effective, vmm_sample,
                             vmm_selection_prob)
@@ -399,13 +408,19 @@ def _train_loss(params: dict, spec: NetworkSpec, dim: int, x, wi, Li,
 def train_on_records(trainer: TrainerState, spec: NetworkSpec,
                      adam_cfg: AdamConfig, box: GuideBox,
                      records: WalkRecords, *, batch_size: int,
-                     n_batches: int, apply=None):
+                     n_batches: int, apply=None, group=None):
     """Up to ``n_batches`` optimizer steps over consecutive slices of the
     flattened records (trainStepImpl, guided/integrator.cu:617-668);
     slices past the buffer's end wrap to fresh offsets.  A batch with
     no valid record changes nothing, and neither does any batch where
     ``apply`` (a 0-dim bool) is False.  Returns
-    (trainer', mean KL metric as a 0-dim device tensor)."""
+    (trainer', mean KL metric as a 0-dim device tensor).
+
+    ``group`` (``records``: this rank's lanes'; reference guided.py:
+    580-652, ``axis_name``): each batch's mean gradient and metric are
+    averaged over the ranks and its valid records counted over them (one
+    ``all_reduce``), so a batch steps on every rank or on none; every
+    rank must call it alike, with the same ``apply``."""
     R, N = records.dir_pdf.shape
     dim = records.pos.shape[-1]
     total = R * N
@@ -441,11 +456,28 @@ def train_on_records(trainer: TrainerState, spec: NetworkSpec,
         grads = dict(zip(params, torch.autograd.grad(loss,
                                                      list(params.values()))))
         enough = valid[s].any()
+        if group is not None:
+            grads, metric, enough = _mean_over(group, grads, metric,
+                                               valid[s].sum())
         if apply is not None:
             enough = enough & apply
         trainer = adam_ema_step(trainer, grads, adam_cfg, apply=enough)
         metric_sum = metric_sum + torch.where(enough, metric.detach(), 0.0)
     return trainer, metric_sum / n_batches
+
+
+def _mean_over(group, grads: dict, metric, n_valid):
+    """One batch's gradients and metric averaged over the ranks (their
+    sum over the group's size), and whether any rank had a valid record:
+    one ``all_reduce`` of the three packed together."""
+    names = sorted(grads)
+    buf = group.all_sum(torch.cat(
+        [grads[k].reshape(-1) for k in names]
+        + [metric.detach().reshape(1), n_valid.to(torch.float32).reshape(1)]))
+    parts = torch.split(buf[:-2] / group.size,
+                        [grads[k].numel() for k in names])
+    return ({k: p.reshape(grads[k].shape) for k, p in zip(names, parts)},
+            buf[-2] / group.size, buf[-1] > 0)
 
 
 def _train_batch_policy(n_pixels: int) -> tuple:
@@ -475,10 +507,16 @@ class TrainLoop:
     after the drain (``more`` False on the device) trains nothing and
     consumes nothing.  At the end the last walks' records are flushed and
     one single-batch pass runs.  Pass as ``run_chunk``'s hooks, with
-    ``step`` as its step."""
+    ``step`` as its step.
+
+    ``group``: ``n`` is this rank's lanes, and the chunk runs in lockstep
+    (pass the group to ``run_chunk`` as well): each pass applies where
+    any rank's loop condition holds, and averages its gradients over the
+    ranks; the pass after the drain (and ``finish``'s) runs on every rank
+    whether it has records or not."""
 
     def __init__(self, integ, trainer: TrainerState, n: int,
-                 train_every: int, piece_train=None):
+                 train_every: int, piece_train=None, group=None):
         s = integ.settings
         self.spec, self.adam_cfg, self.box = (integ.spec, integ.adam_cfg,
                                               integ.box)
@@ -495,6 +533,7 @@ class TrainLoop:
         self.train_every = train_every
         self.piece_train = piece_train     # (S, M) bool, or None
         self.train_sel = None
+        self.group = group
 
     def step(self, scene, extra, state, gens, wstep, step0):
         state, self.rec, contrib, need = guided_depth_step(
@@ -521,10 +560,12 @@ class TrainLoop:
     def iteration_done(self, j: int, more):
         if (j + 1) % self.train_every:
             return
+        if self.group is not None:
+            more = self.group.any(more)
         self.trainer, metric = train_on_records(
             self.trainer, self.spec, self.adam_cfg, self.box, self.ready,
             batch_size=self.batch_size, n_batches=self.n_batches,
-            apply=more)
+            apply=more, group=self.group)
         self.metric = torch.where(more, metric, self.metric)
         self.ready = replace(self.ready,
                              cur=torch.where(more, 0, self.ready.cur))
@@ -533,7 +574,7 @@ class TrainLoop:
         self._flush(active)
         self.trainer, _ = train_on_records(
             self.trainer, self.spec, self.adam_cfg, self.box, self.ready,
-            batch_size=self.batch_size, n_batches=1)
+            batch_size=self.batch_size, n_batches=1, group=self.group)
 
 
 # --------------------------------------------------------------------------- #
@@ -626,21 +667,33 @@ class GuidedIntegrator(BaseIntegrator):
         budget (seconds from this call, after ``prepare()``) the training
         phase follows ``budget_train_policy`` (``train_policy``,
         ``train_spp_achieved``) and the phases slice their rounds; the
-        per-sample route stops between samples once the budget is spent."""
+        per-sample route stops between samples once the budget is spent.
+
+        Under a group (``group``) the balanced phases shard their lanes
+        over its ranks; the per-sample route runs on rank 0 while the
+        others wait, then every rank takes rank 0's sums and trainer;
+        only rank 0 writes checkpoints and hints."""
+        self._check_group()
         seed = run_seed()
         tsel = self._train_selection(seed)
-        start = time.time()
+        start = self._clock()
         total = torch.zeros((self.n_pixels, 6), device=self.device)
         spp0 = 0
         if checkpoint_path and os.path.exists(checkpoint_path):
             spp0 = self._resume(checkpoint_path, total)
         if metrics_on(self.settings) or (checkpoint_path
                                          and checkpoint_every > 0):
-            return self._solve_per_sample(seed, tsel, start, total, spp0,
-                                          checkpoint_path, checkpoint_every,
-                                          time_budget_s)
+            return self._on_lead(lambda: self._solve_per_sample(
+                seed, tsel, start, total, spp0, checkpoint_path,
+                checkpoint_every, time_budget_s))
         return self._solve_persistent(seed, tsel, start, total, spp0,
                                       time_budget_s)
+
+    def _share_from_lead(self):
+        super()._share_from_lead()
+        self.trainer = self.group.replicate(self.trainer)
+        self._net_trained = bool(self.group.host_max(
+            [float(self._net_trained)])[0])
 
     def _resume(self, path: str, total) -> int:
         """Load a checkpoint into the trainer and ``total`` (N, 6); returns
@@ -678,7 +731,7 @@ class GuidedIntegrator(BaseIntegrator):
         self.sum, self.sum_sq, self.spp = total[:, :3], total[:, 3:], spp
         self.spp_done = spp - spp0
         self.done_per_pixel = done_per_pixel
-        self.problem.hint_cache_save()
+        self._save_hints()
         self._put("SOLUTION", sol / max(spp, 1))
         return duration_ms
 
@@ -741,7 +794,7 @@ class GuidedIntegrator(BaseIntegrator):
                                 100 * share_cap)
                 else:
                     budget = min(share_cap * time_budget_s, max(
-                        0.0, time_budget_s - (time.time() - start)))
+                        0.0, time_budget_s - (self._clock() - start)))
                     spp_cap = t_target
             if not skip:
                 t = time.time()
@@ -755,7 +808,7 @@ class GuidedIntegrator(BaseIntegrator):
                                                       for r in rounds)
                 self.phase_stats["train_s"] = time.time() - t
                 stop = bool(interrupted and time_budget_s
-                            and time.time() - start > time_budget_s)
+                            and self._clock() - start > time_budget_s)
         if not stop and spp > done_spp:
             t = time.time()
             out = self._guiding_persistent(seed, done_spp, start,
@@ -770,6 +823,7 @@ class GuidedIntegrator(BaseIntegrator):
             self.phase_stats["guide_s"] = time.time() - t
         rounds = self.balance_rounds["train"] + self.balance_rounds["guide"]
         self.total_walk_steps = sum(r["steps"] for r in rounds)
+        self.rank_walk_steps = sum(r["rank_steps"] for r in rounds)
         self.total_resolved = sum(r["resolved"] for r in rounds)
         self.total_capped = sum(r["capped"] for r in rounds)
         return self._finish(total, done_spp, spp0, start,
@@ -786,20 +840,25 @@ class GuidedIntegrator(BaseIntegrator):
         cost-balanced rounds at cap min(1.35 x ideal + 24,
         TRAIN_ITER_CAP), each a ``TrainLoop``; the tail rounds (ideal <=
         max depth) run the record-free guide step at a quarter of the
-        width from TAIL_MIN_LANES up.  Under ``time_budget_s`` (seconds
-        from the phase's start) the rounds are ``BudgetSlicer``'s, seeded
-        with ``_train_rate_prior``, over worklists shuffled each round,
-        with the drain-skip.  Sets ``_pixel_cost`` (the guiding phase's
-        partition), the trainer, ``_net_trained`` (an optimizer step ran),
-        ``_walk_rate`` (the guiding phase's rate prior),
-        ``train_spp_achieved`` and the problem's training rate.  Returns
+        width from TAIL_MIN_LANES up (a multiple of a group's size).  Under
+        ``time_budget_s`` (seconds from the phase's start) the rounds are
+        ``BudgetSlicer``'s, seeded with ``_train_rate_prior``, over
+        worklists shuffled each round, with the drain-skip.  Sets
+        ``_pixel_cost`` (the guiding phase's partition), the trainer,
+        ``_net_trained`` (an optimizer step ran), ``_walk_rate`` (the
+        guiding phase's rate prior), ``train_spp_achieved`` and the
+        problem's training rate.  Returns
         (sums (N, 6) rescaled to the phase's samples, round records, the
         completed samples a pixel, whether the budget cut it, the sample
-        count it ends at)."""
+        count it ends at).  Under a group each rank runs its slice of every
+        round's lanes: a ``TrainLoop`` round in lockstep, a record-free
+        tail round on its own."""
         s = self.settings
         scene = self.problem.scene
         n = self.n_pixels
         dev = self.device
+        group = self.group
+        mult = 1 if group is None else group.size
         max_depth = int(s.maxWalkingDepth)
         uf = float(s.uniformFractionInTrainingPhase)
         mgd = int(s.maxGuidedDepthInTrainingPhase)
@@ -811,6 +870,10 @@ class GuidedIntegrator(BaseIntegrator):
         rem = np.where(resolved, 0, remaining).astype(np.int64)
         cache, key = self._cost_cache()
         have_cost0 = key in cache
+        if group is not None:
+            group.check_same("the training phase's hints", hint_digest(
+                cache.get(key), self._train_rate_prior(),
+                self._iter_walls(PHASE_TRAIN)))
         cost = np.ones(n)
         if have_cost0:
             cost = self._pixel_cost = np.maximum(
@@ -823,9 +886,10 @@ class GuidedIntegrator(BaseIntegrator):
         trainer = self.trainer
         opt0 = int(trainer.opt.count)
         rounds = []
-        slicer = BudgetSlicer(time_budget_s, time.time(),
+        slicer = BudgetSlicer(time_budget_s, self._clock(),
                               self._train_rate_prior(),
-                              self._iter_walls(PHASE_TRAIN))
+                              self._iter_walls(PHASE_TRAIN),
+                              None if group is None else group.clock)
         interrupted = False
         n_walk = int(np.sum(~resolved))
         for round_i in range(16 + 4 * (1 + remaining * max_depth // 48)):
@@ -854,8 +918,8 @@ class GuidedIntegrator(BaseIntegrator):
                     # the tail trains almost nothing: the record-free step
                     # at a quarter of the width, room for every walk
                     tail = True
-                    if n >= TAIL_MIN_LANES:
-                        n_round = n // 4
+                    if n >= TAIL_MIN_LANES and tail_lanes(n, mult):
+                        n_round = tail_lanes(n, mult)
                         ideal = int(np.ceil(ideal * n / n_round))
                     cap = min(max_depth + 2 * ideal + 64,
                               TRAIN_ITER_CAP if n_round == n
@@ -868,11 +932,13 @@ class GuidedIntegrator(BaseIntegrator):
                     cost, n_round,
                     shuffle=(np.random.default_rng(0xE1A + round_i)
                              if time_budget_s else None))
-            pieces = make_pieces(self.eval_points, rd0, piece_pix,
-                                 piece_quota)
+            sl = slice(None) if group is None else group.lanes(n_round)
+            pieces = make_pieces(self.eval_points, rd0, piece_pix[:, sl],
+                                 piece_quota[:, sl])
             t_c = time.time()
             kw = dict(max_depth=max_depth, iter_cap=cap, gens=gens,
-                      round_seed=balanced_seed(seed, PHASE_TRAIN, round_i))
+                      round_seed=round_seed(seed, PHASE_TRAIN, round_i,
+                                            group))
             loop = None
             if tail and n_round < n:
                 out = run_chunk(self._guide_step(trainer.ema_params, uf,
@@ -882,18 +948,15 @@ class GuidedIntegrator(BaseIntegrator):
                 # a full-width tail round passes no in-loop optimizer pass
                 # (its records still reach the end-of-chunk pass)
                 loop = TrainLoop(
-                    self, trainer, n_round,
+                    self, trainer, pieces.quota.shape[1],
                     cap + 1 if tail else TRAIN_EVERY,
                     None if tbit is None else torch.from_numpy(
-                        tbit[piece_pix]).to(dev))
+                        tbit[piece_pix[:, sl]]).to(dev), group)
                 out = run_chunk(loop.step, scene, None, pieces, hooks=loop,
-                                **kw)
+                                group=group, **kw)
                 trainer = loop.trainer
-            image, done_pix = flush_balanced(image, out.acc, out.done,
-                                             pieces.pix, n)
-            done = done_pix.cpu().numpy().astype(np.int64)  # waits
-            rec = round_record(out, n_round, cap, time.time() - t_r,
-                               t_c - t_r, probe)
+            image, done, rec, lsteps = close_round(
+                image, out, pieces, n, n_round, cap, t_r, t_c, probe, group)
             rem = np.maximum(rem - done, 0)
             rounds.append(rec)
             slicer.update(rec["steps"], rec["wall"], rec["ran"],
@@ -901,11 +964,11 @@ class GuidedIntegrator(BaseIntegrator):
             if loop is not None:
                 self.loss_history.append(float(loop.metric))
             if probe:
-                cost = self._pixel_cost = probe_cost(
-                    out.lsteps.cpu().numpy(), done, max_depth)
+                cost = self._pixel_cost = probe_cost(lsteps, done, max_depth)
                 cache[key] = cost
-            _progress(int(100 * (1 - rem.sum() / max(
-                float(n_walk) * remaining, 1.0))), 100, "Training")
+            if self._lead():
+                _progress(int(100 * (1 - rem.sum() / max(
+                    float(n_walk) * remaining, 1.0))), 100, "Training")
             if slicer.expired() and rem.sum() > 0:
                 interrupted = True
                 break
@@ -965,7 +1028,8 @@ class GuidedIntegrator(BaseIntegrator):
                 self.n_pixels),
             rate_sink=lambda r: rates.__setitem__(self.n_pixels, r),
             iter0=self._iter_walls(PHASE_GUIDE),
-            iter_sink=lambda w: self._keep_iter_walls(PHASE_GUIDE, w))
+            iter_sink=lambda w: self._keep_iter_walls(PHASE_GUIDE, w),
+            group=self.group)
 
     def _train_rate_prior(self):
         """The training phase's walk-steps/s prior (reference guided.py:
@@ -1067,6 +1131,7 @@ class GuidedIntegrator(BaseIntegrator):
         self.phase_stats.update(train_s=secs["train"], guide_s=secs["guide"])
         self.total_walk_steps = (self.phase_stats["train_steps"]
                                  + self.phase_stats["guide_steps"])
+        self.rank_walk_steps = self.total_walk_steps
         self.total_resolved = int(resolved)
         self.total_capped = int(capped)
         if metrics:

@@ -26,6 +26,16 @@ The problem's mask image (``mask_path``), nearest-resized to the frame
 every route: it never starts a walk, trains nothing, and counts as done
 with every sample under a budget; the one-shot channels ignore it, as
 the JAX package's do.
+
+``group`` (a ``parallel/dp.Group``, the JAX package's ``mesh``,
+integrator.py:48, 262-363) shards the balanced route's lanes over the
+group's ranks; every rank builds the same problem and integrator and
+calls the same methods.  The frame's pixel count must divide by the
+group's size (it raises; the JAX package runs single-device there).  The
+one-shot channels, the exports, the hint file and the per-sample route
+(metric frames, ``spp_chunk``, checkpoints), which the JAX package runs
+without its mesh, run on rank 0; on the per-sample route the other ranks
+wait, then take rank 0's sums.
 """
 
 from __future__ import annotations
@@ -65,6 +75,8 @@ def _progress(i, n, label="Solving"):
 
 
 class BaseIntegrator:
+    group = None     # parallel/dp.Group: the lanes sharded over its ranks
+
     def __init__(self, problem: Problem, settings: IntegratorSettings,
                  base_path: str, points: torch.Tensor | None = None):
         """``points`` (optional, (W*H, 2)) replaces the evaluation grid's
@@ -118,7 +130,14 @@ class BaseIntegrator:
         the BVH route, ``ops/bvh``, which builds them if ``_build/`` holds
         no library of these sources (on the CPU there is nothing to
         load); then each pixel's first separation (``_step0``), which the
-        balanced route reuses."""
+        balanced route reuses.  Under a group it checks that the frame
+        divides over the ranks and makes the group's first collective
+        (NCCL builds its communicator then), which the JAX integrator's
+        compiles for the mesh's widths stand for: PyTorch compiles nothing
+        a width."""
+        self._check_group()
+        if self.group is not None:
+            self.group.barrier()
         if self.device.type == "cuda":
             from ..ops import bvh, queries, resolve
 
@@ -127,6 +146,56 @@ class BaseIntegrator:
             if self.problem.scene.accel == "bvh":
                 bvh.library()
         self._step0()
+
+    def _lead(self) -> bool:
+        """Whether this process writes the outputs: rank 0, or no group."""
+        return self.group is None or self.group.rank == 0
+
+    def _clock(self) -> float:
+        """The solve's clock: ``time.time()``, rank 0's under a group."""
+        return time.time() if self.group is None else self.group.clock()
+
+    def _check_group(self) -> None:
+        g = self.group
+        if g is not None and self.n_pixels % g.size:
+            raise ValueError(f"a frame of {self.n_pixels} pixels does not "
+                             f"divide over {g.size} ranks")
+
+    def _on_lead(self, solve) -> int:
+        """``solve()`` on rank 0 alone while the other ranks wait; then
+        every rank takes rank 0's sums (``_share_from_lead``).  Without a
+        group, ``solve()``."""
+        if self.group is None:
+            return solve()
+        duration_ms = solve() if self._lead() else 0
+        self._share_from_lead()
+        self.rank_walk_steps = self.total_walk_steps if self._lead() else 0
+        return duration_ms
+
+    def _share_from_lead(self):
+        """Rank 0's sums, counts and SOLUTION film on every rank."""
+        g = self.group
+        shape = (self.n_pixels, 3)
+        if not self._lead():
+            self.sum = torch.zeros(shape, device=self.device)
+            self.sum_sq = torch.zeros(shape, device=self.device)
+            self.spp = self.total_walk_steps = 0
+            self.total_resolved = self.total_capped = 0
+            self.done_per_pixel = None
+        self.sum = g.broadcast(self.sum.contiguous())
+        self.sum_sq = g.broadcast(self.sum_sq.contiguous())
+        (self.spp, self.total_walk_steps, self.total_resolved,
+         self.total_capped) = (int(v) for v in g.host_sum(
+            [v if self._lead() else 0 for v in (
+                self.spp, self.total_walk_steps, self.total_resolved,
+                self.total_capped)]))
+        if not self._lead():
+            self._put("SOLUTION", self.sum.cpu().numpy() / max(self.spp, 1))
+
+    def _save_hints(self) -> None:
+        """The problem's hint file, written by rank 0 alone."""
+        if self._lead():
+            self.problem.hint_cache_save()
 
     def _step0(self):
         """Each pixel's first separation, (rd0, in_shell0, contrib0), once
@@ -177,6 +246,8 @@ class BaseIntegrator:
         film.put_frame(vals)
 
     def render_dirichlet_sdf(self):
+        if not self._lead():
+            return
         scene = self.problem.scene
         if scene.dirichlet is not None:
             d, _ = dirichlet_distance(scene, self.eval_points)
@@ -186,6 +257,8 @@ class BaseIntegrator:
         self._put("DIRICHLET_SDF", np.repeat(vals[:, None], 3, -1))
 
     def render_silhouette_sdf(self):
+        if not self._lead():
+            return
         scene = self.problem.scene
         if scene.neumann is not None:
             vals = Q.closest_silhouette(scene.neumann.gs,
@@ -195,6 +268,8 @@ class BaseIntegrator:
         self._put("NEUMANN_SDF", np.repeat(vals[:, None], 3, -1))
 
     def render_source(self):
+        if not self._lead():
+            return
         scene = self.problem.scene
         if scene.source is not None:
             vals = (scene.source.sample(self.eval_points)
@@ -204,12 +279,16 @@ class BaseIntegrator:
         self._put("SOURCE", vals)
 
     def export_image(self, channel: str, file_name: str):
+        if not self._lead():
+            return
         for ext in (".exr", ".png"):
             path = os.path.join(self.base_path, file_name + ext)
             log_info("Exporting image to %s", path)
             self.films[channel].save(path)
 
     def export_energy(self, channel: str, tone: str, file_name: str):
+        if not self._lead():
+            return
         for ext in (".exr", ".png"):
             path = os.path.join(self.base_path, file_name + ext)
             log_info("Exporting energy to %s", path)
@@ -266,9 +345,13 @@ class UniformIntegrator(BaseIntegrator):
         the balanced route rescales each pixel's sums by its completed
         samples (``done_per_pixel``) and the per-sample route stops
         between samples once one ran and the budget is spent, its mean
-        over the samples it ran (``spp``)."""
+        over the samples it ran (``spp``).  Under a group the balanced
+        route shards its lanes over the ranks, and the per-sample route
+        runs on rank 0 (``_on_lead``)."""
+        self._check_group()
         if metrics_on(self.settings) or spp_chunk is not None:
-            return self._solve_per_sample(time_budget_s)
+            return self._on_lead(lambda: self._solve_per_sample(
+                time_budget_s))
         return self._solve_persistent(time_budget_s)
 
     def _solve_persistent(self, time_budget_s: float | None = None) -> int:
@@ -283,7 +366,7 @@ class UniformIntegrator(BaseIntegrator):
         check_neumann(scene)
         eps = float(s.epsilonShell)
         spp = int(s.samplesPerPixel)
-        start = time.time()
+        start = self._clock()
         rd0, in_shell0, contrib0, resolved = self._balanced_inputs()
         cache, key = self._cost_cache()
         rates = self._rate_cache()
@@ -300,16 +383,18 @@ class UniformIntegrator(BaseIntegrator):
             start_time=start, rate0=rates.get(self.n_pixels),
             rate_sink=lambda r: rates.__setitem__(self.n_pixels, r),
             iter0=self._iter_walls(0),
-            iter_sink=lambda w: self._keep_iter_walls(0, w))
+            iter_sink=lambda w: self._keep_iter_walls(0, w),
+            group=self.group)
         self.sum, self.sum_sq, self.spp = out.image, out.image_sq, spp
         self.done_per_pixel = out.done if (out.done < spp).any() else None
         self.total_walk_steps = out.steps
+        self.rank_walk_steps = sum(r["rank_steps"] for r in out.rounds)
         self.total_resolved = out.resolved
         self.total_capped = out.capped
         self.balance_rounds = out.rounds
         sol = out.image.cpu().numpy()              # waits for the device
         duration_ms = int((time.time() - start) * 1000)
-        self.problem.hint_cache_save()
+        self._save_hints()
         self._put("SOLUTION", sol / max(spp, 1))
         return duration_ms
 
@@ -356,6 +441,7 @@ class UniformIntegrator(BaseIntegrator):
                                   str(int((time.time() - start) * 1000)))
             _progress(i + 1, spp)
         self.total_walk_steps = int(steps)      # waits for the device
+        self.rank_walk_steps = self.total_walk_steps
         self.total_resolved = int(resolved)
         self.total_capped = int(capped)
         duration_ms = int((time.time() - start) * 1000)

@@ -21,6 +21,10 @@ Each of its iterations seeds the stage generators from (run seed,
 phase, round, iteration) under a root of its own (``balanced_seed``),
 so its streams never meet the per-sample route's.  Each lane draws its
 own numbers, so the lanes that share a pixel sample independently.
+
+Across the ranks of a group (``parallel/dp.py``) each rank draws from its
+own streams: ``fold_rank`` folds the rank into a seed, the counterpart of
+the JAX package's ``fold_in(key, axis_index)``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 STAGES = ("neumann", "walk", "source", "route", "guide", "uniform")
 _MASK64 = (1 << 64) - 1
 BALANCED_ROOT = 0xBA1A9CED   # mixed into every balanced-solve seed
+RANK_ROOT = 0x5EED0F4A       # mixed into every rank's seed but rank 0's
 
 
 def run_seed() -> int:
@@ -71,6 +76,16 @@ def balanced_seed(seed: int, phase: int, round_i: int) -> int:
     h = _splitmix64(_splitmix64(seed & _MASK64) ^ BALANCED_ROOT)
     h = _splitmix64(h ^ (phase & _MASK64))
     return _splitmix64(h ^ (round_i & _MASK64)) >> 1
+
+
+def fold_rank(seed: int, rank: int) -> int:
+    """The seed of rank ``rank``'s streams.  Rank 0 keeps ``seed``, so
+    that a group of one rank draws what no group draws; every other rank
+    draws from a seed mixed with its rank."""
+    if rank == 0:
+        return seed
+    h = _splitmix64(_splitmix64(seed & _MASK64) ^ RANK_ROOT)
+    return _splitmix64(h ^ (rank & _MASK64)) >> 1
 
 
 def stage_generators(device: torch.device) -> dict[str, torch.Generator]:
