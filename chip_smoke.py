@@ -270,10 +270,18 @@ and never prints its last line:
    Edge cases: no lane live, lane N - 1 alone (for B1 on EDGE_LANES of
    its subset), rays whose hits lie past tmax, balls that hold no prim.  Each record: call and device ms, host
    us, the plain version's ms on its lanes, the bound (the lanes' inputs
-   and outputs and the tree read once, ``bound_ms``; and at the mean
-   nodes a lane visits, counted by the plain version, ``bound_visits_ms``)
-   and its launches on [11b] (B1) and [11d] (B2-B4); B1 in 3D has its own
-   record (``closest_point_bvh_3d``, launches on [11c]).
+   and outputs and the tree's fields read once, or the operations of
+   the mean nodes a lane visits, ``bound_ms``; and the bytes at those
+   visits, ``bound_visits_ms``) and its launches on [11b] (B1) and [11d]
+   (B2-B4); B1 in 3D has its own record (``closest_point_bvh_3d``,
+   launches on [11c]).  The visits are the kernel's own count for B1 and
+   B4 (``visits=``; the plain versions count pruned pops, or level
+   pairs, beside it as ``plain_mean_visits``) and the plain version's
+   pops in the kernel's order for B2 and B3.  B1 and B4 read the packed
+   trees (``ops/bvh.pack_trees``): their records add the ``-Xptxas -v``
+   registers and local memory of their entries (a stack frame or a
+   spill fails the phase) and the packs' bytes and the ms of building
+   them anew.
 11b. lobed_u (1024^2, depth 64, eps 1, BVH_SPP samples) on the BVH route
    through ``run_expr(accel="bvh")`` (the balanced route): B1 launches and
    K1-K3 do not; the film within 4 combined standard errors of [4]'s
@@ -287,7 +295,9 @@ and never prints its last line:
    route (the unfused step: no band grid): a finite film, B2-B4 launch;
    printed, not gated: its depth-capped share and walk-steps/s against
    [8]'s band route, and its share of pixel channels within 4 combined
-   standard errors of [8]'s film.
+   standard errors of [8]'s film; then the device ms by kernel of
+   BVH_TRACE_STEPS depth steps of its walks under
+   ``utils/profiling.profile_trace``.
 
 12. The multi-rank path (``parallel/dp.py``; the lanes sharded over the
    ranks of a process group), after every kernel is built.
@@ -481,6 +491,8 @@ CUBE_FINE = 33               # [11c]: the cube's squares a face side
 CUBE_FINE_SPP = 4            # [11c]: samples of each of its 1,024 lanes a
 #                              point (4,096 walks: a standard error of at
 #                              most 0.008 against the 0.07 bound)
+BVH_TRACE_STEPS = 2          # [11d]: depth steps under profile_trace
+BVH_TRACE_TOP = 12           # [11d]: kernels printed, by device ms
 FLOPS_PER_VISIT = 36         # [11a]'s bound: float32 operations a node
 #                              visit takes at the least (three box
 #                              distances in 3D, 12 each)
@@ -3572,26 +3584,91 @@ def edge_masks(n: int, device):
             ("lane N - 1", last))
 
 
-def tree_once_bytes(gs, sil: bool = False) -> int:
-    """Bytes of a traversal's tables, each read once: the prim tree, its
-    leaf rows and corners (and subtree measures), or the entities' tree,
-    cones and entities."""
-    fields = (("sil_bb_min", "sil_bb_max", "sil_left", "sil_right",
-               "sil_leaf", "sil_cone_axis", "sil_cone_cos", "sil_p0",
-               "sil_p1", "sil_n1", "sil_n2", "sil_always") if sil else
-              ("bb_min", "bb_max", "left", "right", "leaf_prims", "corners"))
-    return sum(getattr(gs, f).numel() * getattr(gs, f).element_size()
-               for f in fields)
+PRIM_TREE = ("bb_min", "bb_max", "left", "right", "leaf_prims", "corners")
+SIL_TREE = ("sil_bb_min", "sil_bb_max", "sil_left", "sil_right", "sil_leaf",
+            "sil_cone_axis", "sil_cone_cos", "sil_p0", "sil_p1", "sil_n1",
+            "sil_n2", "sil_always")
+
+
+def tree_once_bytes(gs, fields=PRIM_TREE) -> int:
+    """Bytes of the tables a traversal's function needs, each read once:
+    the tree's own fields (the prim tree, its leaf rows and corners for
+    B1-B3; SIL_TREE, the entities' tree and the entities, for B4), not
+    the padded packs B1 and B4 read them from (a field the set lacks, as
+    a 2D set's ``sil_p1``, counts nothing)."""
+    return sum(t.numel() * t.element_size() for t in (
+        getattr(gs, f) for f in fields) if t is not None)
+
+
+def ptxas_of(kernel: str) -> dict:
+    """``-Xptxas -v``'s notes on each entry of ``csrc/bvh.cu`` whose name
+    holds ``kernel``, by dimension: registers, stack frame and spill
+    bytes."""
+    import re
+
+    from elaina_tpu_torch.ops import bvh as B
+
+    out, entry = {}, None
+    for line in B.build_log().splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            entry = None
+            if kernel + "I" in m.group(1):
+                dim = re.search(r"ILi(\d)E", m.group(1))[1]
+                entry = f"{kernel}<{dim}D>"
+                out[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[entry].update(stack_frame=int(m[1]), spill_stores=int(m[2]),
+                              spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m[1])
+    return out
+
+
+def pack_report(gs, label: str) -> dict:
+    """The set's packs: their bytes, and the ms of building them anew
+    (``pack_trees`` on the card), printed."""
+    import torch
+
+    from elaina_tpu_torch.ops import bvh as B
+
+    packs, ms = timed_once(lambda: B.pack_trees(gs))
+    sizes = {k: v.numel() * v.element_size() for k, v in packs.items()}
+    if not all(torch.equal(v, getattr(gs, k)) for k, v in packs.items()):
+        raise RuntimeError(f"{label}: the packs built again differ")
+    log(f"    packs of {label}: {sizes} bytes ({sum(sizes.values())} in all, "
+        f"the trees' own fields {gs.tree_bytes()}), built in {ms:.3f} ms "
+        f"(one call, its index sync included)")
+    return {"pack_bytes": sizes, "pack_build_ms": ms}
+
+
+def ptxas_report(kernel: str) -> dict:
+    """``ptxas_of(kernel)``, printed; raises on local memory (a stack
+    frame or a spill) in any entry."""
+    notes = ptxas_of(kernel)
+    log(f"    ptxas {kernel}: {notes}")
+    bad = [k for k, v in notes.items()
+           if v.get("stack_frame") or v.get("spill_stores")
+           or v.get("spill_loads")]
+    if not notes or bad:
+        raise RuntimeError(f"{kernel}: local memory in {bad or 'no entry'}")
+    return notes
 
 
 def bvh_record(kernels, name, err, fn, plain_ms, lanes: int, lane_bytes,
-               tree_bytes: int, visits, dim: int, shape: str, **extra):
+               tree_bytes: int, mean_visits: float, dim: int, shape: str,
+               **extra):
     """A B-kernel's record: ``bound_ms`` from the lanes' inputs and outputs
-    and the tree read once, ``bound_visits_ms`` at the mean nodes a lane
-    visits (the plain version's count, each visit reading a node's box,
-    children and leaf row, 8 D + 24 bytes), both with FLOPS_PER_VISIT
-    operations a visit."""
-    mean_visits = float(visits.double().mean())
+    and the tree's fields read once, ``bound_visits_ms`` with each of the
+    ``mean_visits`` nodes a lane visits reading a node's box, children
+    and leaf row (8 D + 24 bytes), both with FLOPS_PER_VISIT operations a
+    visit."""
     flops = lanes * mean_visits * FLOPS_PER_VISIT
     v_ms, v_by = bound(lanes * (lane_bytes + mean_visits * (8 * dim + 24)),
                        flops)
@@ -3600,9 +3677,20 @@ def bvh_record(kernels, name, err, fn, plain_ms, lanes: int, lane_bytes,
                 bound_visits_ms=v_ms, bound_visits_by=v_by, **extra)
 
 
-def check_b1(kernels, name, gs, q, label: str) -> None:
+def kernel_visits(fn, n: int, device) -> float:
+    """The mean nodes a lane's descent reads, from the kernel's own count
+    (``fn(visits)`` fills it)."""
+    import torch
+
+    visits = torch.zeros(n, dtype=torch.int32, device=device)
+    fn(visits)
+    return float(visits.double().mean())
+
+
+def check_b1(kernels, name, gs, q, label: str, **extra) -> None:
     """B1 on every lane of q against its plain version on a strided subset
-    (and on EDGE_LANES of it under each edge mask)."""
+    (and on EDGE_LANES of it under each edge mask); ``extra`` goes into
+    its record."""
     import torch
 
     from elaina_tpu_torch.ops import bvh as B
@@ -3610,6 +3698,8 @@ def check_b1(kernels, name, gs, q, label: str) -> None:
     n = q.shape[0]
     sub = strided(n, BVH_PLAIN_LANES, q.device)
     d, ids = B.closest_point_bvh(gs, q)
+    k_visits = kernel_visits(
+        lambda v: B.closest_point_bvh(gs, q, visits=v), n, q.device)
     visits = torch.zeros(sub.numel(), dtype=torch.int64, device=q.device)
     qs = q[sub].contiguous()
     (d_p, ids_p), plain_ms = timed_once(
@@ -3626,15 +3716,18 @@ def check_b1(kernels, name, gs, q, label: str) -> None:
                                f"({mlabel})")
         err = max(err, check_ids_tied(name, gs, qe[live], dm[live],
                                       dmp[live], im[live], imp[live])[0])
+    p_visits = float(visits.double().mean())
     log(f"    {name} ({label}): {n} lanes, the plain version on "
         f"{sub.numel()}: max err {err:.3g}, {ties} ids differ on a tie; "
-        f"mean nodes visited {float(visits.double().mean()):.2f}; edge "
+        f"mean nodes visited {k_visits:.2f} (the kernel's reads, the "
+        f"bound's), {p_visits:.2f} (the plain version's pops); edge "
         f"masks (half, none, lane N - 1) on {qe.shape[0]} of them equal")
     bvh_record(kernels, name, err, lambda: B.closest_point_bvh(gs, q),
-               plain_ms, n, 4 * gs.dim + 8, tree_once_bytes(gs), visits,
+               plain_ms, n, 4 * gs.dim + 8, tree_once_bytes(gs), k_visits,
                gs.dim, f"{n} lanes x {gs.n_prims} prims ({label}); the "
                f"plain version on {sub.numel()} of them",
-               plain_lanes=int(sub.numel()))
+               plain_lanes=int(sub.numel()), plain_mean_visits=p_visits,
+               **extra)
 
 
 def bvh_lanes(conf_3d: str, device):
@@ -3689,7 +3782,8 @@ def check_b2(kernels, gs, o, d, tmax, live) -> None:
                 rec = (plain_ms, visits)
     bvh_record(kernels, "ray_bvh", err,
                lambda: B.ray_bvh(gs, o, d, tmax, False, live), rec[0], n,
-               8 * gs.dim + 14, tree_once_bytes(gs), rec[1], gs.dim,
+               8 * gs.dim + 14, tree_once_bytes(gs),
+               float(rec[1].double().mean()), gs.dim,
                f"{n} walk rays (live {int(live.sum())}) x {gs.n_prims} "
                f"triangles, closest hit")
 
@@ -3737,12 +3831,12 @@ def check_b3(kernels, gs, q, R, u, live) -> None:
                lambda: B.sample_in_ball_bvh(gs, q, R, u, live), rec[0], n,
                4 * gs.dim + 9 + 8,
                tree_once_bytes(gs) + 4 * (gs.n_prims + gs.left.numel()),
-               rec[1], gs.dim,
+               float(rec[1].double().mean()), gs.dim,
                f"{n} lanes (live {int(live.sum())}) x {gs.n_prims} "
                f"triangles, star radii")
 
 
-def check_b4(kernels, gs, q, live, on) -> None:
+def check_b4(kernels, gs, q, live, on, **extra) -> None:
     """B4 against its plain version on the live lanes, against the port's
     dense sweep on the live lanes off the Neumann boundary (``on`` (N,)
     bool marks the lanes on it: there a view vector lies in the surface,
@@ -3758,6 +3852,9 @@ def check_b4(kernels, gs, q, live, on) -> None:
 
     n = q.shape[0]
     d = B.closest_silhouette_bvh(gs, q, live)
+    k_visits = kernel_visits(
+        lambda v: B.closest_silhouette_bvh(gs, q, live, visits=v), n,
+        q.device)
     visits = torch.zeros(n, dtype=torch.int64, device=q.device)
     d_p, plain_ms = timed_once(
         lambda: B.closest_silhouette_bvh_plain(gs, q, live, visits=visits))
@@ -3789,13 +3886,17 @@ def check_b4(kernels, gs, q, live, on) -> None:
         f"within TOL of the plain version, and of the dense sweep on the "
         f"{int(off.sum())} off the boundary (max err {err:.3g}); on the "
         f"{int(onl.sum())} on it, {int(agree.sum())} agree with the dense "
-        f"sweep; edge masks equal; plain {plain_ms:.1f} ms")
+        f"sweep; edge masks equal; plain {plain_ms:.1f} ms; the kernel "
+        f"reads {k_visits:.2f} nodes a lane (the bound's), the plain "
+        f"version expands {float(visits.double().mean()):.2f} (lane, node) "
+        f"pairs a lane")
     bvh_record(kernels, "closest_silhouette_bvh", err,
                lambda: B.closest_silhouette_bvh(gs, q, live), plain_ms, n,
-               4 * gs.dim + 1 + 4, tree_once_bytes(gs, sil=True), visits,
+               4 * gs.dim + 1 + 4, tree_once_bytes(gs, SIL_TREE), k_visits,
                gs.dim, f"{n} lanes (live {int(live.sum())}) x "
                f"{gs.sil_p0.shape[0]} silhouette edges",
-               plain_counts="(lane, node) pairs a level expands")
+               plain_mean_visits=float(visits.double().mean()),
+               plain_counts="(lane, node) pairs a level expands", **extra)
 
 
 def phase_bvh_kernels(conf_2d: str, conf_bumpy: str, conf_3d: str, device,
@@ -3805,16 +3906,22 @@ def phase_bvh_kernels(conf_2d: str, conf_bumpy: str, conf_3d: str, device,
     import torch
 
     log("[11a] BVH traversal kernels against their plain versions")
+    ptx_b1 = ptxas_report("closest_point_bvh_kernel")
+    ptx_b4 = ptxas_report("closest_silhouette_bvh_kernel")
     problem = bvh_problem(conf_2d, device)
+    gs = problem.scene.dirichlet.gs
     q = torch.as_tensor(frame_points(conf_2d), device=device)
-    check_b1(kernels, "closest_point_bvh", problem.scene.dirichlet.gs, q,
-             "lobed_u's frame points")
+    check_b1(kernels, "closest_point_bvh", gs, q, "lobed_u's frame points",
+             ptxas=ptx_b1, **pack_report(gs, "lobed_u's Dirichlet set"))
     problem = bvh_problem(conf_bumpy, device)
+    gs = problem.scene.dirichlet.gs
     q = torch.as_tensor(frame_points(conf_bumpy), device=device)
-    check_b1(kernels, "closest_point_bvh_3d", problem.scene.dirichlet.gs, q,
-             "bumpy3d_5's frame points")
+    check_b1(kernels, "closest_point_bvh_3d", gs, q,
+             "bumpy3d_5's frame points", ptxas=ptx_b1,
+             **pack_report(gs, "bumpy3d_5's Dirichlet set"))
     problem, state, R_B = bvh_lanes(conf_3d, device)
     gs = problem.scene.neumann.gs
+    packs = pack_report(gs, "neumann3d's Neumann set")
     live = state.active.contiguous()
     g = torch.Generator(device=device).manual_seed(12)
     d = torch.nn.functional.normalize(
@@ -3822,7 +3929,8 @@ def phase_bvh_kernels(conf_2d: str, conf_bumpy: str, conf_3d: str, device,
     u = torch.rand(R_B.shape, generator=g, device=device)
     check_b2(kernels, gs, state.pos, d.contiguous(), R_B, live)
     check_b3(kernels, gs, state.pos, R_B, u, live)
-    check_b4(kernels, gs, state.pos, live, state.on_neumann)
+    check_b4(kernels, gs, state.pos, live, state.on_neumann, ptxas=ptx_b4,
+             **packs)
 
 
 def phase_bvh_main(conf_bvh: str, device, card: str, keep: dict) -> dict:
@@ -3927,7 +4035,57 @@ def phase_bvh_3d(conf_bvh: str, card: str, keep: dict) -> dict:
         f"{band['capped']:.4f}; walk-steps/s {bvh['rate']:.6g} against "
         f"[8]'s {band['rate']:.6g}; {share:.5f} of pixel channels within 4 "
         f"combined standard errors (printed, not gated; {card})")
+    del integ
+    bvh_step_split(conf_bvh, card)
     return launches
+
+
+def bvh_step_split(conf_bvh: str, card: str) -> None:
+    """[11d]'s reading: the device ms by kernel of BVH_TRACE_STEPS depth
+    steps of the BVH route's walks (after WARM_STEPS), through
+    ``utils/profiling.profile_trace`` (its Chrome trace's kernel
+    events)."""
+    import glob
+
+    import torch
+
+    from elaina_tpu_torch.solver.wost import wost_depth_step
+    from elaina_tpu_torch.utils.ab import load_integrator, warm_state
+    from elaina_tpu_torch.utils.profiling import profile_trace
+    from elaina_tpu_torch.utils.rng import sample_generators
+
+    device = torch.device("cuda", 0)
+    problem, integ = load_integrator(conf_bvh, device, 1, accel="bvh")
+    state = warm_state(problem, integ, WARM_STEPS)
+    gens = sample_generators(0, 1, device)
+    eps = float(integ.settings.epsilonShell)
+    live = int(state.active.sum())
+    trace_dir = os.path.join(os.path.dirname(conf_bvh), "trace_bvh")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with profile_trace(trace_dir):
+        for _ in range(BVH_TRACE_STEPS):
+            wost_depth_step(problem.scene, state, gens, eps)
+        torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    by = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            k = by.setdefault(e["name"], [0.0, 0])
+            k[0] += e.get("dur", 0.0) / 1e3
+            k[1] += 1
+    total = sum(v[0] for v in by.values())
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:BVH_TRACE_TOP]
+    log(f"    {BVH_TRACE_STEPS} BVH depth steps of {state.pos.shape[0]} lanes "
+        f"({live} live after {WARM_STEPS}) under profile_trace: device "
+        f"{total:.4f} ms over {sum(v[1] for v in by.values())} kernel "
+        f"launches of {len(by)} kernels, {wall:.1f} ms wall with the "
+        f"profiler on ({card}); by kernel:")
+    for name, (ms, count) in top:
+        log(f"      {ms:.4f} ms, {count} x {name[:100]}")
 
 
 # --------------------------------------------------------------------------- #

@@ -72,6 +72,7 @@ from ..geometry.grid import (BandGrid, CandidateGrid, attach_coords,
                              sil_grid_from_numpy)
 from ..geometry.native import load_obj_native, silhouette_entities_native
 from ..geometry.queries import CHUNKED_DENSE_MAX
+from ..ops.bvh import with_packs
 from ..output.image_io import read_png
 from .config import json_get_optional, json_get_or_throw, load_json_file
 from .evaluation_grid import EvaluationGrid
@@ -226,8 +227,8 @@ def grid_bounds(verts: np.ndarray, aabb_lo, aabb_hi):
 
 def _boundary(verts, indices, colors, device, bvh: bool = False,
               silhouettes: bool = True) -> Boundary:
-    return Boundary(gs=make_geom_set(verts, indices, device, bvh,
-                                     silhouettes),
+    return Boundary(gs=with_packs(make_geom_set(verts, indices, device, bvh,
+                                                silhouettes)),
                     colors=torch.as_tensor(np.require(colors, np.float32,
                                                       ("C", "W")),
                                            device=device))
@@ -587,6 +588,7 @@ class Problem:
                         ("neumann", self.scene.neumann)):
             if b is not None and b.gs.has_tree:
                 out[f"{name}_tree"] = b.gs.tree_bytes()
+                out[f"{name}_packs"] = b.gs.pack_bytes()
         for prefix, bg in (("sil", self.scene.n_sgrid),
                            ("band", self.scene.n_bgrid)):
             if bg is not None:

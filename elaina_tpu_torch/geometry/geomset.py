@@ -6,7 +6,9 @@ the BVH route only (``make_geom_set(..., bvh=True)``, which
 them: the prim tree and its leaf table, the subtree measures above
 ``CHUNKED_DENSE_MAX`` prims (the in-ball sample's descent), and above
 ``CHUNKED_DENSE_MAX`` silhouette entities their own tree with SNCH
-normal cones.  The queries descend them above that count.  On the grid
+normal cones; and, built from those on the device by the ops layer
+(``ops/bvh.with_packs``), the packed forms B1 and B4 read.  The
+queries descend them above that count.  On the grid
 route they are None, and the grids and the dense and chunked sweeps
 serve.
 """
@@ -28,6 +30,7 @@ MAX_STACK = 64             # the traversal kernels' stack (csrc/bvh.cu)
 TREE_FIELDS = ("bb_min", "bb_max", "left", "right", "leaf_prims", "corners",
                "node_measure", "sil_bb_min", "sil_bb_max", "sil_left",
                "sil_right", "sil_leaf", "sil_cone_axis", "sil_cone_cos")
+PACK_FIELDS = ("node_pack", "leaf_pack", "sil_node_pack", "sil_ent_pack")
 
 
 @dataclass
@@ -58,6 +61,13 @@ class GeomSet:
     sil_cone_axis: torch.Tensor | None = None  # (Ms, D) unit
     sil_cone_cos: torch.Tensor | None = None   # (Ms,) <= -1.5: no prune
     sil_depth: int = -1
+    # B1's and B4's packed trees (``ops/bvh.with_packs`` builds them from
+    # the fields above; None until then): (rows, width) int32 words,
+    # floats by their bits
+    node_pack: torch.Tensor | None = None      # (M, 4 D + 4) children
+    leaf_pack: torch.Tensor | None = None      # (L, ...) corners and ids
+    sil_node_pack: torch.Tensor | None = None  # (Ms, ...) cones, children
+    sil_ent_pack: torch.Tensor | None = None   # (Ls, ...) entities
 
     @property
     def dim(self) -> int:
@@ -82,6 +92,11 @@ class GeomSet:
         """Bytes of the trees' tensors on the device."""
         return sum(t.numel() * t.element_size() for t in (
             getattr(self, k) for k in TREE_FIELDS) if t is not None)
+
+    def pack_bytes(self) -> int:
+        """Bytes of B1's and B4's packed trees on the device."""
+        return sum(t.numel() * t.element_size() for t in (
+            getattr(self, k) for k in PACK_FIELDS) if t is not None)
 
     def prim_verts(self, pid: torch.Tensor):
         """Corner tuple of (..., D) at prim ids (negatives -> 0).

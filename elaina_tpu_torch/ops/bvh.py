@@ -5,11 +5,16 @@ in ``elaina_tpu/geometry/queries.py``, not Pallas kernels):
 ``_closest_point_bvh_one`` (B1), ``_ray_bvh_one`` (B2, closest hit and any
 hit), ``_sample_in_ball_bvh_one`` (B3) and ``_closest_silhouette_bvh_one``
 (B4).  The CUDA sources are in ``csrc/bvh.cu`` (built and bound as
-``ops/cuda.py`` says): one thread runs one lane's descent.  Each wrapper
-takes the set (``GeomSet`` with its trees), checks its inputs, allocates
-its outputs, launches on the current stream and counts its launches in
-``<wrapper>.launches``.  A CPU tensor takes the plain PyTorch version
-beside the kernel; a CUDA tensor launches the kernel or raises.
+``ops/cuda.py`` says): each lane's whole descent runs in one launch.  B2
+and B3 read the tree's fields; B1 and B4 read the packed forms that
+``pack_trees`` builds once for each set (node records with both
+children's boxes, leaves in leaf order, B4's cone constants), kept on
+the set by ``with_packs`` where it is uploaded or first queried, with
+four threads a lane in 3D.  Each
+wrapper takes the set (``GeomSet`` with its trees), checks its inputs,
+allocates its outputs, launches on the current stream and counts its
+launches in ``<wrapper>.launches``.  A CPU tensor takes the plain PyTorch
+version beside the kernel; a CUDA tensor launches the kernel or raises.
 
 The plain versions of B1 and B2 run the descents in lockstep over the
 lanes, each with its own (N, stack) int32 stack: an iteration pops one
@@ -61,16 +66,27 @@ HALF_PI = float(torch.tensor(math.pi / 2, dtype=torch.float32))
 U_MAX = 1.0 - 1e-7   # the descent's rescaled u stays below 1 (float32)
 
 _SIGNATURES = {
-    "closest_point_bvh_launch": [VP, VP, VP, VP, VP, VP, VP, VP, I64, I32,
-                                 VP, VP, VP],
+    "closest_point_bvh_launch": [VP, VP, VP, VP, VP, VP, I32, I32, I64, I32,
+                                 VP, VP, VP, VP],
     "ray_bvh_launch": [VP, VP, VP, VP, VP, VP, VP, VP, VP, VP, I64, I32,
                        I32, VP, VP, VP, VP],
     "sample_in_ball_bvh_launch": [VP, VP, VP, VP, VP, VP, VP, VP, VP, VP,
                                   VP, VP, I64, I32, VP, VP, VP],
-    "closest_silhouette_bvh_launch": [VP, VP, VP, VP, VP, VP, VP, VP, VP,
-                                      VP, VP, VP, VP, VP, I64, I32, VP,
-                                      VP],
+    "closest_silhouette_bvh_launch": [VP, VP, VP, VP, VP, VP, I32, I64, I32,
+                                      VP, VP, VP],
 }
+
+# The packed trees' row widths in 32-bit words, by dimension (csrc/bvh.cu
+# lays them out; ``pack_trees`` builds them)
+NODE_W = {2: 12, 3: 16}      # [lo_l, hi_l, lo_r, hi_r, id_l, id_r, ref_l,
+#                              ref_r]: a node's children
+LEAF_W = {2: 20, 3: 48}      # a prim leaf: 2D 4 x [a, b] + 4 ids; 3D 4 x
+#                              [a, b, c, id, 0, 0]
+CONE_W = {2: 8, 3: 12}       # [c, r, axis, cone_cos, theta, leaf (, 0, 0)]
+SIL_W = {2: 20, 3: 32}       # a silhouette node: cone words, node record,
+#                              zero pad
+ENT_W = {2: 8, 3: 16}        # an entity: 2D [p0, n1, n2, flag, 0]; 3D [p0,
+#                              p1, n1, n2, flag, 0, 0, 0]; 4 a leaf
 
 
 def library() -> ctypes.CDLL:
@@ -446,6 +462,130 @@ def closest_silhouette_bvh_plain(gs: GeomSet, q, live=None, visits=None):
 
 
 # --------------------------------------------------------------------------- #
+# the packed trees of B1 and B4
+# --------------------------------------------------------------------------- #
+
+
+def _words(x):
+    """A float32 tensor's bits as int32 words."""
+    return x.contiguous().view(torch.int32)
+
+
+def _leaf_numbers(left):
+    """(M,) int32: each leaf's number, leaves numbered in node order; -1
+    at an inner node."""
+    inner = left >= 0
+    return torch.where(inner, -1,
+                       torch.cumsum(~inner, 0, dtype=torch.int32) - 1)
+
+
+def _node_records(bb_min, bb_max, left, right):
+    """(M, NODE_W) int32: each inner node's children's boxes, node ids and
+    refs (an inner child's id, ~(leaf number) of a leaf); a leaf's row
+    holds ids -1 and zeros."""
+    M = left.shape[0]
+    inner = left >= 0
+    ref = torch.where(inner, torch.arange(M, dtype=torch.int32,
+                                          device=left.device),
+                      ~_leaf_numbers(left))
+    l, r = left.clamp(min=0).long(), right.clamp(min=0).long()
+    boxes = torch.cat([_words(bb_min[l]), _words(bb_max[l]),
+                       _words(bb_min[r]), _words(bb_max[r])], 1)
+    refs = torch.stack([ref[l], ref[r]], 1)
+    zero = torch.zeros((), dtype=torch.int32, device=left.device)
+    return torch.cat([torch.where(inner[:, None], boxes, zero),
+                      torch.stack([left, right], 1),
+                      torch.where(inner[:, None], refs, zero)], 1)
+
+
+def _prim_leaves(gs: GeomSet, leaf_nodes):
+    """(L, LEAF_W) int32: each leaf's prim corners and ids in slot order
+    (a pad slot: id -1, zero corners)."""
+    D = gs.dim
+    pids = gs.leaf_prims[leaf_nodes]                        # (L, LEAF)
+    c = gs.corners[pids.clamp(min=0).long()]                # (L, LEAF, D*D)
+    c = torch.where((pids >= 0)[..., None], _words(c), 0)
+    L = pids.shape[0]
+    if D == 2:
+        return torch.cat([c.reshape(L, -1), pids], 1)
+    pad = torch.zeros((L, LEAF_SIZE, 2), dtype=torch.int32, device=c.device)
+    return torch.cat([c, pids[..., None], pad], 2).reshape(L, -1)
+
+
+def _entity_leaves(gs: GeomSet, leaf_nodes):
+    """(L, LEAF x ENT_W) int32: each leaf's silhouette entities in slot
+    order, flag 1 / 0 for ``sil_always``, -1 (and zeros) at a pad."""
+    D = gs.dim
+    e = gs.sil_leaf[leaf_nodes]                             # (L, LEAF)
+    ec = e.clamp(min=0).long()
+    parts = (gs.sil_p0, gs.sil_p1, gs.sil_n1, gs.sil_n2) if D == 3 else (
+        gs.sil_p0, gs.sil_n1, gs.sil_n2)                    # 2D: no p1
+    body = torch.where((e >= 0)[..., None],
+                       _words(torch.cat([t[ec] for t in parts], 2)), 0)
+    flag = torch.where(e >= 0, gs.sil_always[ec].to(torch.int32), -1)
+    pad = torch.zeros(e.shape + (ENT_W[D] - body.shape[2] - 1,),
+                      dtype=torch.int32, device=e.device)
+    return torch.cat([body, flag[..., None], pad], 2).reshape(e.shape[0], -1)
+
+
+def sil_cone_consts(lo, hi, cone_cos):
+    """(c (M, D), r (M,), theta (M,)) of each node's SNCH cone, computed
+    once for each tree as ``_cone_prune`` computes them at a visit (each
+    a separate elementwise op, so no contraction on the card either)."""
+    return (0.5 * (lo + hi), 0.5 * _norm(hi - lo),
+            torch.arccos(torch.clamp(cone_cos, -1.0, 1.0)))
+
+
+def pack_trees(gs: GeomSet) -> dict:
+    """The packed forms of a set's trees that B1 and B4 read (csrc/bvh.cu
+    lays them out), built on the set's device from its tree fields:
+    ``node_pack`` (M, NODE_W) and ``leaf_pack`` (L, LEAF_W) of the prim
+    tree, ``sil_node_pack`` (Ms, SIL_W) and ``sil_ent_pack`` (Ls, LEAF x
+    ENT_W) of the entities' tree, each present where its tree is.  Rows
+    of int32 words, floats by their bits: copies of the tree's own values
+    but the cone constants (``sil_cone_consts``)."""
+    out = {}
+    if gs.left is not None:
+        leaf_nodes = torch.nonzero(gs.left < 0).flatten()
+        out["node_pack"] = _node_records(gs.bb_min, gs.bb_max, gs.left,
+                                         gs.right)
+        out["leaf_pack"] = _prim_leaves(gs, leaf_nodes)
+    if gs.sil_left is not None:
+        D = gs.dim
+        leaf_nodes = torch.nonzero(gs.sil_left < 0).flatten()
+        c, r, theta = sil_cone_consts(gs.sil_bb_min, gs.sil_bb_max,
+                                      gs.sil_cone_cos)
+        cone = torch.cat([_words(c), _words(r[:, None]),
+                          _words(gs.sil_cone_axis),
+                          _words(gs.sil_cone_cos[:, None]),
+                          _words(theta[:, None]),
+                          _leaf_numbers(gs.sil_left)[:, None]], 1)
+        rec = _node_records(gs.sil_bb_min, gs.sil_bb_max, gs.sil_left,
+                            gs.sil_right)
+
+        def zeros(k):
+            return torch.zeros((rec.shape[0], k), dtype=torch.int32,
+                               device=rec.device)
+
+        out["sil_node_pack"] = torch.cat(
+            [cone, zeros(CONE_W[D] - cone.shape[1]), rec,
+             zeros(SIL_W[D] - CONE_W[D] - NODE_W[D])], 1)
+        out["sil_ent_pack"] = _entity_leaves(gs, leaf_nodes)
+    return out
+
+
+def with_packs(gs: GeomSet) -> GeomSet:
+    """The set, its packs built by ``pack_trees`` and kept on it where a
+    tree lacks them: once for each set, where the BVH route uploads it
+    (``core/problem.py``) or at its first B1 / B4 call."""
+    if ((gs.left is not None and gs.node_pack is None)
+            or (gs.sil_left is not None and gs.sil_node_pack is None)):
+        for k, v in pack_trees(gs).items():
+            setattr(gs, k, v)
+    return gs
+
+
+# --------------------------------------------------------------------------- #
 # wrappers
 # --------------------------------------------------------------------------- #
 
@@ -490,18 +630,47 @@ def _live_ptr(live):
     return 0 if live is None else live.data_ptr()
 
 
-def closest_point_bvh(gs: GeomSet, q, live=None):
+def _pack_checks(gs: GeomSet, dev, sil: bool = False) -> int:
+    """Check the packs that B1 (the prim tree's) or B4 (the entities'
+    tree's) reads; return the tree's node count."""
+    D = gs.dim
+    M = (gs.sil_left if sil else gs.left).shape[0]
+    L = (M + 1) // 2                     # the leaves of a full binary tree
+    for name, shape in ((("sil_node_pack", (M, SIL_W[D])),
+                         ("sil_ent_pack", (L, LEAF_SIZE * ENT_W[D])))
+                        if sil else (("node_pack", (M, NODE_W[D])),
+                                     ("leaf_pack", (L, LEAF_W[D])))):
+        _check(name, getattr(gs, name), torch.int32, shape, dev)
+    return M
+
+
+def _visit_ptr(visits, n: int, dev) -> int:
+    """The kernel's visit-count pointer: null, or (n,) int32 on the card
+    (the plain versions count another thing: pops, or level pairs)."""
+    if visits is None:
+        return 0
+    _check("visits", visits, torch.int32, (n,), dev)
+    if dev.type == "cpu":
+        raise ValueError("visits is the kernel's count, on a CUDA tensor")
+    return visits.data_ptr()
+
+
+def closest_point_bvh(gs: GeomSet, q, live=None, visits=None):
+    """``visits`` (N,) int32 on the card, where given, gets the nodes and
+    leaves each lane's descent reads."""
     n, dev = _lane_checks(gs, live, q=q)
-    M, tree = _tree_checks(gs, dev)
-    _check("corners", gs.corners, torch.float32,
-           (gs.n_prims, gs.dim * gs.dim), dev)
+    _tree_checks(gs, dev)
+    M = _pack_checks(with_packs(gs), dev)
+    vp = _visit_ptr(visits, n, dev)
     if dev.type == "cpu":
         return closest_point_bvh_plain(gs, q, live)
     d = torch.empty((n,), dtype=torch.float32, device=dev)
     pid = torch.empty((n,), dtype=torch.int32, device=dev)
     _launch(library().closest_point_bvh_launch, q.data_ptr(), _live_ptr(live),
-            *tree, gs.corners.data_ptr(), n, gs.dim, d.data_ptr(),
-            pid.data_ptr(), device=dev)
+            gs.bb_min.data_ptr(), gs.bb_max.data_ptr(),
+            gs.node_pack.data_ptr(), gs.leaf_pack.data_ptr(), M,
+            gs.stack_size, n, gs.dim, vp, d.data_ptr(), pid.data_ptr(),
+            device=dev)
     closest_point_bvh.launches += 1
     return d, pid
 
@@ -556,25 +725,20 @@ def sample_in_ball_bvh(gs: GeomSet, q, R, u, live=None):
 sample_in_ball_bvh.launches = 0
 
 
-def closest_silhouette_bvh(gs: GeomSet, q, live=None):
+def closest_silhouette_bvh(gs: GeomSet, q, live=None, visits=None):
+    """``visits`` as B1's: the nodes each lane's descent reads."""
     n, dev = _lane_checks(gs, live, q=q)
-    M, tree = _tree_checks(gs, dev, sil=True)
-    E = gs.sil_p0.shape[0]
-    _check("sil_cone_axis", gs.sil_cone_axis, torch.float32, (M, gs.dim),
-           dev)
-    _check("sil_cone_cos", gs.sil_cone_cos, torch.float32, (M,), dev)
-    for k in ("p0", "p1", "n1", "n2"):
-        _check(f"sil_{k}", getattr(gs, f"sil_{k}"), torch.float32,
-               (E, gs.dim), dev)
-    _check("sil_always", gs.sil_always, torch.bool, (E,), dev)
+    _tree_checks(gs, dev, sil=True)
+    _pack_checks(with_packs(gs), dev, sil=True)
+    vp = _visit_ptr(visits, n, dev)
     if dev.type == "cpu":
         return closest_silhouette_bvh_plain(gs, q, live)
     d = torch.empty((n,), dtype=torch.float32, device=dev)
     _launch(library().closest_silhouette_bvh_launch, q.data_ptr(),
-            _live_ptr(live), *tree, gs.sil_cone_axis.data_ptr(),
-            gs.sil_cone_cos.data_ptr(), gs.sil_p0.data_ptr(),
-            gs.sil_p1.data_ptr(), gs.sil_n1.data_ptr(), gs.sil_n2.data_ptr(),
-            gs.sil_always.data_ptr(), n, gs.dim, d.data_ptr(), device=dev)
+            _live_ptr(live), gs.sil_bb_min.data_ptr(),
+            gs.sil_bb_max.data_ptr(), gs.sil_node_pack.data_ptr(),
+            gs.sil_ent_pack.data_ptr(), gs.sil_depth + 4, n, gs.dim, vp,
+            d.data_ptr(), device=dev)
     closest_silhouette_bvh.launches += 1
     return d
 

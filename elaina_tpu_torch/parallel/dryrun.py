@@ -184,11 +184,11 @@ def _rank(i: int, n: int, device: str, backend, store: str,
         group.close()
 
 
-def dryrun(n_ranks: int = 2, device: str = "cpu",
+def dryrun(n_ranks: int = 2, device: str = "cuda",
            backend: str | None = None) -> dict:
-    """Spawn ``n_ranks`` ranks on ``device`` ("cpu": gloo; "cuda": NCCL,
-    one card a rank, or ``backend="gloo"`` with every rank on
-    ``cuda:0``), run the five steps, and return rank 0's summary."""
+    """Spawn ``n_ranks`` ranks on ``device`` ("cuda", the default: NCCL,
+    one card a rank, or ``backend="gloo"`` with every rank on ``cuda:0``;
+    "cpu": gloo), run the five steps, and return rank 0's summary."""
     import torch.multiprocessing as mp
 
     dev = device

@@ -25,7 +25,7 @@ virtual devices.
 - ``oversub_lanes`` and the tail width against the JAX package's over a
   grid of (n, spp, lane multiple), in this process.
 - A budgeted 2-rank solve: the same rounds on both ranks.
-- The dry run's five steps.
+- The dry run's five steps, and its default device (the card).
 - ``python -m elaina_tpu_torch run conf.json --devices 2 --device cpu``
   writes one ``result.json`` whose ``walk_steps`` is the sum of its
   ``walk_steps_by_rank``; ``--devices 2`` on the card with fewer cards
@@ -267,6 +267,17 @@ def test_dryrun_on_two_ranks(ranks):
     assert s0 == s1 and s0["ranks"] == 2 and s0["backend"] == "gloo"
     assert s0["uniform_steps"] > 0 and s0["guided_train_steps"] > 0
     assert np.isfinite(s0["train_metric"])
+
+
+def test_dryrun_defaults_to_the_card():
+    """``dryrun()`` runs on the card unless the caller asks for the CPU,
+    as its CLI does."""
+    import inspect
+
+    from elaina_tpu_torch.parallel import dryrun
+
+    assert inspect.signature(dryrun.dryrun).parameters["device"].default \
+        == "cuda"
 
 
 def _small_conf(root: str) -> str:
